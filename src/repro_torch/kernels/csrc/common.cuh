@@ -1,0 +1,45 @@
+// Shared device helpers of the port's kernels: the activation epilogue,
+// operand widening, and the error string the ctypes wrappers report.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// Activation codes; repro_torch/kernels/_build.py holds the same table.
+enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2, ACT_SILU = 3, ACT_GELU = 4 };
+
+__device__ __forceinline__ float apply_act(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return x > 0.f ? x : 0.f;
+    case ACT_LEAKY:                       // slope 0.1, as jax.nn.leaky_relu is called
+      return x >= 0.f ? x : __fmul_rn(0.1f, x);
+    case ACT_SILU:
+      return x / (1.f + expf(-x));
+    case ACT_GELU: {                      // the tanh form (jax.nn.gelu's default)
+      const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+      return 0.5f * x * (1.f + tanhf(inner));
+    }
+    default:
+      return x;
+  }
+}
+
+// Epilogue of both GEMM-like kernels: (acc * scale) + bias, each rounded on
+// its own (no fused multiply-add), the operation order of the plain version.
+__device__ __forceinline__ float scale_bias(float acc, const float* scale, const float* bias,
+                                            int col) {
+  if (scale != nullptr) acc = __fmul_rn(acc, scale[col]);
+  if (bias != nullptr) acc = __fadd_rn(acc, bias[col]);
+  return acc;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

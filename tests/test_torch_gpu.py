@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: without a CUDA device (and nvcc) every test here skips.  On
+the GPU machine run ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_gpu.py``.  Shapes are small and ragged on purpose: the
+main-path shapes are covered by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.dataflow import PoolSpec
+from repro_torch.core.engine import Engine
+from repro_torch.core.quant import quantize
+from repro_torch.kernels import ref
+from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+                                                  sa_conv_plain)
+from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(seed, shape, dev, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("b,k,n", [(1, 130, 190), (5, 300, 257),
+                                   (33, 512, 384), (70, 1000, 129)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_kernel(cuda, b, k, n, wdtype):
+    x, w, bias = _t(0, (b, k), cuda), _t(1, (k, n), cuda, 0.1), \
+        _t(2, (n,), cuda)
+    scale = None
+    if wdtype == "int8":
+        qt = quantize(w)
+        w, scale = qt.q, qt.scale
+    elif wdtype == "bf16":
+        w = w.to(torch.bfloat16)
+    got = sa_fc_matmul(x, w, bias, act="relu", w_scale=scale)
+    want = sa_fc_plain(x, w, bias, act="relu", w_scale=scale)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    one = sa_fc_matmul(x[:1].contiguous(), w, bias, act="relu",
+                       w_scale=scale)
+    assert torch.equal(got[:1], one)
+
+
+@pytest.mark.parametrize("h,ci,p,co,stride,window", [
+    (13, 5, 3, 24, 1, 0), (17, 5, 3, 70, 4, 0), (35, 6, 3, 24, 1, 3),
+    (67, 3, 11, 40, 4, 3), (10, 8, 3, 16, 1, 2)])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+def test_sa_conv_kernel_and_fused_pool(cuda, h, ci, p, co, stride, window,
+                                       act):
+    x, f, bias = _t(0, (2, h, h, ci), cuda), _t(1, (p, p, ci, co), cuda,
+                                                0.2), _t(2, (co,), cuda)
+    kw = dict(stride=stride, act=act, pool_window=window,
+              pool_stride=2 if window else 0)
+    got = sa_conv_implicit(x, f, bias, **kw)
+    torch.testing.assert_close(got, sa_conv_plain(x, f, bias, **kw),
+                               rtol=2e-3, atol=2e-3)
+    if window:
+        conv = sa_conv_implicit(x, f, bias, stride=stride, act=act)
+        assert torch.equal(got, maxpool_act(conv, window=window, stride=2,
+                                            act="none"))
+    one = sa_conv_implicit(x[:1].contiguous(), f, bias, **kw)
+    assert torch.equal(got[:1], one)
+
+
+def test_sa_conv_int8_kernel(cuda):
+    x = _t(0, (2, 12, 12, 6), cuda)
+    qt = quantize(_t(1, (3, 3, 6, 16), cuda, 0.2))
+    bias = _t(2, (16,), cuda)
+    got = sa_conv_implicit(x, qt.q, bias, stride=2, act="relu",
+                           w_scale=qt.scale)
+    want = sa_conv_plain(x, qt.q, bias, stride=2, act="relu",
+                         w_scale=qt.scale)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.uint8,
+                                   torch.int32])
+def test_pool_kernel(cuda, dtype):
+    if dtype == torch.float32:
+        x = _t(0, (2, 9, 9, 37), cuda)
+    else:
+        x = torch.randint(0 if dtype == torch.uint8 else -100, 100,
+                          (2, 9, 9, 37), dtype=dtype, device=cuda)
+    for act in ("none", "relu"):
+        assert torch.equal(maxpool_act(x, window=3, stride=2, act=act),
+                           ref.maxpool_act(x, window=3, stride=2, act=act))
+
+
+def test_engine_declined_fusion_launches_the_pool_kernel(cuda):
+    x, f = _t(0, (2, 15, 15, 8), cuda), _t(1, (3, 3, 8, 32), cuda, 0.2)
+    before = maxpool_act.launches
+    got = Engine(backend="kernels").conv2d(x, f, act="silu",
+                                           pool=PoolSpec(3, 2))
+    assert maxpool_act.launches == before + 1
+    want = Engine(backend="torch").conv2d(x, f, act="silu",
+                                          pool=PoolSpec(3, 2))
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, w = _t(0, (4, 32), cuda), _t(1, (32, 16), cuda)
+    with pytest.raises(TypeError):
+        sa_fc_matmul(x.double(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        sa_fc_matmul(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="devices"):
+        sa_fc_matmul(x, w.cpu())
+    with pytest.raises(ValueError, match="integer map"):
+        maxpool_act(torch.zeros(1, 4, 4, 3, dtype=torch.int8, device=cuda),
+                    window=2, stride=2, act="silu")

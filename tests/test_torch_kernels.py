@@ -1,0 +1,252 @@
+"""The port's kernel modules against the JAX package's kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+kernels run in Pallas interpret mode, as the JAX package's own tests run
+them.  Inputs are made once with numpy from a seed and given to both.
+Tolerances are the reference tests' (tests/test_fc_batch.py,
+tests/test_conv_dispatch.py, tests/test_fused_pool.py).
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as rquant
+from repro.core.dataflow import PoolSpec as RPoolSpec
+from repro.core.engine import Engine as REngine
+from repro.kernels.pool_act import maxpool_act as r_maxpool_act
+from repro.kernels.sa_fc import sa_fc_matmul as r_sa_fc_matmul
+from repro_torch.core import quant
+from repro_torch.core.dataflow import PoolSpec
+from repro_torch.core.engine import Engine
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels.sa_conv_implicit import (SMEM_MAX, THREADS, TPX,
+                                                  conv_geometry,
+                                                  sa_conv_implicit,
+                                                  sa_conv_plain)
+from repro_torch.kernels.sa_fc import row_tile, sa_fc_matmul
+
+RTOL_FC = dict(rtol=3e-4, atol=3e-4)
+RTOL_CONV = dict(rtol=2e-3, atol=2e-3)
+
+
+def _np(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# SA-FC
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,k,n,bb", [
+    (1, 512, 1024, None),      # b=1, whole-batch tile
+    (1, 130, 190, 16),         # b=1 + unaligned k/n
+    (5, 300, 257, 16),         # b below one tile, unaligned k/n
+    (33, 512, 384, 16),        # b not a multiple of the batch tile
+    (64, 1000, 129, 32),       # multiple batch tiles, unaligned n
+])
+def test_sa_fc_matches_reference(b, k, n, bb):
+    x, w = _np(0, (b, k)), _np(1, (k, n))
+    want = r_sa_fc_matmul(jnp.asarray(x), jnp.asarray(w), act="none", bb=bb,
+                          bn=128, bk=128)
+    got = sa_fc_matmul(torch.from_numpy(x), torch.from_numpy(w), act="none")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_FC)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu", "silu",
+                                 "gelu"])
+def test_sa_fc_int8_scale_bias_acts(act):
+    x, w, bias = _np(0, (40, 300), 0.5), _np(1, (300, 200), 0.1), \
+        _np(2, (200,))
+    rq = rquant.quantize(jnp.asarray(w))
+    want = r_sa_fc_matmul(jnp.asarray(x), rq.q, jnp.asarray(bias), act=act,
+                          bb=16, bn=128, bk=128,
+                          w_scale=rq.scale.reshape(1, -1))
+    tq = quant.quantize(torch.from_numpy(w))
+    got = sa_fc_matmul(torch.from_numpy(x), tq.q, torch.from_numpy(bias),
+                       act=act, w_scale=tq.scale.reshape(1, -1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("b,tile", [(1, 1), (3, 4), (13, 16), (64, 64),
+                                    (130, 64)])
+def test_sa_fc_row_tile(b, tile):
+    assert row_tile(b) == tile
+
+
+def test_sa_fc_rows_do_not_depend_on_the_batch():
+    x, w = _np(0, (13, 700)), _np(1, (700, 50), 0.1)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    full = sa_fc_matmul(xt, wt, act="relu")
+    for i in range(13):
+        one = sa_fc_matmul(torch.from_numpy(x[i:i + 1].copy()), wt,
+                           act="relu")
+        assert torch.equal(full[i:i + 1], one)
+
+
+# ---------------------------------------------------------------------------
+# SA-CONV through the engine
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("pad", [0, 1, 2])
+def test_conv2d_matches_reference_stride_pad(stride, pad):
+    x, f, b = _np(0, (2, 13, 15, 5)), _np(1, (3, 3, 5, 24), 0.2), \
+        _np(2, (24,))
+    want = REngine(backend="pallas", interpret=True).conv2d(
+        jnp.asarray(x), jnp.asarray(f), jnp.asarray(b), stride=stride,
+        pad=pad, act="relu")
+    got = Engine(backend="kernels").conv2d(
+        torch.from_numpy(x), torch.from_numpy(f), torch.from_numpy(b),
+        stride=stride, pad=pad, act="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_CONV)
+
+
+@pytest.mark.parametrize("stride,pad", [(1, 1), (2, 2), (4, 0)])
+def test_conv2d_int8_matches_reference(stride, pad):
+    x, f, b = _np(0, (2, 12, 12, 6)), _np(1, (3, 3, 6, 16), 0.2), \
+        _np(2, (16,))
+    want = REngine(backend="pallas", interpret=True).conv2d(
+        jnp.asarray(x), rquant.quantize(jnp.asarray(f)), jnp.asarray(b),
+        stride=stride, pad=pad, act="relu")
+    eng = Engine(backend="kernels")
+    with eng.tracing() as tr:
+        got = eng.conv2d(torch.from_numpy(x),
+                         quant.quantize(torch.from_numpy(f)),
+                         torch.from_numpy(b), stride=stride, pad=pad,
+                         act="relu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=5e-3)
+    assert tr[0].weight_dtype == "int8"
+
+
+@pytest.mark.parametrize("window,conv_stride,res", [
+    (2, 1, 10), (3, 1, 11), (3, 2, 11)])      # OFMs 8, 9, 5: windows tile
+@pytest.mark.parametrize("act", ["relu", "none"])
+def test_fused_pool_matches_reference(window, conv_stride, res, act):
+    x, f, b = _np(0, (2, res, res, 6)), _np(1, (3, 3, 6, 24), 0.2), \
+        _np(2, (24,))
+    want = REngine(backend="pallas", interpret=True).conv2d(
+        jnp.asarray(x), jnp.asarray(f), jnp.asarray(b), stride=conv_stride,
+        act=act, pool=RPoolSpec(window, 2))
+    eng = Engine(backend="kernels")
+    xt, ft, bt = map(torch.from_numpy, (x, f, b))
+    with eng.tracing() as tr:
+        fused = eng.conv2d(xt, ft, bt, stride=conv_stride, act=act,
+                           pool=PoolSpec(window, 2))
+    assert len(tr) == 1 and tr[0].conv_plan.fuse_pool
+    np.testing.assert_allclose(fused.numpy(), np.asarray(want), **RTOL_CONV)
+    conv = eng.conv2d(xt, ft, bt, stride=conv_stride, act=act)
+    assert torch.equal(fused, maxpool_act(conv, window=window, stride=2,
+                                          act="none"))
+
+
+def test_declined_fusion_runs_the_pool_kernel_path():
+    x, f = _np(0, (2, 15, 15, 8)), _np(1, (3, 3, 8, 32), 0.2)
+    eng = Engine(backend="kernels")
+    with eng.tracing() as tr:
+        got = eng.conv2d(torch.from_numpy(x), torch.from_numpy(f),
+                         act="silu", pool=PoolSpec(3, 2), name="c")
+    assert not tr[0].conv_plan.fuse_pool
+    assert [r.name for r in tr] == ["c", "c.pool"] and tr[1].regime == "pool"
+    want = REngine(backend="xla").conv2d(jnp.asarray(x), jnp.asarray(f),
+                                         act="silu", pool=RPoolSpec(3, 2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_CONV)
+
+
+@pytest.mark.parametrize("h,w,ci,p,co,stride,window", [
+    (227, 227, 3, 11, 96, 4, 3),         # AlexNet conv1 + pool
+    (31, 31, 96, 5, 256, 1, 3),          # conv2 + pool
+    (15, 15, 256, 3, 384, 1, 0),         # conv3
+    (15, 15, 384, 3, 256, 1, 3),         # conv5 + pool
+    (226, 226, 3, 3, 64, 1, 2),          # VGG-16 conv1_2 + pool
+    (13, 15, 5, 3, 24, 2, 0),
+])
+def test_conv_geometry_covers_the_output(h, w, ci, p, co, stride, window):
+    """Bands of whole emitted rows cover the map, a full band fits one
+    CTA's pixel capacity, and shared memory fits a Hopper CTA."""
+    g = conv_geometry(h, w, ci, p, p, co, stride=stride, pool_window=window,
+                      pool_stride=2 if window else 0)
+    oh = (h - p) // stride + 1
+    ow = (w - p) // stride + 1
+    assert g.pixels == THREADS // g.groups * TPX and g.bco == 8 * g.groups
+    assert (g.bands - 1) * g.rows < g.out_h <= g.bands * g.rows
+    assert g.conv_rows == (g.rows - 1) * g.pool_stride + g.pool_window
+    assert g.conv_rows * ow <= g.pixels
+    assert (g.out_h - 1) * g.pool_stride + g.pool_window <= oh
+    assert 1 <= g.bci <= ci and g.smem_bytes <= SMEM_MAX
+
+
+def test_conv_geometry_refuses_rows_wider_than_a_cta():
+    with pytest.raises(NotImplementedError, match="does not fit"):
+        conv_geometry(600, 600, 3, 3, 3, 8)
+
+
+def test_sa_conv_plain_is_the_kernel_order_of_operations():
+    """Scale, bias, pool, act — the epilogue's order."""
+    x, f = _np(0, (1, 9, 9, 4)), _np(1, (3, 3, 4, 8), 0.2)
+    s, b = _np(2, (8,)) ** 2, _np(3, (8,))
+    xt, ft, st, bt = map(torch.from_numpy, (x, f, s, b))
+    got = sa_conv_implicit(xt, ft, bt, act="relu", pool_window=3,
+                           pool_stride=2, w_scale=st)
+    want = torch.relu(ref.maxpool2d(ref.conv2d(xt, ft) * st + bt, window=3,
+                                    stride=2))
+    assert torch.equal(got, want)
+    assert torch.equal(got, sa_conv_plain(xt, ft, bt, act="relu",
+                                          pool_window=3, pool_stride=2,
+                                          w_scale=st))
+
+
+# ---------------------------------------------------------------------------
+# pool
+# ---------------------------------------------------------------------------
+def test_maxpool_act_odd_channels_matches_reference():
+    x = _np(0, (2, 9, 9, 37))
+    want = r_maxpool_act(jnp.asarray(x), window=3, stride=2, act="relu")
+    got = maxpool_act(torch.from_numpy(x), window=3, stride=2, act="relu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_maxpool_act_int8_matches_reference():
+    x = np.random.default_rng(0).integers(-120, -1, (2, 6, 6, 130)
+                                          ).astype(np.int8)
+    want = r_maxpool_act(jnp.asarray(x), window=2, stride=2, act="none",
+                         bc=128)
+    got = maxpool_act(torch.from_numpy(x), window=2, stride=2, act="none")
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# build and launch checks: nothing falls back
+# ---------------------------------------------------------------------------
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["pool_act"])
+
+
+def test_launch_error_raises():
+    class Lib:
+        @staticmethod
+        def cuda_error_string(err):
+            return b"invalid configuration argument"
+    _build.check(Lib, 0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        _build.check(Lib, 9, "sa_fc_matmul")
+
+
+def test_act_codes_match_the_cuda_table():
+    src = (_build.CSRC / "common.cuh").read_text()
+    for act, code in _build.ACT_CODES.items():
+        name = {"none": "ACT_NONE", "relu": "ACT_RELU",
+                "leaky_relu": "ACT_LEAKY", "silu": "ACT_SILU",
+                "gelu": "ACT_GELU"}[act]
+        assert f"{name} = {code}" in src
+    with pytest.raises(ValueError):
+        _build.act_code("tanh")
