@@ -11,10 +11,17 @@ Phases (any failure raises and exits non-zero):
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants;
-4. the slice: ``CNNServer("alexnet", ...)`` at full width and 227x227 serves
-   130 requests on the kernels (and one int8 wave), with every dispatch a
-   schedule hit and every kernel of the path launched;
-5. times: CUDA events, median of 25 runs, L2 flushed before each.
+4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
+   serves 130 requests on the kernels (and one int8 wave), with every
+   dispatch a schedule hit and every kernel of the path launched;
+5. times: CUDA events, median of 25 runs, L2 flushed before each;
+6. the LM slice: the SA-CONV GEMM and flash-attention kernels against their
+   plain versions at full-width OLMo-1B shapes, then
+   ``ServeEngine(olmo-1b, batch_size=4, max_seq=640)`` serves 9 requests of
+   512 prompt tokens and 16 new tokens in fp32 (waves of 4, 4 and 1), with
+   every matmul a schedule hit, every kernel of the path launched and no
+   plain version called; logits against the ``"torch"`` backend and
+   incremental decode against a full forward; tokens/s; kernel times.
 
 The line before the last is the ``{"kernels": [...]}`` summary, the line
 before that the card's ``nvidia-smi`` name and power limit, and the last
@@ -49,9 +56,21 @@ TOL_CONV = dict(rtol=2e-3, atol=2e-3)
 # Logits through eight layers against the plain "torch" backend: the
 # per-layer rounding differences above compound, so the conv tolerance.
 TOL_LOGITS = dict(rtol=2e-3, atol=2e-3)
+# Attention against the materialised-softmax plain version: the reference's
+# flash-kernel tolerance (tests/test_kernels.py).
+TOL_ATTN = dict(rtol=3e-4, atol=3e-4)
+# OLMo-1B logits through 16 layers and a 2048-wide tied head against the
+# "torch" backend, or decode against a full forward: the 3e-4 per-matmul
+# rounding of differently ordered fp32 sums compounds over 113 matmuls and
+# 16 attentions; the reference's serving tolerance (5e-4) is for 2 layers.
+TOL_LM = dict(rtol=1e-3, atol=1e-3)
 
 N_REQUESTS = 130          # two full waves of 64 and a tail of 2
 SEED = 0
+# the LM slice: 9 requests of 512 tokens in waves of 4, 4 and 1
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH, LM_MAX_SEQ = 9, 512, 16, 4, 640
+#: where phase 6 puts its tensors
+DEVICE = "cuda"
 
 SOURCES = {
     "sa_conv_implicit": ("src/repro_torch/kernels/csrc/sa_conv_implicit.cu",
@@ -60,7 +79,15 @@ SOURCES = {
                      "src/repro/kernels/sa_fc.py:155"),
     "maxpool_act": ("src/repro_torch/kernels/csrc/pool_act.cu",
                     "src/repro/kernels/pool_act.py:60"),
+    "sa_conv_matmul": ("src/repro_torch/kernels/csrc/sa_conv.cu",
+                       "src/repro/kernels/sa_conv.py:121"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+                        "src/repro/kernels/attention.py:127"),
 }
+#: the kernels of each served path, and the path whose launches the
+#: kernels line reports for each kernel
+CNN_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act")
+LM_KERNELS = ("sa_conv_matmul", "flash_attention", "sa_fc_matmul")
 
 
 def log(msg: str) -> None:
@@ -246,12 +273,10 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
     want = Engine(backend="torch").conv2d(
         shapes["conv"][2][1], params[4]["f"], params[4]["b"], act="silu",
         pool=PoolSpec(3, 2), name="c")
-    expect = {"sa_conv_implicit": 1, "sa_fc_matmul": 0, "maxpool_act": 1,
-              "plain.matmul_bias_act": 0, "plain.conv2d": 0,
-              "plain.maxpool2d": 0}
-    if tr[0].conv_plan.fuse_pool or shapes["declined_launches"] != expect:
-        raise AssertionError("declined fusion: launches "
-                             f"{shapes['declined_launches']} != {expect}")
+    if tr[0].conv_plan.fuse_pool:
+        raise AssertionError("declined fusion: the planner fused the pool")
+    expect_counts(shapes["declined_launches"], "declined fusion",
+                  sa_conv_implicit=1, maxpool_act=1)
     rep.note_err("sa_conv_implicit", allclose("silu conv + pool", got, want,
                                               TOL_CONV))
     log("  engine conv2d(act=silu, pool 3/2): fusion declined, "
@@ -296,25 +321,38 @@ def _requests(images_np, uids):
     return [CNNRequest(uid=u, image=images_np[u]) for u in uids]
 
 
-def counters():
-    from repro_torch.kernels import ref
+def _wrappers() -> dict:
+    from repro_torch.kernels.attention import flash_attention
     from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
     from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
     from repro_torch.kernels.sa_fc import sa_fc_matmul
-    return {"sa_conv_implicit": sa_conv_implicit.launches,
-            "sa_fc_matmul": sa_fc_matmul.launches,
-            "maxpool_act": maxpool_act.launches,
+    return {"sa_conv_implicit": sa_conv_implicit,
+            "sa_fc_matmul": sa_fc_matmul, "maxpool_act": maxpool_act,
+            "sa_conv_matmul": sa_conv_matmul,
+            "flash_attention": flash_attention}
+
+
+def counters():
+    from repro_torch.kernels import ref
+    return {**{k: fn.launches for k, fn in _wrappers().items()},
             **{f"plain.{k}": v for k, v in ref.counts().items()}}
 
 
 def reset_counters() -> None:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pool_act import maxpool_act
-    from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
-    from repro_torch.kernels.sa_fc import sa_fc_matmul
-    sa_conv_implicit.launches = sa_fc_matmul.launches = 0
-    maxpool_act.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
     ref.reset_counts()
+
+
+def expect_counts(c: dict, what: str, **launches: int) -> None:
+    """``c`` launched exactly ``launches`` (every other kernel 0 times)
+    and called no plain version."""
+    want = {k: launches.get(k, 0) for k in _wrappers()}
+    want.update({k: 0 for k in c if k.startswith("plain.")})
+    if c != want:
+        raise AssertionError(f"{what}: launch counts {c} != {want}")
 
 
 def check_served(srv, done, n, waves_expected):
@@ -337,11 +375,8 @@ def check_served(srv, done, n, waves_expected):
 
 
 def check_counts(c: dict, waves: int) -> None:
-    want = {"sa_conv_implicit": 5 * waves, "sa_fc_matmul": 3 * waves,
-            "maxpool_act": 0, "plain.matmul_bias_act": 0, "plain.conv2d": 0,
-            "plain.maxpool2d": 0}
-    if c != want:
-        raise AssertionError(f"launch counts {c} != {want}")
+    expect_counts(c, "CNNServer.run", sa_conv_implicit=5 * waves,
+                  sa_fc_matmul=3 * waves)
 
 
 def serve(rep: Report, params, qparams, images_np) -> dict:
@@ -467,7 +502,7 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
         rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=by, flops=flops,
-                             bytes=nb))
+                             bytes=nb, path="CNNServer.run", per_pass=1))
         log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
             f"({by})  plain {plain_ms:9.4f}  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}")
@@ -557,30 +592,411 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
         f"{rep.detail['input_copy_ms_b64']:.3f} ms (host clock, median of 10)")
 
 
-def kernels_line(rep: Report, launches: dict, declined: dict) -> dict:
-    """One entry per kernel.  ``launches`` counts the served run (130
-    requests) for the two kernels of the serving path, and the
-    declined-fusion dispatch for the pool kernel, whose path that is; the
-    times are one b=64 wave's launches at their main-path shapes."""
+# ---------------------------------------------------------------------------
+# phase 6: the LM slice (OLMo-1B, fp32, full width and depth)
+# ---------------------------------------------------------------------------
+def olmo_config():
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("olmo-1b"), param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def gemm_shapes(cfg, params, gen) -> list:
+    """(label, x, w, act, launches per full-wave prefill) of every distinct
+    SA-CONV GEMM shape of a full wave's prefill (m = 4 x 512), on layer 0's
+    weights and the tied head, with normal inputs from ``gen``."""
+    import torch
+    m = LM_BATCH * LM_PROMPT
+    d, ff, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    blk = params["blocks"][0]
+    x_d = torch.randn((m, d), generator=gen, device=DEVICE)
+    x_ff = torch.randn((m, ff), generator=gen, device=DEVICE)
+    out = [("attn.q/k/v/o", x_d, blk["attn"]["wq"][0], "none", 4 * n),
+           ("mlp.gate/up", x_d, blk["mlp"]["wg"][0], "silu", 2 * n),
+           ("mlp.down", x_ff, blk["mlp"]["wd"][0], "none", n),
+           ("lm_head", x_d, params["embed_t"], "none", 1)]
+    return [(f"{name} {w.shape[0]}x{w.shape[1]}", x, w, act, per)
+            for name, x, w, act, per in out]
+
+
+def check_lm_kernels(rep: Report, cfg, params) -> dict:
+    """B4 and B5 against their plain versions at the path's shapes, plus a
+    ragged GEMM, int8 weights, and the reference's attention cases."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shapes = {"gemm": gemm_shapes(cfg, params, gen)}
+    for label, x, w, act, _ in shapes["gemm"]:
+        e = allclose(f"sa_conv_matmul {label}", sa_conv_matmul(x, w, act=act),
+                     sa_conv_matmul_plain(x, w, act=act), TOL_FC)
+        rep.note_err("sa_conv_matmul", e)
+        log(f"  sa_conv_matmul {label} m={x.shape[0]}: max|d| {e:.3g}")
+    x, w = shapes["gemm"][1][1], shapes["gemm"][1][2]
+    qw = quantize(w)
+    bias = torch.randn(w.shape[1], generator=gen, device=DEVICE)
+    kw = dict(act="silu", w_scale=qw.scale)
+    e8 = allclose("sa_conv_matmul int8 gate", sa_conv_matmul(x, qw.q, bias,
+                                                             **kw),
+                  sa_conv_matmul_plain(x, qw.q, bias, **kw), TOL_FC)
+    xr = torch.randn((1000, 1001), generator=gen, device=DEVICE)
+    wr = torch.randn((1001, 2999), generator=gen, device=DEVICE) * 0.03
+    br = torch.randn(2999, generator=gen, device=DEVICE)
+    er = allclose("sa_conv_matmul ragged 1000x1001x2999",
+                  sa_conv_matmul(xr, wr, br, act="gelu"),
+                  sa_conv_matmul_plain(xr, wr, br, act="gelu"), TOL_FC)
+    rep.note_err("sa_conv_matmul", max(e8, er))
+    log(f"  sa_conv_matmul int8 gate + bias + silu: max|d| {e8:.3g}; "
+        f"ragged 1000x1001x2999 + gelu: {er:.3g}")
+
+    b, s, h, hd = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEVICE)
+               for _ in range(3))
+    shapes["attn"] = (q, k, v)
+    e = allclose("flash_attention OLMo prefill", flash_attention(q, k, v),
+                 flash_plain(q, k, v), TOL_ATTN)
+    rep.note_err("flash_attention", e)
+    log(f"  flash_attention {tuple(q.shape)} causal: max|d| {e:.3g}")
+    cases = [(2, 256, 256, 4, 2, 64, 0, 0.0), (1, 256, 256, 8, 8, 32, 64, 0.0),
+             (2, 128, 128, 4, 1, 64, 0, 50.0), (1, 1, 300, 4, 2, 64, 0, 0.0),
+             (1, 1, 300, 4, 2, 64, 128, 0.0), (2, 200, 200, 2, 2, 48, 0, 0.0)]
+    for cb, sq, skv, hq, hkv, d, window, softcap in cases:
+        qc = torch.randn((cb, sq, hq, d), generator=gen, device=DEVICE)
+        kc, vc = (torch.randn((cb, skv, hkv, d), generator=gen,
+                              device=DEVICE) for _ in range(2))
+        kw = dict(window=window, softcap=softcap)
+        e = allclose(f"flash_attention case {sq}x{skv}",
+                     flash_attention(qc, kc, vc, **kw),
+                     ref.attention(qc, kc, vc, **kw), TOL_ATTN)
+        rep.note_err("flash_attention", e)
+    log(f"  flash_attention: the reference's 6 cases (GQA, window, softcap, "
+        f"1 query x 300 keys, d=48) within {TOL_ATTN}")
+    torch.cuda.synchronize()
+    return shapes
+
+
+def teacher_forced(cfg, params, prompt, output, eng):
+    """Per-step logits (len(output), V) of one request under ``eng``, fed
+    the served tokens (prefill, then one decode step per output token)."""
+    import torch
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    tok = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
+    with eng.activate():
+        logits, cache = prefill_step(cfg, params, {"tokens": tok},
+                                     LM_MAX_SEQ, torch.float32)
+        rows = [logits[0].cpu()]
+        for i in range(1, len(output)):
+            t = torch.tensor([[int(output[i - 1])]], device=DEVICE)
+            logits, cache = decode_step(cfg, params, cache, t,
+                                        len(prompt) + i - 1)
+            rows.append(logits[0].cpu())
+    return torch.stack(rows)
+
+
+def check_tokens(name: str, want_logits, output, tol: dict) -> int:
+    """Served tokens equal the argmax of ``want_logits`` wherever its top-2
+    margin exceeds the logits tolerance; returns how many steps that
+    covered."""
+    import numpy as np
+    top2 = want_logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1] > 2 * tol["atol"]).numpy()
+    argmax = want_logits.argmax(-1).numpy()
+    if not np.array_equal(np.asarray(output)[clear], argmax[clear]):
+        raise AssertionError(f"{name}: tokens differ at a clear margin")
+    return int(clear.sum())
+
+
+def lm_requests(cfg):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+    return [Request(uid=i, prompt=p, max_new=LM_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def serve_lm(rep: Report, cfg, params) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+
+    n_layers = cfg.n_layers
+    per_pass = 7 * n_layers + 1                 # projections + lm_head
+    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ)
+    if srv.engine.backend != "kernels":
+        raise AssertionError("ServeEngine's default backend is not kernels")
+    for r in lm_requests(cfg):
+        srv.submit(r)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with srv.engine.tracing() as tr:
+        done = srv.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c = counters()
+    full_waves = LM_REQUESTS // LM_BATCH
+    decode_steps = (LM_NEW - 1) * (full_waves + 1)
+    expect_counts(c, "ServeEngine.run",
+                  sa_conv_matmul=per_pass * full_waves,
+                  flash_attention=n_layers * (full_waves + 1),
+                  sa_fc_matmul=per_pass * (1 + decode_steps))
+    mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")]
+    if not mm or any(x.schedule != "hit" for x in mm):
+        raise AssertionError("ServeEngine.run: a matmul missed its schedule")
+    if len(done) != LM_REQUESTS or not all(r.done for r in done):
+        raise AssertionError(f"served {len(done)} of {LM_REQUESTS}")
+    logits = np.stack([r.logits for r in done])
+    if logits.shape != (LM_REQUESTS, LM_NEW, cfg.vocab_size) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"logits {logits.shape} not finite or shaped")
+    log(f"  served {LM_REQUESTS} requests (waves 4, 4, 1) in {first_s:.2f}s "
+        f"(schedules compiled on the way); {len(mm)} matmuls, all schedule "
+        f"hits; launches {c}")
+    rep.detail["lm_launches_per_run"] = c
+
+    # against the plain "torch" backend on the card, teacher-forced with the
+    # served tokens: a request of a full wave and the lone request
+    plain = Engine(backend="torch")
+    err, covered = 0.0, 0
+    for r in (done[0], done[-1]):
+        want = teacher_forced(cfg, params, r.prompt, r.output, plain)
+        err = max(err, allclose(f"request {r.uid} logits vs torch backend",
+                                torch.from_numpy(r.logits), want, TOL_LM))
+        covered += check_tokens(f"request {r.uid}", want, r.output, TOL_LM)
+    rep.detail["lm_logits_max_abs_err"] = err
+    log(f"  logits vs torch backend (requests 0 and 8, teacher-forced): "
+        f"max|d| {err:.3g} (|logits| max {np.abs(logits).max():.3g}); tokens "
+        f"equal at {covered} of {2 * LM_NEW} steps with a clear margin")
+
+    # incremental decode == a teacher-forced full forward (the reference's
+    # invariant, tests/test_serve.py), on the kernels
+    r = done[-1]
+    seq = np.concatenate([r.prompt, r.output[:-1]])
+    with Engine(backend="kernels").activate():
+        full, _, _ = T.forward(cfg, params, {"tokens": torch.as_tensor(
+            seq, dtype=torch.int64, device=DEVICE)[None]})
+    e = allclose("decode vs full forward", torch.from_numpy(r.logits),
+                 full[0, LM_PROMPT - 1:].cpu(), TOL_LM)
+    rep.detail["lm_decode_vs_forward_max_abs_err"] = e
+    log(f"  incremental decode vs full forward over {len(seq)} tokens: "
+        f"max|d| {e:.3g}")
+    return dict(launches=c)
+
+
+def lm_throughput(rep: Report, cfg, params) -> None:
+    """Host clock around drained work after warm-up: one full-wave prefill,
+    one decode step at b=4, and a whole ``ServeEngine.run`` of 9 requests
+    (schedules already compiled)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+
+    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ)
+    reqs = lm_requests(cfg)
+    toks = torch.as_tensor(np.stack([r.prompt for r in reqs[:LM_BATCH]]),
+                           dtype=torch.int64, device=DEVICE)
+    psched = srv._schedule("prefill", LM_BATCH, LM_PROMPT)
+    times = {"prefill": [], "decode": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with srv.engine.with_schedule(psched).activate():
+            logits, cache = prefill_step(cfg, params, {"tokens": toks},
+                                         LM_MAX_SEQ, torch.float32)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t0)
+        tok = logits.argmax(-1)[:, None]
+        with srv.engine.with_schedule(srv.decode_schedule).activate():
+            for i in range(LM_NEW - 1):
+                t0 = time.perf_counter()
+                logits, cache = decode_step(cfg, params, cache, tok,
+                                            LM_PROMPT + i)
+                tok = logits.argmax(-1)[:, None]
+                tok.cpu()
+                times["decode"].append(time.perf_counter() - t0)
+    prefill_s = statistics.median(times["prefill"][1:])
+    decode_s = statistics.median(times["decode"][LM_NEW - 1:])
+
+    def prefill():
+        with srv.engine.with_schedule(psched).activate():
+            return prefill_step(cfg, params, {"tokens": toks}, LM_MAX_SEQ,
+                                torch.float32)
+
+    def decode():
+        with srv.engine.with_schedule(srv.decode_schedule).activate():
+            decode_step(cfg, params, cache, tok, LM_PROMPT)[0].cpu()
+
+    busy = {"prefill": device_busy(prefill, prefill_s),
+            "decode": device_busy(decode, decode_s)}
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.run()
+    run_s = time.perf_counter() - t0
+    d = rep.detail
+    d["lm_prefill_wave_ms"] = prefill_s * 1e3
+    d["lm_prefill_tokens_per_s"] = LM_BATCH * LM_PROMPT / prefill_s
+    d["lm_decode_step_ms"] = decode_s * 1e3
+    d["lm_decode_tokens_per_s"] = LM_BATCH / decode_s
+    d["lm_run_s"] = run_s
+    d["lm_run_new_tokens_per_s"] = LM_REQUESTS * LM_NEW / run_s
+    d["lm_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    d["lm_device_busy"] = busy
+    log(f"  prefill of a full wave ({LM_BATCH} x {LM_PROMPT} tokens): "
+        f"{prefill_s * 1e3:.1f} ms = {d['lm_prefill_tokens_per_s']:.0f} "
+        f"tokens/s; decode step at b={LM_BATCH}: "
+        f"{decode_s * 1e3:.2f} ms = {d['lm_decode_tokens_per_s']:.1f} "
+        f"tokens/s (host clock, medians)")
+    for phase, b in busy.items():
+        if b["device_ms"] is None:
+            log(f"  {phase}: device busy time not measured (the profiler "
+                "recorded no device event)")
+            continue
+        log(f"  {phase}: device busy {b['device_ms']:.2f} ms of "
+            f"{b['wall_ms']:.2f} ms (idle share {b['idle_share']:.3f}; "
+            f"torch.profiler); top kernels {b['top']}")
+    log(f"  ServeEngine.run, {LM_REQUESTS} requests: {run_s:.2f} s = "
+        f"{d['lm_run_new_tokens_per_s']:.1f} new tokens/s; peak memory "
+        f"{d['lm_peak_mem_gb']:.1f} GB")
+
+
+def device_busy(fn, wall_s: float) -> dict:
+    """Device time of one call of ``fn`` from a ``torch.profiler`` trace
+    (the sum of the device-side kernel events), against ``wall_s``, the
+    host-clock time of the same work measured without the profiler.
+    Where the trace holds no device event, the device time is reported as
+    not measured (None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.key, e.count))
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows) or None
+    return dict(device_ms=dev_ms, wall_ms=wall_s * 1e3,
+                idle_share=None if dev_ms is None else
+                max(0.0, 1 - dev_ms / (wall_s * 1e3)),
+                top=[(k[:40], round(ms, 3), n) for ms, k, n in rows[:4]])
+
+
+def measure_lm(rep: Report, shapes: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
+            phase="prefill"):
+        b_ms, by = bound(flops, nb)
+        rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=by, flops=flops,
+                             bytes=nb, path="ServeEngine.run", phase=phase,
+                             per_pass=per_pass))
+        log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
+            f"({by}, {flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:9.4f}"
+            f"  library {lib_ms:.4f}  x{per_pass} per {phase}")
+
+    for label, x, w, act, per_pass in shapes["gemm"]:
+        m, k = x.shape
+        n = w.shape[1]
+        out = sa_conv_matmul(x, w, act=act)
+        row("sa_conv_matmul", f"{label} m={m}",
+            timed(lambda: sa_conv_matmul(x, w, act=act)),
+            timed(lambda: sa_conv_matmul_plain(x, w, act=act), runs=3,
+                  warmup=1),
+            timed(lambda: ref.apply_act(torch.mm(x, w), act)),
+            2 * m * n * k, nbytes(x, w, out), per_pass)
+    q, k, v = shapes["attn"]
+    b, s, h, d = q.shape
+    out = flash_attention(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = s * (s + 1) // 2                    # unmasked (query, key) pairs
+    row("flash_attention", f"{tuple(q.shape)} causal",
+        timed(lambda: flash_attention(q, k, v)),
+        timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
+        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)),
+        4 * b * h * pairs * d, nbytes(q, k, v, out), 16)
+
+    # SA-FC at the decode shapes (b = 4): the weight stream of every step
+    for label, x, w, act, per_pass in shapes["gemm"]:
+        h4 = x[:LM_BATCH].contiguous()
+        m, kk = h4.shape
+        n = w.shape[1]
+        out = sa_fc_matmul(h4, w, act=act)
+        row("sa_fc_matmul", f"{label} b={m}",
+            timed(lambda: sa_fc_matmul(h4, w, act=act)),
+            timed(lambda: sa_fc_plain(h4, w, act=act), runs=5, warmup=1),
+            timed(lambda: ref.apply_act(torch.mm(h4, w), act)),
+            2 * m * n * kk, nbytes(h4, w, out), per_pass, phase="decode")
+
+
+def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
+    """One entry per kernel, read on the path it is reported for:
+    ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
+    declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
+    OLMo-1B requests) for the SA-CONV GEMM and flash attention.  Times sum
+    one unit of that path at its shapes: a b=64 CNN wave, or a full-wave
+    OLMo prefill (each shape times its launches per prefill).
+    ``launches_by_path`` gives every path's count."""
     out = []
     for kernel, (source, replaces) in SOURCES.items():
-        pool = kernel == "maxpool_act"
+        if kernel == "maxpool_act":
+            path, launches = "Engine.conv2d, pool fusion declined", declined
+        elif kernel in CNN_KERNELS:
+            path, launches = "CNNServer.run", cnn
+        else:
+            path, launches = "ServeEngine.run", lm
+        timing = "CNNServer.run" if kernel in CNN_KERNELS else path
         rows = [r for r in rep.rows if r["kernel"] == kernel
-                and not r["shape"].endswith("int8")]
+                and r["path"] == timing and not r["shape"].endswith("int8")
+                and r.get("phase", "prefill") == "prefill"]
+        if not rows:
+            raise AssertionError(f"{kernel}: no timing on {path}")
+
+        def total(key):
+            return sum(r[key] * r["per_pass"] for r in rows)
+
         lib = [r["library_ms"] for r in rows]
-        t_ops = sum(r["flops"] for r in rows) / PEAK_FP32_FLOPS * 1e3
-        t_bytes = sum(r["bytes"] for r in rows) / PEAK_BYTES_PER_S * 1e3
+        t_ops = total("flops") / PEAK_FP32_FLOPS * 1e3
+        t_bytes = total("bytes") / PEAK_BYTES_PER_S * 1e3
         out.append(dict(
             name=kernel, route="cuda", source=source, replaces=replaces,
-            launches=(declined if pool else launches)[kernel],
-            path=("Engine.conv2d, pool fusion declined" if pool
-                  else "CNNServer.run"),
+            launches=launches[kernel], path=path,
+            launches_by_path={"CNNServer.run": cnn[kernel],
+                              "ServeEngine.run": lm[kernel]},
             max_abs_err=rep.err[kernel],
-            ms=sum(r["ms"] for r in rows),
-            plain_ms=sum(r["plain_ms"] for r in rows),
-            bound_ms=sum(r["bound_ms"] for r in rows),
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None if any(v is None for v in lib) else sum(lib)))
+            library_ms=None if any(v is None for v in lib) else
+            sum(v * r["per_pass"] for v, r in zip(lib, rows))))
     return {"kernels": out}
 
 
@@ -618,8 +1034,26 @@ def main() -> int:
     served = serve(rep, params, qparams, images_np)
     log("== phase 5: times (median of 25, CUDA events, L2 flushed)")
     measure(rep, shapes, params, images_np)
+    del params, qparams
+    torch.cuda.empty_cache()
 
-    line = kernels_line(rep, served["launches"], shapes["declined_launches"])
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.kvcache import cache_bytes
+    log("== phase 6: ServeEngine, full-width OLMo-1B in fp32")
+    cfg = olmo_config()
+    lm_params = T.init_params(cfg, SEED, device=DEVICE)
+    log(f"  OLMo-1B: {cfg.n_params() / 1e9:.3f} B parameters, "
+        f"{cache_bytes(lm_params) / 1e9:.2f} GB on the card (with the "
+        "contiguous tied-head copy)")
+    lm_shapes = check_lm_kernels(rep, cfg, lm_params)
+    lm_served = serve_lm(rep, cfg, lm_params)
+    lm_throughput(rep, cfg, lm_params)
+    log("  times (median of 25, CUDA events, L2 flushed; plain: fewer runs)")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        measure_lm(rep, lm_shapes)
+
+    line = kernels_line(rep, served["launches"], shapes["declined_launches"],
+                        lm_served["launches"])
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

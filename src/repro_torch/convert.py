@@ -1,10 +1,14 @@
-"""Carry the JAX package's CNN parameters into the port.
+"""Carry the JAX package's parameters into the port.
 
-The reference's ``init_cnn`` returns a list of ``{"f", "b"}``, ``{"w",
+CNNs: the reference's ``init_cnn`` returns a list of ``{"f", "b"}``, ``{"w",
 "b"}`` or ``{}`` entries in the same layouts the port uses (HWIO filters,
 ``(k, n)`` weights).  int8 leaves are any object with ``.q`` and ``.scale``
 (the reference's ``QTensor``), so nothing of the reference is imported:
 every leaf goes through numpy.
+
+LMs: the reference's ``init_params`` tree (``embed``, ``final_norm``,
+``head`` unless tied, ``blocks`` — a list of dicts of stacked leaves — and
+``tail``) is copied leaf for leaf into the same layout.
 """
 from __future__ import annotations
 
@@ -33,4 +37,24 @@ def params_from_reference(params: list, *, device=None) -> list:
             else:
                 entry[name] = _tensor(leaf, dev)
         out.append(entry)
+    return out
+
+
+def _tree(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, dev) for v in tree]
+    return _tensor(tree, dev)
+
+
+def lm_params_from_reference(params: dict, *, device=None) -> dict:
+    """The reference's LM parameter tree as the port's, on ``device`` (the
+    card unless the caller names another).  A tied model (no ``head``)
+    also gets ``embed_t``, the contiguous (d, V) copy of ``embed.T`` that
+    the port's output projection reads."""
+    dev = resolve_device(device)
+    out = _tree(params, dev)
+    if "head" not in out:
+        out["embed_t"] = out["embed"].t().contiguous()
     return out

@@ -8,7 +8,8 @@ schedule (Sec. V).  This module is the runtime half of that design:
 * :class:`Engine` — owns the backend, a pluggable :class:`DispatchPolicy`
   (the SA-CONV/SA-FC classifier + Case-1..4 planner), an optional compiled
   :class:`repro_torch.core.schedule.LayerSchedule`, and a structured
-  :class:`DispatchTrace`.  ``matmul``, ``conv2d`` and ``pool`` are methods.
+  :class:`DispatchTrace`.  ``matmul``, ``conv2d``, ``pool`` and
+  ``attention`` are methods.
 * Two backends: ``"kernels"`` runs the hand-written CUDA kernels (their
   wrappers take the plain versions for CPU tensors), ``"torch"`` runs the
   plain PyTorch versions (:mod:`repro_torch.kernels.ref`).
@@ -19,9 +20,11 @@ schedule (Sec. V).  This module is the runtime half of that design:
 int8 weights (:class:`repro_torch.core.quant.QTensor`) reach the kernels
 un-dequantized; the per-channel scale runs in the kernel epilogue.
 
-On the ``"kernels"`` backend an ``sa_conv``-regime matmul raises
-``NotImplementedError`` (its kernel, ``sa_conv_matmul``, is not ported yet),
-and so does an input that requires grad (no backward kernels yet).
+A matmul runs on the SA-FC kernel in the ``sa_fc`` regime and on the
+SA-CONV GEMM kernel in the ``sa_conv`` regime; the plan's tiles are the
+planner's (TPU) tiles and the CUDA kernels pick their own.  On the
+``"kernels"`` backend an input that requires grad raises
+``NotImplementedError`` (no backward kernels yet).
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ from repro_torch.core.accelerator import TPU_V5E, TPUChip
 from repro_torch.core.dataflow import ConvPlan, FCPlan, MatmulPlan, PoolSpec
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import ref
+from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels.sa_conv import sa_conv_matmul
 from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
 from repro_torch.kernels.sa_fc import sa_fc_matmul
 
@@ -61,7 +66,7 @@ def dtype_name(dtype: torch.dtype) -> str:
 class DispatchRecord:
     """One dispatch decision."""
     name: str
-    regime: str                 # 'sa_conv' | 'sa_fc' | 'pool'
+    regime: str                 # 'sa_conv' | 'sa_fc' | 'pool' | 'attention'
     m: int
     n: int
     k: int
@@ -421,12 +426,10 @@ class Engine:
         out_dt = out_dtype if out_dtype is not None else x.dtype
         if self.backend == "kernels":
             _refuse_grad(name, x, wq, bias)
-            if plan.regime != "sa_fc":
-                raise NotImplementedError(
-                    f"{name}: an sa_conv-regime matmul needs the SA-CONV GEMM "
-                    "kernel (sa_conv_matmul, ROADMAP B4), not yet ported")
-            out = sa_fc_matmul(x2d.contiguous(), wq, bias, act=act,
-                               w_scale=w_scale, out_dtype=out_dt)
+            kernel = sa_fc_matmul if plan.regime == "sa_fc" \
+                else sa_conv_matmul
+            out = kernel(x2d.contiguous(), wq, bias, act=act,
+                         w_scale=w_scale, out_dtype=out_dt)
         else:
             out = ref.matmul_bias_act(x2d, wq, bias, act=act,
                                       out_dtype=out_dt, w_scale=w_scale)
@@ -502,6 +505,23 @@ class Engine:
             return maxpool_act(x.contiguous(), window=window, stride=stride,
                                act=act)
         return ref.maxpool_act(x, window=window, stride=stride, act=act)
+
+    def attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, scale: float | None = None,
+                  name: str = "attn") -> torch.Tensor:
+        """Blocked attention, q (b, sq, hq, d), k/v (b, skv, hkv, d): the
+        flash kernel or the plain version, recorded as ``regime=
+        "attention"``."""
+        self.record(name=name, regime="attention", m=q.shape[1],
+                    n=k.shape[1], k=q.shape[-1], case=0,
+                    backend=self.backend, dtype=dtype_name(q.dtype))
+        if self.backend == "kernels":
+            _refuse_grad(name, q, k, v)
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
 
     def __repr__(self) -> str:
         return (f"Engine(backend={self.backend!r}, policy={self.policy}, "

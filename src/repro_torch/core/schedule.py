@@ -6,9 +6,9 @@ an immutable mapping from named ops to plans, compiled once per
 (network, batch, shapes, policy) and memoized.  An engine carrying one
 resolves every named op by lookup (``schedule="hit"``).
 
-Compilation runs the network (or one pipeline stage) on ``meta`` tensors
-under a collecting ``"torch"``-backend engine: shapes only, no data, no
-device work.
+Compilation runs the network (or one pipeline stage), or one LM serving
+phase, on ``meta`` tensors under a collecting ``"torch"``-backend engine:
+shapes only, no data, no device work.
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ import torch
 from repro_torch.core.dataflow import ConvPlan, FCPlan, MatmulPlan
 from repro_torch.core.engine import DispatchPolicy, Engine, dtype_name
 from repro_torch.core.quant import QTensor
+
+#: LM phases :meth:`LayerSchedule.compile` knows; ``train`` waits for the
+#: training slice (ROADMAP A14)
+PHASES = ("train", "prefill", "decode")
 
 #: Pipeline stages :meth:`LayerSchedule.compile_cnn` can compile for: the
 #: full network, the SA-CONV stage or the SA-FC stage.  The stage schedules
@@ -138,6 +142,36 @@ class LayerSchedule(Mapping):
                 f"conv_ops={len(self._conv_entries)})")
 
     @classmethod
+    def compile(cls, cfg, phase: str, *,
+                batch: int = 1, seq: int = 128,
+                max_seq: int | None = None,
+                cache_dtype=torch.bfloat16,
+                policy: DispatchPolicy | None = None,
+                params: Any | None = None) -> LayerSchedule:
+        """Compile (and memoize) the schedule of LM ``cfg`` in ``phase``:
+        ``prefill`` ((batch, seq) prompt against a ``max_seq``-deep cache)
+        or ``decode`` (one token per slot against the cache).  ``params``
+        (optional) supplies the real parameter tree so quantized weight
+        dtypes land in the keys; only its shapes and dtypes are read."""
+        if phase not in PHASES:
+            raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+        if phase == "train":
+            raise NotImplementedError("train schedules come with the "
+                                      "training slice (ROADMAP A14)")
+        if policy is None:
+            policy = DispatchPolicy()
+        key = (cfg, phase, batch, seq, max_seq, dtype_name(cache_dtype),
+               policy, _params_fingerprint(params))
+        hit = _CACHE.get(key)
+        if hit is not None:
+            return hit
+        sched = cls(phase, policy,
+                    *_collect(cfg, phase, batch, seq, max_seq, cache_dtype,
+                              policy, params))
+        _CACHE[key] = sched
+        return sched
+
+    @classmethod
     def compile_cnn(cls, net: str, *,
                     batch: int = 1,
                     in_res: int | None = None,
@@ -248,15 +282,20 @@ def clear_schedule_cache() -> None:
     _CACHE.clear()
 
 
-def _leaves(params: list) -> Iterator[tuple[str, torch.Tensor]]:
-    for i, p in enumerate(params):
-        for name in sorted(p):
-            leaf = p[name]
-            if isinstance(leaf, QTensor):
-                yield f"{i}.{name}.q", leaf.q
-                yield f"{i}.{name}.scale", leaf.scale
-            else:
-                yield f"{i}.{name}", leaf
+def _leaves(tree, path: str = "") -> Iterator[tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a parameter tree (lists, dicts,
+    :class:`QTensor` leaves), in a fixed order."""
+    if isinstance(tree, QTensor):
+        yield f"{path}.q", tree.q
+        yield f"{path}.scale", tree.scale
+    elif isinstance(tree, dict):
+        for name in sorted(tree):
+            yield from _leaves(tree[name], f"{path}.{name}" if path else name)
+    elif isinstance(tree, list):
+        for i, leaf in enumerate(tree):
+            yield from _leaves(leaf, f"{path}.{i}" if path else str(i))
+    else:
+        yield path, tree
 
 
 def _params_fingerprint(params: Any) -> tuple | None:
@@ -270,13 +309,15 @@ def _meta(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
-def _meta_params(params: list) -> list:
-    out = []
-    for p in params:
-        out.append({k: QTensor(_meta(v.q), _meta(v.scale))
-                    if isinstance(v, QTensor) else _meta(v)
-                    for k, v in p.items()})
-    return out
+def _meta_params(tree):
+    """The same tree with every tensor replaced by a meta tensor."""
+    if isinstance(tree, QTensor):
+        return QTensor(_meta(tree.q), _meta(tree.scale))
+    if isinstance(tree, dict):
+        return {k: _meta_params(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_params(v) for v in tree]
+    return _meta(tree)
 
 
 def _entries_from_trace(tr) -> tuple[dict[OpKey, MatmulPlan | FCPlan],
@@ -330,4 +371,31 @@ def _collect_cnn(net: str, batch: int, in_res: int | None, in_ch: int,
     eng = Engine(backend="torch", policy=policy)
     with eng.tracing() as tr, eng.activate():
         fn(net, params, x, eng=eng)
+    return _entries_from_trace(tr)
+
+
+def _collect(cfg, phase: str, batch: int, seq: int, max_seq: int | None,
+             cache_dtype, policy: DispatchPolicy, params
+             ) -> tuple[dict[OpKey, MatmulPlan | FCPlan],
+                        dict[ConvOpKey, ConvPlan]]:
+    """Run one LM serving phase on meta tensors under a collecting
+    engine."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kvcache as KC
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+
+    params = T.init_params(cfg, 0, device="meta") if params is None \
+        else _meta_params(params)
+    ms = max_seq if max_seq is not None else seq + 32
+    eng = Engine(backend="torch", policy=policy)
+    with eng.tracing() as tr, eng.activate():
+        if phase == "prefill":
+            tokens = torch.empty((batch, seq), dtype=torch.int64,
+                                 device="meta")
+            prefill_step(cfg, params, {"tokens": tokens}, ms, cache_dtype)
+        else:                                   # decode
+            cache = KC.init_cache(cfg, batch, ms, dtype=cache_dtype,
+                                  device="meta")
+            tok = torch.empty((batch, 1), dtype=torch.int64, device="meta")
+            decode_step(cfg, params, cache, tok, 0)
     return _entries_from_trace(tr)

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sa_fc", "sa_conv_implicit", "pool_act")
+SOURCES = ("sa_fc", "sa_conv_implicit", "pool_act", "sa_conv",
+           "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +33,8 @@ ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3, "gelu": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signature (argument types) of each library's launch function
 SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
@@ -40,6 +43,10 @@ SIGNATURES = {
                          (_P, _P, _I, _P, _P, _P) + (_I,) * 17 + (_P,)),
     "pool_act": ("pool_act_launch",
                  (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "sa_conv": ("sa_conv_launch",
+                (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "attention": ("flash_attention_launch",
+                  (_P,) * 4 + (_I,) * 6 + (_L,) * 9 + (_I, _I, _F, _F, _P)),
 }
 
 _LOCK = threading.Lock()

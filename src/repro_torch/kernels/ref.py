@@ -36,14 +36,17 @@ def _counted(fn):
     return wrapper
 
 
+def _counted_fns():
+    return (matmul_bias_act, conv2d, maxpool2d, attention)
+
+
 def reset_counts() -> None:
-    for fn in (matmul_bias_act, conv2d, maxpool2d):
+    for fn in _counted_fns():
         fn.calls = 0
 
 
 def counts() -> dict[str, int]:
-    return {fn.__name__: fn.calls for fn in (matmul_bias_act, conv2d,
-                                             maxpool2d)}
+    return {fn.__name__: fn.calls for fn in _counted_fns()}
 
 
 def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -71,11 +74,14 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     xf = x.to(torch.float32)
     wf = w.to(torch.float32)
-    # one row at a time, each from its own allocation: a BLAS call's
-    # blocking (and so its rounding) may depend on m and on alignment
-    acc = torch.cat([xf[i:i + 1].clone() @ wf
-                     for i in range(xf.shape[0])]) if xf.shape[0] else \
-        xf.new_empty((0, wf.shape[1]))
+    if xf.device.type == "meta":            # shapes only (schedule compile)
+        acc = xf @ wf
+    else:
+        # one row at a time, each from its own allocation: a BLAS call's
+        # blocking (and so its rounding) may depend on m and on alignment
+        acc = torch.cat([xf[i:i + 1].clone() @ wf
+                         for i in range(xf.shape[0])]) if xf.shape[0] else \
+            xf.new_empty((0, wf.shape[1]))
     if b is None and act == "none" and w_scale is None:
         return acc.to(out_dtype)
     if w_scale is not None:
@@ -124,3 +130,44 @@ def maxpool_act(x: torch.Tensor, *, window: int = 2, stride: int = 2,
     """Pooling-&-activation unit: the activation applied AFTER the max
     (valid for monotone activations — paper Sec. IV-D)."""
     return apply_act(maxpool2d(x, window=window, stride=stride), act)
+
+
+def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(b, s, hkv, d) -> (b, s, hkv * g, d): query head h reads kv head
+    h // g (GQA)."""
+    return x if g == 1 else x.repeat_interleave(g, dim=2)
+
+
+@_counted
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              scale: float | None = None) -> torch.Tensor:
+    """q: (b, sq, hq, d); k/v: (b, skv, hkv, d), hq % hkv == 0 (GQA) ->
+    (b, sq, hq, d).  The whole (sq, skv) score matrix, fp32.
+
+    Queries are aligned to the end of the keys (query i sits at position
+    i + skv - sq, as in decode); a key is visible when ``kpos <= qpos``
+    (causal) and ``kpos > qpos - window`` (window > 0); scores are capped
+    as ``c * tanh(s / c)`` (softcap > 0); masked scores take -1e30.  The
+    JAX package's banded and chunked variants compute this same function
+    with less memory under XLA, so one version stands for all three."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          repeat_kv(k, g).to(torch.float32)) * scale
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p,
+                       repeat_kv(v, g).to(torch.float32))
+    return out.to(q.dtype)

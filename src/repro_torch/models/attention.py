@@ -1,0 +1,130 @@
+"""Attention blocks of the port: GQA, sliding window (ring KV cache),
+logit softcap — the JAX package's ``repro.models.attention`` on tensors.
+
+Train/prefill attention goes through the active
+:class:`repro_torch.core.engine.Engine` (the flash kernel or its plain
+version).  Decode attends one query token against the cache with an
+explicit validity mask (plain PyTorch, fp32 accumulation): global layers
+keep a full-length cache, ``ATTN_LOCAL`` layers a ring of ``window`` slots.
+Cross-attention (enc-dec) and the reference's head padding and sharding
+constraints, which do nothing without a device mesh, are not ported
+(ROADMAP A11, A13).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.models.layers import dense_init, rope
+
+
+def init_attn(cfg, gen: torch.Generator, dtype, device,
+              lead: tuple[int, ...] = ()) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, device, lead),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device, lead),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, device, lead),
+    }
+
+
+def _proj_qkv(cfg, p: dict, x: torch.Tensor):
+    eng = engine.current()
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = eng.matmul(x, p["wq"], name="attn.q").reshape(b, s, cfg.n_heads, hd)
+    k = eng.matmul(x, p["wk"], name="attn.k").reshape(
+        b, s, cfg.n_kv_heads, hd)
+    v = eng.matmul(x, p["wv"], name="attn.v").reshape(
+        b, s, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_mask: torch.Tensor, *, softcap: float = 0.0,
+                     scale: float | None = None) -> torch.Tensor:
+    """Decode attention: q (b, 1, hq, d) against cache k/v (b, S, hkv, d)
+    with an explicit per-slot validity mask ((S,) or (b, S)); slot order is
+    irrelevant once RoPE is burned into the cached keys.  fp32
+    accumulation."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                          k.to(torch.float32)) * scale
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    if kv_mask.dim() == 1:
+        kv_mask = kv_mask[None]
+    logits = torch.where(kv_mask[:, None, None, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    pmax = logits.amax(-1, keepdim=True)
+    un = torch.exp(logits - pmax)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", un, v.to(torch.float32))
+    den = un.sum(-1).permute(0, 3, 1, 2)[..., None]         # (b, q, h, g, 1)
+    out = out / torch.clamp(den, min=1e-30)
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attn_forward(cfg, p: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
+                 window: int = 0, causal: bool = True,
+                 softcap: float | None = None, return_kv: bool = False):
+    """Full-sequence (train / prefill) self-attention."""
+    eng = engine.current()
+    b, s, _ = x.shape
+    q, k, v = _proj_qkv(cfg, p, x)
+    q = rope(q, pos_ids, cfg.rope_theta)
+    k = rope(k, pos_ids, cfg.rope_theta)
+    sc = cfg.attn_softcap if softcap is None else softcap
+    out = eng.attention(q, k, v, causal=causal, window=window, softcap=sc)
+    out = eng.matmul(out.reshape(b, s, -1), p["wo"], name="attn.o")
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, window: int, dtype,
+                  device, lead: tuple[int, ...] = ()) -> dict:
+    size = min(window, max_seq) if window > 0 else max_seq
+    shape = (*lead, batch, size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(cfg, p: dict, x: torch.Tensor, pos: int, cache: dict, *,
+                window: int = 0, softcap: float | None = None):
+    """One-token decode step.  x: (b, 1, d); pos: the absolute position.
+
+    Projects k/v for the new token, writes them into the (ring) cache and
+    attends against every valid slot.  The write goes into the cache
+    tensors in place (the reference's ``dynamic_update_slice`` returns a
+    new cache): the returned cache holds the same tensors, updated."""
+    eng = engine.current()
+    b = x.shape[0]
+    hd = cfg.hd
+    sc = cfg.attn_softcap if softcap is None else softcap
+
+    q = eng.matmul(x, p["wq"], name="attn.q").reshape(b, 1, cfg.n_heads, hd)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k_new = eng.matmul(x, p["wk"], name="attn.k").reshape(
+        b, 1, cfg.n_kv_heads, hd)
+    v_new = eng.matmul(x, p["wv"], name="attn.v").reshape(
+        b, 1, cfg.n_kv_heads, hd)
+    k_new = rope(k_new, posv, cfg.rope_theta)
+
+    kc, vc = cache["k"], cache["v"]
+    size = kc.shape[1]
+    # the reference clamps an out-of-range slot as dynamic_update_slice does
+    slot = pos % size if window > 0 else min(pos, size - 1)
+    kc[:, slot] = k_new[:, 0].to(kc.dtype)
+    vc[:, slot] = v_new[:, 0].to(vc.dtype)
+    idx = torch.arange(size, device=x.device)
+    kv_mask = torch.ones(size, dtype=torch.bool, device=x.device) \
+        if pos >= size else idx <= pos
+    out = masked_attention(q, kc, vc, kv_mask, softcap=sc)
+    out = eng.matmul(out.reshape(b, 1, -1), p["wo"], name="attn.o")
+    return out, {"k": kc, "v": vc}

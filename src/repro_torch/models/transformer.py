@@ -1,0 +1,215 @@
+"""LM assembly of the port: decoder-only stacks of global and sliding-window
+attention blocks with dense MLPs — the JAX package's
+``repro.models.transformer`` on tensors.
+
+Parameters keep the reference's stacked layout: ``params["blocks"][i]``
+holds pattern position *i* of every period, each leaf with a leading
+``reps`` axis, and a non-dividing remainder of the pattern runs as the
+unstacked ``params["tail"]``.  The reference's ``lax.scan`` over periods is
+a Python loop over index *r* of the stacked tensors (``a[r]`` of a
+contiguous stacked tensor is a contiguous view, so nothing is copied).
+
+Modes:
+* ``train``   — full-sequence forward, returns logits (forward only: the
+  loss and training come with the training slice, ROADMAP A14).
+* ``prefill`` — forward that also emits per-layer K/V for the decode cache.
+* ``decode``  — one-token step against the cache (:func:`decode_step`).
+
+MoE, Mamba/SSD, shared-attention, encoder-decoder and vision families
+raise ``NotImplementedError`` (ROADMAP A13).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA,
+                                      SHARED_ATTN, ModelConfig)
+from repro_torch.core.accelerator import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as mlp_mod
+
+MODES = ("train", "prefill")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"float32"`` -> ``torch.float32`` (the configs spell dtypes as the
+    JAX package does)."""
+    return getattr(torch, name)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the families the port does not run yet."""
+    for ak, mk in cfg.block_kinds():
+        if ak in (MAMBA, SHARED_ATTN):
+            raise NotImplementedError(
+                f"{cfg.name}: {ak} blocks (Mamba2/SSD, zamba2 shared "
+                "attention) are not ported yet (ROADMAP A13)")
+        if ak not in (ATTN_GLOBAL, ATTN_LOCAL):
+            raise ValueError(f"{cfg.name}: unknown block kind {ak!r}")
+        if mk == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A13)")
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder stacks are not ported yet "
+            "(ROADMAP A13)")
+    if cfg.vision_tokens or cfg.audio_frames or cfg.frontend_dim:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are not ported yet "
+            "(ROADMAP A13)")
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
+                lead: tuple[int, ...]) -> dict:
+    dt = torch_dtype(cfg.param_dtype)
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"ln1": L.norm_params(cfg, d, device, lead),
+            "attn": attn_mod.init_attn(cfg, gen, dt, device, lead),
+            "ln2": L.norm_params(cfg, d, device, lead),
+            "mlp": mlp_mod.init_mlp(cfg, gen, d, ff, dt, device, lead)}
+
+
+def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
+                device=None) -> dict:
+    """Random parameters from a seed, in the reference's tree layout, drawn
+    on ``device`` (the card unless the caller names another) from a
+    generator of that device, so a seed gives the same weights on every
+    device of one type.  Tied models also get ``embed_t``, a contiguous
+    copy of ``embed.T`` (:func:`repro_torch.models.layers.head_weight`)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if dev.type == "meta":                  # shapes only (schedule compile)
+        gen = None
+    elif isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.param_dtype)
+    kinds = cfg.block_kinds()
+    reps, rem = cfg.stack_shape()
+    params: dict[str, Any] = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "final_norm": L.norm_params(cfg, cfg.d_model, dev),
+    }
+    if cfg.tie_embeddings:
+        params["embed_t"] = params["embed"].t().contiguous()
+    else:
+        params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
+                                      dev)
+    params["blocks"] = [_init_block(cfg, gen, dev, (reps,)) if reps else {}
+                        for _ in kinds]
+    params["tail"] = [_init_block(cfg, gen, dev, ()) for _ in range(rem)]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+def _apply_block(cfg, p: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
+                 attn_kind: str, mode: str, cache: dict | None = None,
+                 pos: int | None = None):
+    """Returns (x, new_cache)."""
+    window = cfg.sliding_window if attn_kind == ATTN_LOCAL else 0
+    h = L.norm(cfg, p["ln1"], x)
+    new_cache = cache
+    if mode == "decode":
+        y, attn_cache = attn_mod.attn_decode(cfg, p["attn"], h, pos,
+                                             cache["attn"], window=window)
+        new_cache = {**cache, "attn": attn_cache}
+    elif mode == "prefill":
+        y, (k, v) = attn_mod.attn_forward(cfg, p["attn"], h, pos_ids,
+                                          window=window, return_kv=True)
+        new_cache = {"k": k, "v": v}
+    else:
+        y = attn_mod.attn_forward(cfg, p["attn"], h, pos_ids, window=window)
+    x = x + y
+    h = L.norm(cfg, p["ln2"], x)
+    return x + mlp_mod.mlp(cfg, p["mlp"], h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+def _select(tree, r: int):
+    """Index ``r`` of every leaf's leading (stacked) axis."""
+    if isinstance(tree, dict):
+        return {k: _select(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
+                mode: str, caches: dict | None = None, pos: int | None = None):
+    """Run every block.  caches: ``{'main': [per-position stacked], 'tail':
+    [per-position]}`` in decode, where the cache tensors are updated in
+    place and returned.  Returns (x, aux, new_caches); ``aux`` is the MoE
+    auxiliary loss of the reference, always 0 here."""
+    kinds = cfg.block_kinds()
+    reps, rem = cfg.stack_shape()
+    collected: list[list] = [[] for _ in kinds]
+    for r in range(reps):
+        for i, (ak, _) in enumerate(kinds):
+            x, nc = _apply_block(
+                cfg, _select(params["blocks"][i], r), x, pos_ids,
+                attn_kind=ak, mode=mode, pos=pos,
+                cache=_select(caches["main"][i], r) if caches else None)
+            collected[i].append(nc)
+    new_tail = []
+    for i in range(rem):
+        x, nc = _apply_block(cfg, params["tail"][i], x, pos_ids,
+                             attn_kind=kinds[i][0], mode=mode, pos=pos,
+                             cache=caches["tail"][i] if caches else None)
+        new_tail.append(nc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "prefill":
+        main = [_stack(c) for c in collected] if reps else []
+        return x, aux, {"main": main, "tail": new_tail}
+    if mode == "decode":
+        return x, aux, caches
+    return x, aux, None
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+def forward(cfg: ModelConfig, params: dict, batch: dict, *,
+            mode: str = "train"):
+    """batch: ``{"tokens": (B, S) integer}``.  Returns (logits (B, S, V)
+    fp32, aux, caches)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    check_supported(cfg)
+    cd = torch_dtype(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    x = L.embed(params, tokens, scale=cfg.name.startswith("gemma"),
+                d=cfg.d_model, dtype=cd)
+    pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux, caches = stack_apply(cfg, params, x, pos_ids, mode=mode)
+    x = L.norm(cfg, params["final_norm"], x)
+    return L.unembed(cfg, params, x), aux, caches
+
+
+def decode_step(cfg: ModelConfig, params: dict, caches: dict,
+                tokens: torch.Tensor, pos: int):
+    """tokens: (B, 1) integer; pos: the absolute position.  Returns (logits
+    (B, 1, V), caches), the caches updated in place."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = L.embed(params, tokens, scale=cfg.name.startswith("gemma"),
+                d=cfg.d_model, dtype=cd)
+    pos_ids = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
+                         device=x.device)
+    x, _, caches = stack_apply(cfg, params, x, pos_ids, mode="decode",
+                               caches=caches, pos=pos)
+    x = L.norm(cfg, params["final_norm"], x)
+    return L.unembed(cfg, params, x), caches

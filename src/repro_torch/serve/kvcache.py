@@ -1,0 +1,96 @@
+"""Decode-cache construction and the prefill -> decode hand-off, for
+attention layers — the JAX package's ``repro.serve.kvcache`` on tensors.
+
+Cache layout mirrors the stack: ``{'main': [per-pattern-position entry
+stacked over reps], 'tail': [unstacked entries]}``, each entry
+``{"attn": {"k", "v"}}``:
+
+* global attention — full ``(B, max_seq, hkv, hd)`` K/V;
+* local attention  — a **ring** of ``min(window, max_seq)`` slots.
+
+Mamba and cross-attention entries come with their blocks (ROADMAP A13).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.core.accelerator import resolve_device
+from repro_torch.models.attention import init_kv_cache
+
+
+def _window(cfg: ModelConfig, attn_kind: str) -> int:
+    return cfg.sliding_window if attn_kind == ATTN_LOCAL else 0
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """An empty cache on ``device`` (the card unless the caller names
+    another)."""
+    device = resolve_device(device)
+    kinds = cfg.block_kinds()
+    reps, rem = cfg.stack_shape()
+    main = [{"attn": init_kv_cache(cfg, batch, max_seq, _window(cfg, ak),
+                                   dtype, device, (reps,))}
+            for ak, _ in kinds]
+    tail = [{"attn": init_kv_cache(cfg, batch, max_seq,
+                                   _window(cfg, kinds[i][0]), dtype, device)}
+            for i in range(rem)]
+    return {"main": main, "tail": tail}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def cache_bytes(cache) -> int:
+    return sum(a.numel() * a.element_size() for a in _leaves(cache))
+
+
+# ---------------------------------------------------------------------------
+# prefill -> decode cache
+# ---------------------------------------------------------------------------
+def _ring_fill(kv: torch.Tensor, window: int) -> torch.Tensor:
+    """kv: (..., S, h, d) full prefill keys -> (..., window, h, d) ring laid
+    out so that decode's ``slot = pos % window`` indexing continues
+    seamlessly at pos = S."""
+    S = kv.shape[-3]
+    w = min(window, S)
+    last = kv[..., S - w:, :, :]
+    slots = torch.arange(S - w, S, device=kv.device) % window
+    out = kv.new_zeros(kv.shape[:-3] + (window,) + kv.shape[-2:])
+    out[..., slots, :, :] = last
+    return out
+
+
+def _convert_position(cfg, attn_kind: str, entry: dict, max_seq: int,
+                      dtype) -> dict:
+    window = _window(cfg, attn_kind)
+    k, v = entry["k"].to(dtype), entry["v"].to(dtype)
+    S = k.shape[-3]
+    if window > 0:
+        size = min(window, max_seq)
+        k, v = _ring_fill(k, size), _ring_fill(v, size)
+    else:
+        pad = (0, 0, 0, 0, 0, max_seq - S)      # the seq axis, from the end
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    return {"attn": {"k": k, "v": v}}
+
+
+def cache_from_prefill(cfg: ModelConfig, prefill_caches: dict, max_seq: int,
+                       dtype=torch.bfloat16) -> dict:
+    """prefill_caches: ``stack_apply(mode='prefill')`` output."""
+    kinds = cfg.block_kinds()
+    main = [_convert_position(cfg, kinds[i][0], entry, max_seq, dtype)
+            for i, entry in enumerate(prefill_caches["main"])]
+    tail = [_convert_position(cfg, kinds[i][0], entry, max_seq, dtype)
+            for i, entry in enumerate(prefill_caches["tail"])]
+    return {"main": main, "tail": tail}

@@ -195,7 +195,8 @@ def test_plain_call_counts_skip_schedule_compilation(params):
     srv.submit(CNNRequest(uid=0, image=_images(1)[0]))
     srv.run()
     c = ref.counts()
-    assert c == {"matmul_bias_act": 3, "conv2d": 5, "maxpool2d": 3}
+    assert c == {"matmul_bias_act": 3, "conv2d": 5, "maxpool2d": 3,
+                 "attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -242,12 +243,25 @@ def test_default_device_entry_points_raise_without_cuda(ref_params, params):
 
 
 def test_unported_routes_raise(params):
+    """The sa_conv route now runs (the SA-CONV GEMM kernel's plain version
+    here) and matches the reference; backward and unknown backends still
+    raise."""
     eng = Engine(backend="kernels",
                  policy=DispatchPolicy(force_regime="sa_conv"))
+    rng = np.random.default_rng(0)
+    xn = rng.standard_normal((4, 32)).astype(np.float32)
+    wn = rng.standard_normal((32, 16)).astype(np.float32)
+    with eng.tracing() as tr:
+        got = eng.matmul(torch.from_numpy(xn), torch.from_numpy(wn),
+                         name="fc")
+    want = REngine(backend="pallas", interpret=True,
+                   policy=RPolicy(force_regime="sa_conv")).matmul(
+        jnp.asarray(xn), jnp.asarray(wn), name="fc")
+    assert tr[0].regime == "sa_conv"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
     x = torch.zeros(4, 32)
     w = torch.zeros(32, 16)
-    with pytest.raises(NotImplementedError, match="sa_conv_matmul"):
-        eng.matmul(x, w, name="fc")
     with pytest.raises(NotImplementedError, match="backward"):
         Engine(backend="kernels").matmul(x.requires_grad_(), w, name="fc")
     with pytest.raises(ValueError, match="backend"):

@@ -15,7 +15,10 @@ from repro_torch.core.dataflow import PoolSpec
 from repro_torch.core.engine import Engine
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import ref
+from repro_torch.kernels.attention import flash_attention, flash_plain
 from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                         sa_conv_matmul_plain)
 from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
@@ -122,3 +125,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="integer map"):
         maxpool_act(torch.zeros(1, 4, 4, 3, dtype=torch.int8, device=cuda),
                     window=2, stride=2, act="silu")
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 130, 190), (130, 300, 257),
+                                   (257, 513, 129), (300, 64, 1000)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+def test_sa_conv_gemm_kernel(cuda, m, k, n, wdtype, act):
+    x, w, bias = _t(0, (m, k), cuda), _t(1, (k, n), cuda, k ** -0.5), \
+        _t(2, (n,), cuda)
+    scale = None
+    if wdtype == "int8":
+        qt = quantize(w)
+        w, scale = qt.q, qt.scale
+    elif wdtype == "bf16":
+        w = w.to(torch.bfloat16)
+    got = sa_conv_matmul(x, w, bias, act=act, w_scale=scale)
+    want = sa_conv_matmul_plain(x, w, bias, act=act, w_scale=scale)
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("case", [
+    dict(b=2, sq=256, skv=256, hq=4, hkv=2, d=64, window=0, softcap=0.0),
+    dict(b=1, sq=256, skv=256, hq=8, hkv=8, d=32, window=64, softcap=0.0),
+    dict(b=2, sq=128, skv=128, hq=4, hkv=1, d=64, window=0, softcap=50.0),
+    dict(b=1, sq=1, skv=300, hq=4, hkv=2, d=64, window=0, softcap=0.0),
+    dict(b=1, sq=1, skv=300, hq=4, hkv=2, d=64, window=128, softcap=0.0),
+    dict(b=2, sq=200, skv=200, hq=2, hkv=2, d=48, window=0, softcap=0.0),
+    dict(b=1, sq=77, skv=77, hq=2, hkv=1, d=128, window=0, softcap=0.0),
+    dict(b=1, sq=40, skv=90, hq=2, hkv=2, d=16, window=7, softcap=0.0),
+])
+def test_flash_attention_kernel(cuda, case):
+    c = case
+    q = _t(0, (c["b"], c["sq"], c["hq"], c["d"]), cuda)
+    k = _t(1, (c["b"], c["skv"], c["hkv"], c["d"]), cuda)
+    v = _t(2, (c["b"], c["skv"], c["hkv"], c["d"]), cuda)
+    kw = dict(window=c["window"], softcap=c["softcap"])
+    torch.testing.assert_close(flash_attention(q, k, v, **kw),
+                               flash_plain(q, k, v, **kw), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as views into one fused (b, s, 3, h, d) projection."""
+    qkv = _t(0, (2, 100, 3, 4, 64), cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, flash_plain(q, k, v, causal=False),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, w = _t(0, (4, 32), cuda), _t(1, (32, 16), cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sa_conv_matmul(x, w.t().contiguous().t())
+    with pytest.raises(TypeError):
+        sa_conv_matmul(x.double(), w)
+    q = _t(0, (1, 8, 2, 40), cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = _t(0, (1, 8, 2, 66), cuda)[..., 1:65]
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+
+
+def test_serve_engine_on_the_card_matches_the_torch_backend(cuda):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = reduced(get_config("olmo-1b"), param_dtype="float32",
+                  compute_dtype="float32")
+    params = T.init_params(cfg, 0)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 300))
+    outs = {}
+    for backend in ("kernels", "torch"):
+        srv = ServeEngine(cfg, params, batch_size=2, max_seq=320,
+                          engine=Engine(backend=backend))
+        for i, p in enumerate(prompts):
+            srv.submit(Request(uid=i, prompt=p, max_new=4))
+        outs[backend] = {r.uid: r for r in srv.run()}
+    for uid, r in outs["kernels"].items():
+        np.testing.assert_allclose(r.logits[0], outs["torch"][uid].logits[0],
+                                   rtol=1e-3, atol=1e-3)

@@ -4,7 +4,7 @@ On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in Pallas interpret mode, as the JAX package's own tests run
 them.  Inputs are made once with numpy from a seed and given to both.
 Tolerances are the reference tests' (tests/test_fc_batch.py,
-tests/test_conv_dispatch.py, tests/test_fused_pool.py).
+tests/test_conv_dispatch.py, tests/test_fused_pool.py, tests/test_kernels.py).
 """
 from __future__ import annotations
 
@@ -12,17 +12,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core import quant as rquant
 from repro.core.dataflow import PoolSpec as RPoolSpec
+from repro.core.engine import DispatchPolicy as RPolicy
 from repro.core.engine import Engine as REngine
+from repro.kernels import ref as rref
+from repro.kernels.attention import flash_attention as r_flash_attention
 from repro.kernels.pool_act import maxpool_act as r_maxpool_act
+from repro.kernels.sa_conv import sa_conv_matmul as r_sa_conv_matmul
 from repro.kernels.sa_fc import sa_fc_matmul as r_sa_fc_matmul
 from repro_torch.core import quant
 from repro_torch.core.dataflow import PoolSpec
-from repro_torch.core.engine import Engine
+from repro_torch.core.engine import DispatchPolicy, Engine
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import attention as tattn
+from repro_torch.kernels.attention import flash_attention, live_tiles
 from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv_implicit import (SMEM_MAX, THREADS, TPX,
                                                   conv_geometry,
                                                   sa_conv_implicit,
@@ -198,6 +207,178 @@ def test_sa_conv_plain_is_the_kernel_order_of_operations():
     assert torch.equal(got, sa_conv_plain(xt, ft, bt, act="relu",
                                           pool_window=3, pool_stride=2,
                                           w_scale=st))
+
+
+# ---------------------------------------------------------------------------
+# SA-CONV GEMM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,n,k", [(64, 256, 384), (100, 300, 200),
+                                   (257, 513, 129)])
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu", "silu",
+                                 "gelu"])
+def test_sa_conv_matmul_matches_reference(m, n, k, act):
+    x, w, b = _np(0, (m, k)), _np(1, (k, n), k ** -0.5), _np(2, (n,))
+    want = r_sa_conv_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                            act=act)
+    got = tgemm.sa_conv_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(b), act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_FC)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 128, 256), (100, 300, 200),
+                                   (130, 70, 513)])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_sa_conv_matmul_int8_matches_reference(m, n, k, act):
+    x, w, b = _np(0, (m, k)), _np(1, (k, n), 0.1), _np(2, (n,))
+    rq = rquant.quantize(jnp.asarray(w))
+    want = r_sa_conv_matmul(jnp.asarray(x), rq.q, jnp.asarray(b), act=act,
+                            w_scale=rq.scale.reshape(1, -1))
+    tq = quant.quantize(torch.from_numpy(w))
+    got = tgemm.sa_conv_matmul(torch.from_numpy(x), tq.q, torch.from_numpy(b),
+                         act=act, w_scale=tq.scale.reshape(1, -1))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_FC)
+    plain = tgemm.sa_conv_matmul_plain(torch.from_numpy(x), tq.q,
+                                       torch.from_numpy(b), act=act,
+                                       w_scale=tq.scale)
+    assert torch.equal(got, plain)
+
+
+def test_engine_sa_conv_route_matches_reference():
+    """A matmul the policy puts in the sa_conv regime runs the SA-CONV GEMM
+    wrapper (its plain version here) and records what the reference
+    records."""
+    x, w, b = _np(0, (48, 96)), _np(1, (96, 80), 0.1), _np(2, (80,))
+    reng = REngine(backend="pallas", interpret=True,
+                   policy=RPolicy(force_regime="sa_conv"))
+    with reng.tracing() as rtr:
+        want = reng.matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                           act="relu", name="proj")
+    eng = Engine(backend="kernels",
+                 policy=DispatchPolicy(force_regime="sa_conv"))
+    with eng.tracing() as tr:
+        got = eng.matmul(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(b), act="relu", name="proj")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_FC)
+    assert tr[0].regime == "sa_conv" and tr[0].plan is not None
+    assert (tr[0].m, tr[0].n, tr[0].k, tr[0].case) == \
+        (rtr[0].m, rtr[0].n, rtr[0].k, rtr[0].case)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+def _qkv(b, sq, skv, hq, hkv, d, seeds=(0, 1, 2)):
+    return (_np(seeds[0], (b, sq, hq, d)), _np(seeds[1], (b, skv, hkv, d)),
+            _np(seeds[2], (b, skv, hkv, d)))
+
+
+FLASH_CASES = [   # tests/test_kernels.py's, which cover GQA, window,
+                  # softcap, one query against 300 keys, and d = 48
+    dict(b=2, sq=256, skv=256, hq=4, hkv=2, d=64, window=0, softcap=0.0),
+    dict(b=1, sq=256, skv=256, hq=8, hkv=8, d=32, window=64, softcap=0.0),
+    dict(b=2, sq=128, skv=128, hq=4, hkv=1, d=64, window=0, softcap=50.0),
+    dict(b=1, sq=1, skv=300, hq=4, hkv=2, d=64, window=0, softcap=0.0),
+    dict(b=1, sq=1, skv=300, hq=4, hkv=2, d=64, window=128, softcap=0.0),
+    dict(b=2, sq=200, skv=200, hq=2, hkv=2, d=48, window=0, softcap=0.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_reference(case):
+    c = dict(case)
+    q, k, v = _qkv(c["b"], c["sq"], c["skv"], c["hq"], c["hkv"], c["d"])
+    want = r_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=c["window"], softcap=c["softcap"],
+                             bq=64, bkv=128)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), window=c["window"],
+                          softcap=c["softcap"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+    plain = rref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           window=c["window"], softcap=c["softcap"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(plain), rtol=3e-4,
+                               atol=3e-4)
+
+
+@settings(max_examples=6, deadline=None)
+@given(sq=st.integers(1, 160), hkv=st.sampled_from([1, 2, 4]),
+       g=st.sampled_from([1, 2]), window=st.sampled_from([0, 32]))
+def test_flash_attention_property(sq, hkv, g, window):
+    q, k, v = _qkv(1, sq, sq, hkv * g, hkv, 32, seeds=(6, 7, 8))
+    want = r_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=window, bq=32, bkv=128)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4,
+                               atol=5e-4)
+
+
+def test_flash_attention_non_causal_and_scale():
+    q, k, v = _qkv(1, 10, 24, 4, 2, 16)
+    kw = dict(causal=False, scale=0.3, softcap=5.0)
+    want = rref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          **kw)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                               atol=3e-4)
+
+
+@pytest.mark.parametrize("sq,skv", [(512, 512), (200, 200), (1, 300),
+                                    (64, 640), (130, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 16, 64, 100])
+def test_flash_loop_bounds_are_the_reference_skip(sq, skv, causal, window):
+    """The kernel's loop over kv tiles visits exactly the tiles the TPU
+    kernel's grid-level test (attention.py, ``live``) keeps for a query
+    tile of the kernel's own size, and every unmasked key of a real row
+    lies in a visited tile."""
+    bq, bkv = tattn.BQ, tattn.BKV
+    offset = skv - sq
+    for iq in range(-(-sq // bq)):
+        q_lo = iq * bq + offset
+        q_hi = min(q_lo + bq - 1, skv - 1)       # the last real row
+        want = []
+        for ikv in range(-(-skv // bkv)):
+            k_lo, k_hi = ikv * bkv, ikv * bkv + bkv - 1
+            live = k_lo <= skv - 1
+            if causal:
+                live &= k_lo <= q_hi
+            if window > 0:
+                live &= k_hi > q_lo - window
+            if live:
+                want.append(ikv)
+        tiles = live_tiles(iq, sq, skv, causal=causal, window=window)
+        assert list(tiles) == want
+        for qpos in range(q_lo, q_hi + 1):
+            for kpos in range(skv):
+                seen = (not causal or kpos <= qpos) and \
+                    (window <= 0 or kpos > qpos - window)
+                if seen:
+                    assert kpos // bkv in tiles
+
+
+def test_engine_attention_records_and_routes():
+    q, k, v = _qkv(2, 24, 24, 4, 2, 16)
+    reng = REngine(backend="pallas", interpret=True)
+    with reng.tracing() as rtr:
+        want = reng.attention(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), window=8, name="attn")
+    for backend in ("kernels", "torch"):
+        eng = Engine(backend=backend)
+        with eng.tracing() as tr:
+            got = eng.attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), window=8, name="attn")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
+                                   atol=3e-4)
+        assert (tr[0].name, tr[0].regime, tr[0].m, tr[0].n, tr[0].k,
+                tr[0].dtype) == (rtr[0].name, rtr[0].regime, rtr[0].m,
+                                 rtr[0].n, rtr[0].k, rtr[0].dtype)
+    with pytest.raises(NotImplementedError, match="backward"):
+        Engine(backend="kernels").attention(
+            torch.from_numpy(q).requires_grad_(), torch.from_numpy(k),
+            torch.from_numpy(v))
 
 
 # ---------------------------------------------------------------------------
