@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Compare SA-FC and the OLMo-1B decode step of two checkouts on one card.
+
+    python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
+
+``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
+own (both name their package ``repro_torch``), in ``N`` pairs (10 by
+default) that alternate which side runs first, because host times drift
+between processes on a shared host.  A process puts its root's ``src``
+first on its path and measures with this checkout's ``chip_smoke``:
+
+* ``sa_fc_matmul`` at the shapes of its two served paths (AlexNet's
+  fc1-fc3 at b = 64 with fp32 and int8 weights; OLMo-1B's four GEMM shapes
+  at b = 4 and m = 512, fp32): ``ms`` with the card held busy (the card's
+  time), ``host_ms`` with the card drained before each call (the wrapper's
+  host work included) and ``enqueue_us``, the host work alone
+  (``chip_smoke.timed`` and ``chip_smoke.host_costs``);
+* a full-wave prefill and a decode step at b = 4 on the host clock, and
+  their device busy time, by ``chip_smoke.lm_throughput``.
+
+Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
+seed.  Prints one JSON object per run, then for each number the medians
+of both sides and the pairs the new side won (lower); ``--out`` writes
+the runs to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def run_tree(root: str) -> dict:
+    """Measure the ``repro_torch`` of ``root`` (this process imports no
+    other)."""
+    sys.path.insert(0, str(Path(root, "src")))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core.quant import quantize_cnn_params
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sa_fc import sa_fc_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import init_cnn
+
+    torch.set_grad_enabled(False)
+    _build.build()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    params = init_cnn("alexnet", cs.SEED)
+    _, fcs = cs.alexnet_layers(params)
+    _, qfcs = cs.alexnet_layers(quantize_cnn_params(params))
+    calls = []
+    for (name, s, p), (_, _, qp) in zip(fcs, qfcs):
+        h = torch.randn((64, p["w"].shape[0]), generator=gen, device="cuda")
+        calls.append((f"alexnet {name} b=64 fp32", h, p["w"], p["b"], s.act,
+                      None))
+        calls.append((f"alexnet {name} b=64 int8", h, qp["w"].q, qp["b"],
+                      s.act, qp["w"].scale))
+    cfg = cs.olmo_config()
+    lm = T.init_params(cfg, cs.SEED, device="cuda")
+    for m in (cs.LM_BATCH, cs.LM_PROMPT):
+        for label, x, w, act, _ in cs.gemm_shapes(cfg, lm, gen):
+            calls.append((f"olmo {label} b={m} fp32", x[:m].contiguous(), w,
+                          None, act, None))
+    out = {}
+    for label, h, w, bias, act, scale in calls:
+        def fn():
+            sa_fc_matmul(h, w, bias, act=act, w_scale=scale)
+        out[label] = dict(ms=cs.timed(fn), **cs.host_costs(fn))
+    del calls, params
+    rep = cs.Report()
+    cs.lm_throughput(rep, cfg, lm)
+    d = rep.detail
+    return dict(sa_fc=out, decode_step_ms=d["lm_decode_step_ms"],
+                prefill_wave_ms=d["lm_prefill_wave_ms"],
+                device_busy=d["lm_device_busy"])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old")
+    ap.add_argument("new", nargs="?", default=str(ROOT))
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--out")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(run_tree(args.child)))
+        return 0
+    sides = {"old": str(Path(args.old).resolve()),
+             "new": str(Path(args.new).resolve())}
+    pairs = []
+    for i in range(args.pairs):
+        pair = {}
+        for tree in ("old", "new") if i % 2 == 0 else ("new", "old"):
+            proc = subprocess.run([sys.executable, __file__, args.old,
+                                   "--child", sides[tree]],
+                                  capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return proc.returncode
+            pair[tree] = json.loads(proc.stdout.strip().splitlines()[-1])
+            print(json.dumps(dict(pair=i, tree=tree, **pair[tree])),
+                  flush=True)
+        pairs.append(pair)
+    if args.out:
+        Path(args.out).write_text(json.dumps(pairs, indent=1))
+    for name, get in numbers(pairs[0]["old"]):
+        old = [get(p["old"]) for p in pairs]
+        new = [get(p["new"]) for p in pairs]
+        print(f"{name}: old median {statistics.median(old):.4f}, new median "
+              f"{statistics.median(new):.4f}, new lower in "
+              f"{sum(n < o for o, n in zip(old, new))} of {len(pairs)} pairs")
+    return 0
+
+
+def numbers(run: dict):
+    """(name, getter) of every number a run reports."""
+    out = [("decode_step_ms", lambda r: r["decode_step_ms"]),
+           ("prefill_wave_ms", lambda r: r["prefill_wave_ms"]),
+           ("decode device_ms",
+            lambda r: r["device_busy"]["decode"]["device_ms"])]
+    for label, v in run["sa_fc"].items():
+        out += [(f"sa_fc {label} {key}",
+                 lambda r, label=label, key=key: r["sa_fc"][label][key])
+                for key in v]
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

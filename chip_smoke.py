@@ -14,9 +14,13 @@ Phases (any failure raises and exits non-zero):
 4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
    serves 130 requests on the kernels (and one int8 wave), with every
    dispatch a schedule hit and every kernel of the path launched;
-5. times: CUDA events, median of 25 runs, L2 flushed before each;
+5. times: CUDA events, median of 25 runs, L2 flushed and the card held
+   busy before each (the card's time); SA-FC also with the card drained
+   before each call (the wrapper's host work included) and as host time
+   per enqueued call;
 6. the LM slice: the SA-CONV GEMM and flash-attention kernels against their
-   plain versions at full-width OLMo-1B shapes, then
+   plain versions at full-width OLMo-1B shapes, SA-FC at the decode (b=4)
+   and lone-prefill (m=512) shapes, then
    ``ServeEngine(olmo-1b, batch_size=4, max_seq=640)`` serves 9 requests of
    512 prompt tokens and 16 new tokens in fp32 (waves of 4, 4 and 1), with
    every matmul a schedule hit, every kernel of the path launched and no
@@ -30,6 +34,7 @@ line ``{"ok": true, "device": {...}}``.  Details go to
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -64,6 +69,9 @@ TOL_ATTN = dict(rtol=3e-4, atol=3e-4)
 # rounding of differently ordered fp32 sums compounds over 113 matmuls and
 # 16 attentions; the reference's serving tolerance (5e-4) is for 2 layers.
 TOL_LM = dict(rtol=1e-3, atol=1e-3)
+
+#: clock cycles the card spins before each timed call (~1 ms at 1.98 GHz)
+HOLD_CYCLES = 2_000_000
 
 N_REQUESTS = 130          # two full waves of 64 and a tail of 2
 SEED = 0
@@ -175,6 +183,29 @@ def build(rep: Report) -> None:
             f"{min(regs)}..{max(regs)}, spill bytes {spills}")
     rep.detail["build_s"] = seconds
     rep.detail["ptxas"] = ptxas
+    rep.detail["ptxas_sa_fc"] = sa_fc_ptxas(_build.build_log("sa_fc"))
+    for inst, v in rep.detail["ptxas_sa_fc"].items():
+        log(f"  ptxas sa_fc_kernel<{inst}>: {v['registers']} registers, "
+            f"spill bytes {v['spill_bytes']}")
+
+
+def sa_fc_ptxas(text: str) -> dict:
+    """Registers and spill bytes of each SA-FC instantiation (weight type,
+    row tile) from ptxas's -v output."""
+    kinds = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}
+    out = {}
+    for block in text.split("Compiling entry function")[1:]:
+        m = re.search(r"sa_fc_kernelI(f|a|13__nv_bfloat16)Li(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        if not m or not regs:
+            continue
+        spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", block))
+        out[f"{kinds[m.group(1)]}, RB={m.group(2)}"] = dict(
+            registers=int(regs.group(1)), spill_bytes=spills)
+    if len(out) != 21:
+        raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
+                             "not 21")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -455,9 +486,14 @@ def serve(rep: Report, params, qparams, images_np) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
-def timed(fn, *, runs: int = 25, warmup: int = 3) -> float:
+def timed(fn, *, runs: int = 25, warmup: int = 3, host: bool = False) -> float:
     """Median ms of ``fn`` over ``runs`` CUDA-event-timed calls, each after
-    the L2 cache is flushed by writing a 256 MB buffer."""
+    the L2 cache is flushed by writing a 256 MB buffer.  By default the
+    card is then held busy for about a millisecond, so that the host has
+    enqueued the call before the card reaches it: the time is the card's.
+    With ``host=True`` the card is drained instead, so the time runs from
+    the host's start of the call to the card's end of it: the wrapper's
+    host work is included, as on a host-bound decode step."""
     import torch
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
@@ -465,6 +501,10 @@ def timed(fn, *, runs: int = 25, warmup: int = 3) -> float:
     times = []
     for _ in range(runs):
         flush.zero_()
+        if host:
+            torch.cuda.synchronize()
+        else:
+            torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -473,6 +513,31 @@ def timed(fn, *, runs: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def enqueue_us(fn, *, calls: int = 20, runs: int = 11) -> float:
+    """Median host-clock microseconds per call of ``fn`` over bursts of
+    ``calls`` calls enqueued while the card is held busy (so that no call
+    waits for the card): the wrapper's host work alone."""
+    import torch
+    fn()
+    per = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10 * HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def host_costs(fn) -> dict:
+    """The host's share of a call two ways: ``host_ms``, the call timed
+    with the card drained first, and ``enqueue_us``, its host work
+    alone."""
+    return dict(host_ms=timed(fn, host=True), enqueue_us=enqueue_us(fn))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -487,6 +552,11 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+def host_log(host: dict | None) -> str:
+    return "" if host is None else (f"  host {host['host_ms']:.4f} ms, "
+                                    f"enqueue {host['enqueue_us']:.1f} us")
+
+
 def measure(rep: Report, shapes: dict, params, images_np) -> None:
     import torch
     import torch.nn.functional as F
@@ -497,15 +567,16 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
     from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
     from repro_torch.serve.cnn_server import CNNServer
 
-    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb):
+    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, host=None):
         b_ms, by = bound(flops, nb)
         rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=by, flops=flops,
-                             bytes=nb, path="CNNServer.run", per_pass=1))
+                             bytes=nb, path="CNNServer.run", per_pass=1,
+                             **(host or {})))
         log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
             f"({by})  plain {plain_ms:9.4f}  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}")
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}{host_log(host)}")
 
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for name, xin, p, qp, kw in shapes["conv"]:
@@ -535,18 +606,21 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
             w, b = p["w"], p["b"]
             flops = 2 * h.shape[0] * w.shape[0] * w.shape[1]
             out = sa_fc_matmul(h, w, b, act=act)
+            fp32 = functools.partial(sa_fc_matmul, h, w, b, act=act)
             row("sa_fc_matmul", f"{name} b={h.shape[0]} fp32",
-                timed(lambda: sa_fc_matmul(h, w, b, act=act)),
+                timed(fp32),
                 timed(lambda: sa_fc_plain(h, w, b, act=act), runs=20),
                 timed(lambda: ref.apply_act(torch.addmm(b, h, w), act)),
-                flops, nbytes(h, w, b, out))
+                flops, nbytes(h, w, b, out), host_costs(fp32))
             qw = qp["w"]
+            int8 = functools.partial(sa_fc_matmul, h, qw.q, qp["b"], act=act,
+                                     w_scale=qw.scale)
             row("sa_fc_matmul", f"{name} b={h.shape[0]} int8",
-                timed(lambda: sa_fc_matmul(h, qw.q, qp["b"], act=act,
-                                           w_scale=qw.scale)),
+                timed(int8),
                 timed(lambda: sa_fc_plain(h, qw.q, qp["b"], act=act,
                                           w_scale=qw.scale), runs=20),
-                None, flops, nbytes(h, qw.q, qw.scale, qp["b"], out))
+                None, flops, nbytes(h, qw.q, qw.scale, qp["b"], out),
+                host_costs(int8))
         t = shapes["pool"]
         out = maxpool_act(t, window=3, stride=2, act="none")
         tc = t.permute(0, 3, 1, 2)
@@ -676,8 +750,41 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
         rep.note_err("flash_attention", e)
     log(f"  flash_attention: the reference's 6 cases (GQA, window, softcap, "
         f"1 query x 300 keys, d=48) within {TOL_ATTN}")
+    check_lm_fc(rep, shapes["gemm"])
     torch.cuda.synchronize()
     return shapes
+
+
+def check_lm_fc(rep: Report, gemms: list) -> None:
+    """B1 at the OLMo shapes it runs on the path: b = 4 (every decode step)
+    and m = 512 (a lone request's prefill), with fp32 and int8 weights,
+    against its plain version; row 0 at b = 4 and at b = 512 bitwise equal
+    to b = 1."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.sa_fc import fc_launch, sa_fc_matmul, sa_fc_plain
+    for label, x, w, act, _ in gemms:
+        k, n = w.shape
+        qt = quantize(w)
+        for wt, ww, scale in (("fp32", w, None), ("int8", qt.q, qt.scale)):
+            one = sa_fc_matmul(x[:1].contiguous(), ww, act=act,
+                               w_scale=scale)
+            errs = []
+            for m in (LM_BATCH, LM_PROMPT):
+                h = x[:m].contiguous()
+                got = sa_fc_matmul(h, ww, act=act, w_scale=scale)
+                e = allclose(f"sa_fc_matmul {label} b={m} {wt}", got,
+                             sa_fc_plain(h, ww, act=act, w_scale=scale),
+                             TOL_FC)
+                rep.note_err("sa_fc_matmul", e)
+                exact(f"sa_fc_matmul {label} {wt} row 0 of b={m} == b=1",
+                      got[:1], one)
+                plan = fc_launch(m, k, n)
+                errs.append(f"b={m} max|d| {e:.3g} ({plan.ctas} CTAs, "
+                            f"S={plan.segments} "
+                            f"{'split' if plan.split else 'whole'})")
+            log(f"  sa_fc_matmul {label} {wt}: {'; '.join(errs)}; row 0 == "
+                "b=1")
+        del qt
 
 
 def teacher_forced(cfg, params, prompt, output, eng):
@@ -911,16 +1018,17 @@ def measure_lm(rep: Report, shapes: dict) -> None:
     from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
 
     def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
-            phase="prefill"):
+            phase="prefill", host=None):
         b_ms, by = bound(flops, nb)
         rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=by, flops=flops,
                              bytes=nb, path="ServeEngine.run", phase=phase,
-                             per_pass=per_pass))
+                             per_pass=per_pass, **(host or {})))
         log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
             f"({by}, {flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:9.4f}"
-            f"  library {lib_ms:.4f}  x{per_pass} per {phase}")
+            f"  library {lib_ms:.4f}{host_log(host)}  x{per_pass} per "
+            f"{phase}")
 
     for label, x, w, act, per_pass in shapes["gemm"]:
         m, k = x.shape
@@ -944,17 +1052,21 @@ def measure_lm(rep: Report, shapes: dict) -> None:
                                                      is_causal=True)),
         4 * b * h * pairs * d, nbytes(q, k, v, out), 16)
 
-    # SA-FC at the decode shapes (b = 4): the weight stream of every step
-    for label, x, w, act, per_pass in shapes["gemm"]:
-        h4 = x[:LM_BATCH].contiguous()
-        m, kk = h4.shape
-        n = w.shape[1]
-        out = sa_fc_matmul(h4, w, act=act)
-        row("sa_fc_matmul", f"{label} b={m}",
-            timed(lambda: sa_fc_matmul(h4, w, act=act)),
-            timed(lambda: sa_fc_plain(h4, w, act=act), runs=5, warmup=1),
-            timed(lambda: ref.apply_act(torch.mm(h4, w), act)),
-            2 * m * n * kk, nbytes(h4, w, out), per_pass, phase="decode")
+    # SA-FC at the decode shapes (b = 4), the weight stream of every step,
+    # and at m = 512, every projection of a lone request's prefill
+    for m, phase, plain_runs in ((LM_BATCH, "decode", 5),
+                                 (LM_PROMPT, "lone prefill", 2)):
+        for label, x, w, act, per_pass in shapes["gemm"]:
+            h = x[:m].contiguous()
+            kk, n = w.shape
+            out = sa_fc_matmul(h, w, act=act)
+            kern = functools.partial(sa_fc_matmul, h, w, act=act)
+            row("sa_fc_matmul", f"{label} b={m}", timed(kern),
+                timed(lambda: sa_fc_plain(h, w, act=act), runs=plain_runs,
+                      warmup=1),
+                timed(lambda: ref.apply_act(torch.mm(h, w), act)),
+                2 * m * n * kk, nbytes(h, w, out), per_pass, phase=phase,
+                host=host_costs(kern))
 
 
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
@@ -964,7 +1076,9 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
     OLMo-1B requests) for the SA-CONV GEMM and flash attention.  Times sum
     one unit of that path at its shapes: a b=64 CNN wave, or a full-wave
     OLMo prefill (each shape times its launches per prefill).
-    ``launches_by_path`` gives every path's count."""
+    ``launches_by_path`` gives every path's count; ``host_ms``, where
+    measured (SA-FC), sums the same unit timed with the card drained before
+    each call."""
     out = []
     for kernel, (source, replaces) in SOURCES.items():
         if kernel == "maxpool_act":
@@ -993,6 +1107,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
                               "ServeEngine.run": lm[kernel]},
             max_abs_err=rep.err[kernel],
             ms=total("ms"), plain_ms=total("plain_ms"),
+            host_ms=None if any(r.get("host_ms") is None for r in rows)
+            else total("host_ms"),
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None if any(v is None for v in lib) else
@@ -1032,7 +1148,8 @@ def main() -> int:
                            torch.from_numpy(images_np[:64]).cuda())
     log("== phase 4: CNNServer, full-width AlexNet at 227x227")
     served = serve(rep, params, qparams, images_np)
-    log("== phase 5: times (median of 25, CUDA events, L2 flushed)")
+    log("== phase 5: times (median of 25, CUDA events, L2 flushed, card "
+        "held busy)")
     measure(rep, shapes, params, images_np)
     del params, qparams
     torch.cuda.empty_cache()
@@ -1048,7 +1165,8 @@ def main() -> int:
     lm_shapes = check_lm_kernels(rep, cfg, lm_params)
     lm_served = serve_lm(rep, cfg, lm_params)
     lm_throughput(rep, cfg, lm_params)
-    log("  times (median of 25, CUDA events, L2 flushed; plain: fewer runs)")
+    log("  times (median of 25, CUDA events, L2 flushed, card held busy; plain: "
+        "fewer runs)")
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         measure_lm(rep, lm_shapes)
 

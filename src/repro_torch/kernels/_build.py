@@ -38,7 +38,7 @@ _F = ctypes.c_float
 #: C signature (argument types) of each library's launch function
 SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
-              (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+              (_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
                          (_P, _P, _I, _P, _P, _P) + (_I,) * 17 + (_P,)),
     "pool_act": ("pool_act_launch",

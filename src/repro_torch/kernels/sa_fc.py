@@ -6,8 +6,17 @@ fp32 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n) or (n,)
 per-column ``w_scale``).  For a CPU tensor it runs :func:`sa_fc_plain`; for
 a CUDA tensor it launches the kernel on the current stream, or raises.
 Ragged k, n and b are masked inside the kernel: no padded copies.
+
+The kernel splits k into :func:`fc_split` segments, a function of (k, n)
+only, and adds every output's terms in an order fixed by that split, so a
+row's output is bitwise the same whatever batch it rides in.
+:func:`fc_launch` is the whole launch geometry, in Python so that the CPU
+tests reach it.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -15,8 +24,15 @@ from repro_torch.kernels import _build, ref
 
 #: weight types of the GEMM kernels and their codes
 W_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
-#: batch tiles the kernel is instantiated for
-_ROW_TILES = (1, 2, 4, 8, 16, 32, 64)
+#: columns per CTA at each batch tile the kernel is instantiated for
+#: (``Cfg<WT, RB>::BN`` in csrc/sa_fc.cu, whose launch refuses a width that
+#: differs from its own, so a change to one side fails on the card)
+_COLS = {1: 64, 2: 64, 4: 64, 8: 64, 16: 64, 32: 64, 64: 32}
+_ROW_TILES = tuple(_COLS)
+#: k per chunk of the kernel (csrc/sa_fc.cu's BK); segments are whole chunks
+K_CHUNK = 32
+#: CTAs a launch aims for: two on each of an H100's 132 SMs
+TARGET_CTAS = 2 * 132
 
 
 def sa_fc_plain(x: torch.Tensor, w: torch.Tensor,
@@ -66,8 +82,85 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor,
 
 def row_tile(b: int) -> int:
     """The kernel's batch tile for ``b`` rows: the smallest instantiated
-    tile that holds them, at most 64 (larger batches loop over tiles)."""
+    tile that holds them, at most 64 (larger batches run a grid dimension
+    of 64-row tiles)."""
     return next(t for t in _ROW_TILES if t >= min(b, 64))
+
+
+def fc_split(k: int, n: int) -> tuple[int, int]:
+    """``(segments, k per segment)`` of the kernel's fixed split over k.
+
+    A pure function of ``(k, n)``: the kernel sums every output in an order
+    that depends on this split and nothing else, so a row's result does not
+    depend on the batch.  Segments are whole chunks of :data:`K_CHUNK`, the
+    last one may be shorter, and there are enough of them that even the
+    widest column tile gives :data:`TARGET_CTAS` CTAs (where k allows)."""
+    chunks = -(-k // K_CHUNK)
+    if chunks <= 1:
+        return 1, K_CHUNK
+    want = -(-TARGET_CTAS // -(-n // max(_COLS.values())))
+    per = max(1, chunks // want)
+    return -(-chunks // per), per * K_CHUNK
+
+
+@dataclasses.dataclass(frozen=True)
+class FcLaunch:
+    """How :func:`sa_fc_matmul` launches the kernel for one shape."""
+    rows: int                   # row tile (an instantiation)
+    cols: int                   # columns per CTA at that tile
+    segments: int               # fc_split's S
+    seg_k: int                  # k per segment
+    split: bool                 # one CTA per segment (else one per tile)
+    grid: tuple[int, int, int]  # (column tiles, row tiles, S or 1)
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def fc_launch(b: int, k: int, n: int) -> FcLaunch:
+    """The launch for ``(b, k) @ (k, n)``: the row tile and its columns
+    follow b, the split follows (k, n) alone.  A CTA walks all segments
+    itself where the tiles already give :data:`TARGET_CTAS` CTAs, and takes
+    one segment otherwise (partials through a workspace); both add the
+    partials in the same order."""
+    rb = row_tile(b)
+    bn = _COLS[rb]
+    segments, seg_k = fc_split(k, n)
+    col_tiles, row_tiles = -(-n // bn), -(-b // rb)
+    split = segments > 1 and col_tiles * row_tiles < TARGET_CTAS
+    return FcLaunch(rb, bn, segments, seg_k, split,
+                    (col_tiles, row_tiles, segments if split else 1))
+
+
+#: per (device, stream): the split launches' arrival counters (all 0
+#: between launches: the last CTA on a tile resets its own) and the
+#: workspace of their partials, grown as needed and reused by every launch
+#: on that stream (launches on one stream run in order)
+_SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+#: the largest workspace kept between launches (floats); a larger one is
+#: allocated for its launch alone
+WORKSPACE_KEEP = 2**24
+
+
+def _scratch(device: torch.device, stream: int, tiles: int,
+             partials: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(arrivals, part)`` for a split launch on ``stream``: at least
+    ``tiles`` zeroed counters and ``partials`` floats of workspace."""
+    key = (device, stream)
+    arrivals, part = _SCRATCH.get(key, (None, None))
+    if arrivals is None or arrivals.numel() < tiles:
+        arrivals = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                               device=device)
+    if part is None or part.numel() < partials:
+        fresh = torch.empty(partials, dtype=torch.float32, device=device)
+        if partials > WORKSPACE_KEEP:
+            _SCRATCH[key] = (arrivals, part)
+            return arrivals, fresh
+        part = fresh
+    _SCRATCH[key] = (arrivals, part)
+    return arrivals, part
 
 
 def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -84,13 +177,22 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    plan = fc_launch(b, k, n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    part = arrivals = None
+    if plan.split:
+        arrivals, part = _scratch(x.device, stream,
+                                  plan.grid[0] * plan.grid[1],
+                                  plan.segments * b * n)
     lib = _build.load("sa_fc")
     err = lib.sa_fc_launch(
         x.data_ptr(), w.data_ptr(), W_KINDS[w.dtype],
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        b, k, n, row_tile(b), _build.act_code(act),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        part.data_ptr() if part is not None else None,
+        arrivals.data_ptr() if arrivals is not None else None,
+        b, k, n, plan.rows, plan.cols, plan.seg_k // K_CHUNK,
+        _build.act_code(act), stream)
     _build.check(lib, err, "sa_fc_matmul")
     sa_fc_matmul.launches += 1
     return out

@@ -21,7 +21,8 @@ from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
 from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
                                                   sa_conv_plain)
-from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+from repro_torch.kernels import sa_fc as tfc
+from repro_torch.kernels.sa_fc import fc_launch, sa_fc_matmul, sa_fc_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -39,7 +40,8 @@ def _t(seed, shape, dev, scale=1.0):
 
 
 @pytest.mark.parametrize("b,k,n", [(1, 130, 190), (5, 300, 257),
-                                   (33, 512, 384), (70, 1000, 129)])
+                                   (33, 512, 384), (70, 1000, 129),
+                                   (4, 8192, 256), (3, 4608, 1000)])
 @pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
 def test_sa_fc_kernel(cuda, b, k, n, wdtype):
     x, w, bias = _t(0, (b, k), cuda), _t(1, (k, n), cuda, 0.1), \
@@ -56,6 +58,66 @@ def test_sa_fc_kernel(cuda, b, k, n, wdtype):
     one = sa_fc_matmul(x[:1].contiguous(), w, bias, act="relu",
                        w_scale=scale)
     assert torch.equal(got[:1], one)
+
+
+def _fc_operands(dev, k, n, wdtype):
+    w = _t(1, (k, n), dev, k ** -0.5)
+    scale = None
+    if wdtype == "int8":
+        qt = quantize(w)
+        w, scale = qt.q, qt.scale
+    elif wdtype == "bf16":
+        w = w.to(torch.bfloat16)
+    return w, scale, _t(2, (n,), dev)
+
+
+@pytest.mark.parametrize("k,n", [(1000, 300), (700, 4100)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_every_row_equals_its_b1_result(cuda, k, n, wdtype):
+    """Bitwise, across row tiles, split and whole launches (4100 columns
+    run whole at b = 130 and split below)."""
+    w, scale, bias = _fc_operands(cuda, k, n, wdtype)
+    x = _t(0, (130, k), cuda)
+    alone = torch.cat([sa_fc_matmul(x[i:i + 1].contiguous(), w, bias,
+                                    act="gelu", w_scale=scale)
+                       for i in range(130)])
+    modes = set()
+    for b in (1, 3, 4, 13, 64, 65, 130):
+        got = sa_fc_matmul(x[:b].contiguous(), w, bias, act="gelu",
+                           w_scale=scale)
+        assert torch.equal(got, alone[:b]), b
+        modes.add(fc_launch(b, k, n).split)
+    assert fc_launch(1, k, n).segments > 1
+    if n == 4100:
+        assert modes == {True, False}
+
+
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_operands_off_16_byte_alignment(cuda, wdtype):
+    """x and w as views one element into their buffers take narrower
+    copies (4 bytes, or element loads for int8 and bf16): same bits."""
+    b, k, n = 5, 300, 260
+    w, scale, bias = _fc_operands(cuda, k, n, wdtype)
+    x = _t(0, (b, k), cuda)
+    xo = torch.empty(b * k + 1, device=cuda)[1:].view(b, k)
+    wo = torch.empty(k * n + 1, dtype=w.dtype, device=cuda)[1:].view(k, n)
+    xo.copy_(x)
+    wo.copy_(w)
+    got = sa_fc_matmul(xo, wo, bias, act="relu", w_scale=scale)
+    assert torch.equal(got, sa_fc_matmul(x, w, bias, act="relu",
+                                         w_scale=scale))
+
+
+def test_sa_fc_split_launches_leave_the_arrival_counters_at_zero(cuda):
+    w, scale, bias = _fc_operands(cuda, 4096, 1000, "int8")
+    x = _t(0, (64, 4096), cuda)
+    assert fc_launch(64, 4096, 1000).split
+    first = sa_fc_matmul(x, w, bias, act="relu", w_scale=scale)
+    second = sa_fc_matmul(x, w, bias, act="relu", w_scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not tfc._SCRATCH[(x.device, stream)][0].any()
 
 
 @pytest.mark.parametrize("h,ci,p,co,stride,window", [

@@ -36,7 +36,9 @@ from repro_torch.kernels.sa_conv_implicit import (SMEM_MAX, THREADS, TPX,
                                                   conv_geometry,
                                                   sa_conv_implicit,
                                                   sa_conv_plain)
-from repro_torch.kernels.sa_fc import row_tile, sa_fc_matmul
+from repro_torch.kernels import sa_fc as tfc
+from repro_torch.kernels.sa_fc import (K_CHUNK, TARGET_CTAS, fc_launch,
+                                       fc_split, row_tile, sa_fc_matmul)
 
 RTOL_FC = dict(rtol=3e-4, atol=3e-4)
 RTOL_CONV = dict(rtol=2e-3, atol=2e-3)
@@ -85,6 +87,87 @@ def test_sa_fc_int8_scale_bias_acts(act):
                                     (130, 64)])
 def test_sa_fc_row_tile(b, tile):
     assert row_tile(b) == tile
+
+
+#: SA-FC's shapes on the served paths: AlexNet fc1-fc3 and VGG-16 fc1 at
+#: b = 64, and OLMo-1B's q/k/v/o, gate/up, down and lm_head at b = 4
+#: (decode) and m = 512 (a lone request's prefill)
+PATH_FC_SHAPES = [(64, 9216, 4096), (64, 4096, 4096), (64, 4096, 1000),
+                  (64, 25088, 4096)] + [
+    (b, k, n) for b in (4, 512)
+    for k, n in ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))]
+
+
+@pytest.mark.parametrize("b,k,n", PATH_FC_SHAPES)
+def test_sa_fc_launch_puts_two_ctas_on_every_sm(b, k, n):
+    plan = fc_launch(b, k, n)
+    assert plan.ctas >= TARGET_CTAS == 264
+    assert plan.grid[0] * plan.cols >= n and plan.grid[1] * plan.rows >= b
+
+
+@settings(max_examples=200, deadline=None)
+@given(k=st.integers(0, 50000), n=st.integers(1, 60000))
+def test_fc_split_covers_k_in_whole_chunks(k, n):
+    segments, seg_k = fc_split(k, n)
+    assert segments >= 1 and seg_k >= K_CHUNK and seg_k % K_CHUNK == 0
+    # every k lies in exactly one segment, and no segment is empty
+    assert (segments - 1) * seg_k < max(k, 1) <= segments * seg_k
+    # the kernel counts the segments from seg_k alone
+    chunks, per = -(-k // K_CHUNK), seg_k // K_CHUNK
+    assert segments == (-(-chunks // per) if chunks > per else 1)
+
+
+@settings(max_examples=200, deadline=None)
+@given(b=st.integers(1, 600), b2=st.integers(1, 600),
+       k=st.integers(0, 30000), n=st.integers(1, 60000))
+def test_fc_split_does_not_depend_on_the_batch(b, b2, k, n):
+    p, q = fc_launch(b, k, n), fc_launch(b2, k, n)
+    assert (p.segments, p.seg_k) == (q.segments, q.seg_k) == fc_split(k, n)
+    for plan, rows in ((p, b), (q, b2)):
+        assert plan.rows == row_tile(rows) and plan.cols == tfc._COLS[
+            plan.rows]
+        assert plan.grid[2] == (plan.segments if plan.split else 1)
+        assert plan.split == (plan.segments > 1 and plan.grid[0]
+                              * plan.grid[1] < TARGET_CTAS)
+
+
+def test_sa_fc_split_scratch_is_reused_per_stream(monkeypatch):
+    """Split launches take their counters and workspace from one cache per
+    (device, stream): reused while large enough, grown when not, and a
+    workspace above ``WORKSPACE_KEEP`` is made for its launch alone."""
+    monkeypatch.setattr(tfc, "_SCRATCH", {})
+    monkeypatch.setattr(tfc, "WORKSPACE_KEEP", 1000)
+    cpu = torch.device("cpu")
+    arr, part = tfc._scratch(cpu, 7, 10, 600)
+    assert arr.dtype == torch.int32 and not arr.any() and arr.numel() >= 10
+    assert part.dtype == torch.float32 and part.numel() == 600
+    again = tfc._scratch(cpu, 7, 10, 500)
+    assert again[0] is arr and again[1] is part
+    assert tfc._scratch(cpu, 8, 10, 500)[1] is not part   # another stream
+    grown = tfc._scratch(cpu, 7, 5000, 900)
+    assert grown[0].numel() >= 5000 and grown[1].numel() == 900
+    big = tfc._scratch(cpu, 7, 10, 2000)[1]
+    assert big.numel() == 2000 and tfc._SCRATCH[(cpu, 7)][1] is grown[1]
+
+
+#: the SA-FC shapes of the card's tests (tests/test_torch_gpu.py)
+GPU_FC_SHAPES = [(1, 130, 190), (5, 300, 257), (33, 512, 384),
+                 (70, 1000, 129), (4, 8192, 256), (3, 4608, 1000),
+                 (130, 700, 4100)]
+
+
+@pytest.mark.parametrize("b,k,n", GPU_FC_SHAPES)
+def test_sa_fc_launch_at_the_gpu_test_shapes(b, k, n):
+    """The tiles cover (b, n) with none to spare, the kernel's own count of
+    segments (csrc/sa_fc.cu: ceil(ceil(k / 32) / seg_chunks)) is
+    ``fc_split``'s, and the cases meant to split over k do."""
+    plan = fc_launch(b, k, n)
+    assert (plan.grid[0] - 1) * plan.cols < n <= plan.grid[0] * plan.cols
+    assert (plan.grid[1] - 1) * plan.rows < b <= plan.grid[1] * plan.rows
+    chunks = -(-k // K_CHUNK)
+    assert plan.segments == max(1, -(-chunks // (plan.seg_k // K_CHUNK)))
+    if k >= 4096:
+        assert plan.split and plan.segments > 1
 
 
 def test_sa_fc_rows_do_not_depend_on_the_batch():
