@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Compare SA-FC and the OLMo-1B decode step of two checkouts on one card.
+"""Compare SA-CONV, SA-FC, the CNN server and the OLMo-1B decode step of
+two checkouts on one card.
 
     python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
+                            [--parts conv,fc,lm]
 
 ``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
 own (both name their package ``repro_torch``), in ``N`` pairs (10 by
@@ -9,19 +11,26 @@ default) that alternate which side runs first, because host times drift
 between processes on a shared host.  A process puts its root's ``src``
 first on its path and measures with this checkout's ``chip_smoke``:
 
-* ``sa_fc_matmul`` at the shapes of its two served paths (AlexNet's
+* ``conv``: ``sa_conv_implicit`` at AlexNet's five conv layers at b = 64
+  (fp32 and int8 filters, on a chain of activations from normal images),
+  ``ms`` with the card held busy (``chip_smoke.timed``), and
+  ``CNNServer.run`` images/s over 4 waves of 64, pipelined and sequential
+  (``chip_smoke.server_throughput``);
+* ``fc``: ``sa_fc_matmul`` at the shapes of its two served paths (AlexNet's
   fc1-fc3 at b = 64 with fp32 and int8 weights; OLMo-1B's four GEMM shapes
   at b = 4 and m = 512, fp32): ``ms`` with the card held busy (the card's
   time), ``host_ms`` with the card drained before each call (the wrapper's
   host work included) and ``enqueue_us``, the host work alone
   (``chip_smoke.timed`` and ``chip_smoke.host_costs``);
-* a full-wave prefill and a decode step at b = 4 on the host clock, and
-  their device busy time, by ``chip_smoke.lm_throughput``.
+* ``lm``: a full-wave prefill and a decode step at b = 4 on the host
+  clock, and their device busy time, by ``chip_smoke.lm_throughput``.
+
+``--parts`` picks which of the three run (all by default).
 
 Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
 seed.  Prints one JSON object per run, then for each number the medians
-of both sides and the pairs the new side won (lower); ``--out`` writes
-the runs to a file.
+of both sides and the pairs the new side won (lower times, higher
+images/s); ``--out`` writes the runs to a file.
 """
 from __future__ import annotations
 
@@ -35,25 +44,77 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def run_tree(root: str) -> dict:
+def run_tree(root: str, parts: set) -> dict:
     """Measure the ``repro_torch`` of ``root`` (this process imports no
     other)."""
     sys.path.insert(0, str(Path(root, "src")))
+    import numpy as np
     import torch
 
     import chip_smoke as cs
     from repro_torch.core.quant import quantize_cnn_params
     from repro_torch.kernels import _build
-    from repro_torch.kernels.sa_fc import sa_fc_matmul
-    from repro_torch.models import transformer as T
     from repro_torch.models.cnn import init_cnn
 
     torch.set_grad_enabled(False)
     _build.build()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     params = init_cnn("alexnet", cs.SEED)
+    qparams = quantize_cnn_params(params)
+    out = {}
+    if "conv" in parts:
+        out["sa_conv"] = conv_times(cs, params, qparams, gen)
+        rep = cs.Report()
+        images = np.random.default_rng(cs.SEED).standard_normal(
+            (64, 227, 227, 3)).astype(np.float32)
+        cs.server_throughput(rep, params, images)
+        out["server"] = {k.removeprefix("server_images_per_s_"): v
+                         for k, v in rep.detail.items()}
+    if "fc" in parts:
+        out["sa_fc"] = fc_times(cs, params, qparams, gen)
+    if "lm" in parts:
+        from repro_torch.models import transformer as T
+        del params, qparams
+        cfg = cs.olmo_config()
+        lm = T.init_params(cfg, cs.SEED, device="cuda")
+        rep = cs.Report()
+        cs.lm_throughput(rep, cfg, lm)
+        d = rep.detail
+        out.update(decode_step_ms=d["lm_decode_step_ms"],
+                   prefill_wave_ms=d["lm_prefill_wave_ms"],
+                   device_busy=d["lm_device_busy"])
+    return out
+
+
+def conv_times(cs, params, qparams, gen) -> dict:
+    """Card ms of each AlexNet conv layer at b = 64, fp32 and int8."""
+    import torch
+    from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
+    convs, _ = cs.alexnet_layers(params)
+    qconvs, _ = cs.alexnet_layers(qparams)
+    x = torch.randn((64, 227, 227, 3), generator=gen, device="cuda")
+    out = {}
+    for (name, s, p, pool), (_, _, qp, _) in zip(convs, qconvs):
+        xin = cs._pad(x, s.pad)
+        pw, ps = pool if pool else (0, 0)
+        kw = dict(stride=s.stride, act=s.act, pool_window=pw, pool_stride=ps)
+        qf = qp["f"]
+        out[f"alexnet {name} b=64 fp32"] = dict(ms=cs.timed(
+            lambda: sa_conv_implicit(xin, p["f"], p["b"], **kw)))
+        out[f"alexnet {name} b=64 int8"] = dict(ms=cs.timed(
+            lambda: sa_conv_implicit(xin, qf.q, qp["b"], w_scale=qf.scale,
+                                     **kw)))
+        x = sa_conv_implicit(xin, p["f"], p["b"], **kw)
+    return out
+
+
+def fc_times(cs, params, qparams, gen) -> dict:
+    """SA-FC ``ms``, ``host_ms`` and ``enqueue_us`` at its served shapes."""
+    import torch
+    from repro_torch.kernels.sa_fc import sa_fc_matmul
+    from repro_torch.models import transformer as T
     _, fcs = cs.alexnet_layers(params)
-    _, qfcs = cs.alexnet_layers(quantize_cnn_params(params))
+    _, qfcs = cs.alexnet_layers(qparams)
     calls = []
     for (name, s, p), (_, _, qp) in zip(fcs, qfcs):
         h = torch.randn((64, p["w"].shape[0]), generator=gen, device="cuda")
@@ -72,13 +133,7 @@ def run_tree(root: str) -> dict:
         def fn():
             sa_fc_matmul(h, w, bias, act=act, w_scale=scale)
         out[label] = dict(ms=cs.timed(fn), **cs.host_costs(fn))
-    del calls, params
-    rep = cs.Report()
-    cs.lm_throughput(rep, cfg, lm)
-    d = rep.detail
-    return dict(sa_fc=out, decode_step_ms=d["lm_decode_step_ms"],
-                prefill_wave_ms=d["lm_prefill_wave_ms"],
-                device_busy=d["lm_device_busy"])
+    return out
 
 
 def main() -> int:
@@ -87,10 +142,14 @@ def main() -> int:
     ap.add_argument("new", nargs="?", default=str(ROOT))
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out")
+    ap.add_argument("--parts", default="conv,fc,lm")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    if not parts or parts - {"conv", "fc", "lm"}:
+        ap.error(f"--parts: {args.parts!r}")
     if args.child:
-        print(json.dumps(run_tree(args.child)))
+        print(json.dumps(run_tree(args.child, parts)))
         return 0
     sides = {"old": str(Path(args.old).resolve()),
              "new": str(Path(args.new).resolve())}
@@ -99,6 +158,7 @@ def main() -> int:
         pair = {}
         for tree in ("old", "new") if i % 2 == 0 else ("new", "old"):
             proc = subprocess.run([sys.executable, __file__, args.old,
+                                   "--parts", args.parts,
                                    "--child", sides[tree]],
                                   capture_output=True, text=True, check=False)
             if proc.returncode != 0:
@@ -110,25 +170,33 @@ def main() -> int:
         pairs.append(pair)
     if args.out:
         Path(args.out).write_text(json.dumps(pairs, indent=1))
-    for name, get in numbers(pairs[0]["old"]):
+    for name, get, higher in numbers(pairs[0]["old"]):
         old = [get(p["old"]) for p in pairs]
         new = [get(p["new"]) for p in pairs]
+        wins = sum((n > o) if higher else (n < o) for o, n in zip(old, new))
         print(f"{name}: old median {statistics.median(old):.4f}, new median "
-              f"{statistics.median(new):.4f}, new lower in "
-              f"{sum(n < o for o, n in zip(old, new))} of {len(pairs)} pairs")
+              f"{statistics.median(new):.4f}, new "
+              f"{'higher' if higher else 'lower'} in {wins} of "
+              f"{len(pairs)} pairs")
     return 0
 
 
 def numbers(run: dict):
-    """(name, getter) of every number a run reports."""
-    out = [("decode_step_ms", lambda r: r["decode_step_ms"]),
-           ("prefill_wave_ms", lambda r: r["prefill_wave_ms"]),
-           ("decode device_ms",
-            lambda r: r["device_busy"]["decode"]["device_ms"])]
-    for label, v in run["sa_fc"].items():
-        out += [(f"sa_fc {label} {key}",
-                 lambda r, label=label, key=key: r["sa_fc"][label][key])
-                for key in v]
+    """(name, getter, higher is better) of every number a run reports."""
+    out = []
+    if "decode_step_ms" in run:
+        out += [("decode_step_ms", lambda r: r["decode_step_ms"], False),
+                ("prefill_wave_ms", lambda r: r["prefill_wave_ms"], False),
+                ("decode device_ms",
+                 lambda r: r["device_busy"]["decode"]["device_ms"], False)]
+    for key in run.get("server", {}):
+        out.append((f"server images/s {key}",
+                    lambda r, key=key: r["server"][key], True))
+    for part in ("sa_conv", "sa_fc"):
+        for label, v in run.get(part, {}).items():
+            out += [(f"{part} {label} {key}",
+                     lambda r, part=part, label=label, key=key:
+                     r[part][label][key], False) for key in v]
     return out
 
 

@@ -8,9 +8,13 @@ Phases (any failure raises and exits non-zero):
 
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
-2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
+   registers and spills of every SA-FC and SA-CONV instantiation (SA-CONV
+   must not spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   full-width AlexNet serving gives them, plus the bitwise invariants;
+   full-width AlexNet serving gives them, plus the bitwise invariants
+   (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
+   int8; fused pool equal to conv then the pool kernel);
 4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
    serves 130 requests on the kernels (and one int8 wave), with every
    dispatch a schedule hit and every kernel of the path launched;
@@ -187,6 +191,13 @@ def build(rep: Report) -> None:
     for inst, v in rep.detail["ptxas_sa_fc"].items():
         log(f"  ptxas sa_fc_kernel<{inst}>: {v['registers']} registers, "
             f"spill bytes {v['spill_bytes']}")
+    conv = sa_conv_ptxas(_build.build_log("sa_conv_implicit"))
+    rep.detail["ptxas_sa_conv_implicit"] = conv
+    for inst, v in conv.items():
+        log(f"  ptxas sa_conv_kernel<{inst}>: {v['registers']} registers, "
+            f"spill bytes {v['spill_bytes']}")
+    if any(v["spill_bytes"] for v in conv.values()):
+        raise AssertionError("ptxas: an SA-CONV instantiation spills")
 
 
 def sa_fc_ptxas(text: str) -> dict:
@@ -205,6 +216,30 @@ def sa_fc_ptxas(text: str) -> dict:
     if len(out) != 21:
         raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
                              "not 21")
+    return out
+
+
+def sa_conv_ptxas(text: str) -> dict:
+    """Registers and spill bytes of each SA-CONV instantiation (filter
+    rows, columns and stride, 0 for the generic one; pixels x channels per
+    thread; channels per CTA; channels per staged group) from ptxas's -v
+    output."""
+    out = {}
+    for block in text.split("Compiling entry function")[1:]:
+        m = re.search(r"sa_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELi(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        if not m or not regs:
+            continue
+        p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups())
+        shape = f"{p}x{q}/{s}" if p else "generic"
+        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", block))
+        out[f"{shape}, {tpx}x{tco} per thread, {tco * g} channels, "
+            f"cpg {cpg}"] = dict(registers=int(regs.group(1)),
+                                 spill_bytes=spills)
+    if len(out) != 11:
+        raise AssertionError(f"ptxas: {len(out)} SA-CONV instantiations, "
+                             "not 11")
     return out
 
 
@@ -265,6 +300,17 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
         rep.note_err("sa_conv_implicit", e8)
         log(f"  {name}: in {tuple(xin.shape)} out {tuple(got.shape)} "
             f"max|d| fp32 {e:.3g} int8 {e8:.3g}")
+        # batch invariance: rows of the b=64 launch against b=1 and against
+        # the served tail wave's b=2, fp32 and int8
+        q64 = sa_conv_implicit(xin, qf.q, qp["b"], **qkw)
+        for lo, hi in ((0, 1), (62, 64)):
+            part = xin[lo:hi].contiguous()
+            exact(f"{name} rows {lo}:{hi} of b=64 == b={hi - lo}", got[lo:hi],
+                  sa_conv_implicit(part, p["f"], p["b"], **kw))
+            exact(f"{name} int8 rows {lo}:{hi} of b=64 == b={hi - lo}",
+                  q64[lo:hi], sa_conv_implicit(part, qf.q, qp["b"], **qkw))
+        log(f"  {name}: rows of b=64 == b=1 and b=2 launches, bitwise "
+            "(fp32 and int8)")
         if pool:
             unfused = sa_conv_implicit(xin, p["f"], p["b"], stride=s.stride,
                                        act=s.act)
@@ -557,6 +603,38 @@ def host_log(host: dict | None) -> str:
                                     f"enqueue {host['enqueue_us']:.1f} us")
 
 
+def server_throughput(rep: Report, params, images_np):
+    """``CNNServer.run`` images/s at b=64 fp32, pipelined and sequential:
+    warm schedules, then 4 full waves on the host clock, the card drained
+    before and after.  Returns a warm server and the requests."""
+    import torch
+    from repro_torch.serve.cnn_server import CNNServer
+    srv = CNNServer("alexnet", params)
+    for r in _requests(images_np, range(64)):
+        srv.submit(r)
+    srv.run()
+    reqs = []
+    for rep_i in range(4):
+        for r in _requests(images_np, range(64)):
+            r.uid += 1000 * (rep_i + 1)
+            reqs.append(r)
+    for pipelined in (True, False):
+        s = CNNServer("alexnet", params)
+        s.run()
+        for r in reqs:
+            r.done, r.logits = False, None
+            s.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(pipelined=pipelined)
+        sec = time.perf_counter() - t0
+        key = "pipelined" if pipelined else "sequential"
+        rep.detail[f"server_images_per_s_{key}"] = len(reqs) / sec
+        log(f"  server {key}: {len(reqs)} images in {sec * 1e3:.1f} ms = "
+            f"{len(reqs) / sec:.1f} images/s")
+    return srv, reqs
+
+
 def measure(rep: Report, shapes: dict, params, images_np) -> None:
     import torch
     import torch.nn.functional as F
@@ -565,7 +643,6 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
     from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
                                                       sa_conv_plain)
     from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
-    from repro_torch.serve.cnn_server import CNNServer
 
     def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, host=None):
         b_ms, by = bound(flops, nb)
@@ -573,9 +650,12 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=by, flops=flops,
                              bytes=nb, path="CNNServer.run", per_pass=1,
+                             tflops=flops / ms / 1e9,
+                             pct_of_bound=100 * b_ms / ms,
                              **(host or {})))
         log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
-            f"({by})  plain {plain_ms:9.4f}  library "
+            f"({by}, {100 * b_ms / ms:.1f} %, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s)  plain {plain_ms:9.4f}  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}{host_log(host)}")
 
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -630,30 +710,7 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
             timed(lambda: F.max_pool2d(tc, 3, 2)),
             out.numel() * 9, nbytes(t, out))
 
-    # server throughput at b=64 fp32: warm schedules, then 4 full waves
-    srv = CNNServer("alexnet", params)
-    for r in _requests(images_np, range(64)):
-        srv.submit(r)
-    srv.run()
-    reqs = []
-    for rep_i in range(4):
-        for r in _requests(images_np, range(64)):
-            r.uid += 1000 * (rep_i + 1)
-            reqs.append(r)
-    for pipelined in (True, False):
-        s = CNNServer("alexnet", params)
-        s.run()
-        for r in reqs:
-            r.done, r.logits = False, None
-            s.submit(r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s.run(pipelined=pipelined)
-        sec = time.perf_counter() - t0
-        key = "pipelined" if pipelined else "sequential"
-        rep.detail[f"server_images_per_s_{key}"] = len(reqs) / sec
-        log(f"  server {key}: {len(reqs)} images in {sec * 1e3:.1f} ms = "
-            f"{len(reqs) / sec:.1f} images/s")
+    srv, reqs = server_throughput(rep, params, images_np)
     copies = []
     for _ in range(10):
         torch.cuda.synchronize()

@@ -9,13 +9,13 @@ and the activation; with a pool (``pool_window`` > 0) it emits
 :func:`sa_conv_plain`; for a CUDA tensor it launches the kernel on the
 current stream, or raises.
 
-The band geometry the kernel runs (:func:`conv_geometry`) is chosen here,
-from the layer's shape alone — never from the batch — so it can be tested
-on the CPU.
+The tiling the kernel runs (:func:`conv_geometry`, :func:`conv_tiles`) is
+chosen here, from the layer's shape alone — never from the batch, which
+changes only the CTA count — so it can be tested on the CPU.
 """
 from __future__ import annotations
 
-import math
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -25,40 +25,137 @@ from repro_torch.kernels import _build, ref
 _F_KINDS = {torch.float32: 0, torch.int8: 1}
 
 THREADS = 256
-TPX = 8                         # output pixels per thread
-TCO = 8                         # output channels per thread
-#: shared-memory budget of one channel chunk's staging (input rows + filter)
-STAGE_BYTES = 96 * 1024
-#: the most dynamic shared memory a Hopper CTA may opt into
-SMEM_MAX = 232448
+#: the CTA tiles the kernel is instantiated for, as (output pixels per
+#: thread, output channels per thread, thread groups along the channels):
+#: 512 pixels x 32 channels, 512 x 64 and 768 x 32
+#: (csrc/sa_conv_implicit.cu::dispatch holds the same list)
+TILES = ((8, 8, 4), (8, 16, 4), (6, 16, 2))
+#: card time per FMA slot of a tile with 8 output channels per thread
+#: against one with 16: 8-15 % more at AlexNet's conv2-conv5 (measured on
+#: an H100 SXM), where a thread's 16 channels halve the pixel loads per FMA
+SLOT_COST = {8: 1.1, 16: 1.0}
+#: input channels per staged group (16 bytes a staged pixel), and the most
+#: groups per staged chunk (the most that fit shared memory are staged at
+#: once; one when ci = 3)
+GROUP = 4
+MAX_GROUPS = 8
+#: filter shapes (p, q, stride) with a compile-time tap loop; any other
+#: shape runs the kernel's generic instantiation
+SPECIALIZED = ((11, 11, 4), (5, 5, 1), (3, 3, 1))
+#: most segments (image bands) and staged input rows of one CTA (the
+#: kernel's static tables)
+MAX_SEGMENTS = 32
+MAX_ROWS = 256
+#: the kernel's static shared memory (the row and segment tables, with
+#: room for their counts)
+SMEM_STATIC = 4 * (MAX_ROWS + 7 * MAX_SEGMENTS + 3)
+#: the most dynamic shared memory a CTA may take: what a Hopper CTA may
+#: opt into, less the static tables
+SMEM_MAX = 232448 - SMEM_STATIC
+#: one 256-thread CTA per SM (__launch_bounds__(256, 1): a tile takes up to
+#: 255 registers without spills), so a wave is one CTA per SM
+SM_COUNT = 132                  # H100 SXM
+#: the batch the tile is costed at (the planner's serving micro-batch);
+#: the tile depends on it only through this constant, never on the batch
+#: of a launch, which changes only the CTA count
+NOMINAL_BATCH = 64
 
 
 @dataclass(frozen=True)
 class ConvGeometry:
-    """One launch's band decomposition (all counts, no pointers)."""
-    groups: int                 # output-channel groups of 8: BCO = 8 * groups
+    """One layer's tiling (all counts, no pointers).
+
+    ``bands == 0``: the pixel tiles run over the flattened (image, row,
+    column) conv output, ``per_cta`` pixels to a CTA (``pixels``, or fewer
+    where a tile could touch more than :data:`MAX_SEGMENTS` images or stage
+    more than :data:`MAX_ROWS` rows), across row and image boundaries (no
+    pool is fused).  Otherwise each image's emitted (pooled)
+    rows are cut into ``bands`` bands of at most ``rows`` rows at full
+    width, and a CTA computes the conv rows of ``per_cta`` consecutive bands
+    of the flattened (image, band) list, so no pool window is split."""
+    tpx: int                    # output pixels per thread
+    tco: int                    # output channels per thread
+    groups: int                 # thread groups along the channels
     bco: int                    # output channels per CTA
-    pixels: int                 # output-pixel capacity of a CTA
+    pixels: int                 # output-pixel slots of a CTA
+    cpg: int                    # channels of a staged group (4, or 3)
     pool_window: int            # 1 when no pool is fused
     pool_stride: int
+    conv_h: int
+    conv_w: int
     out_h: int                  # emitted map (pooled or conv)
     out_w: int
-    rows: int                   # emitted rows per band
-    bands: int
-    conv_rows: int              # conv rows a full band computes
-    rin: int                    # staged input rows of a full band
-    bci: int                    # input channels per staged chunk
-    smem_bytes: int
+    bands: int                  # bands per image; 0: flat pixel tiles
+    rows: int                   # emitted rows of a full band
+    per_cta: int                # bands per CTA; flat: pixels per CTA
+    rin: int                    # most staged input rows of a CTA
+    ng: int                     # groups of GROUP channels per staged chunk
+    smem_bytes: int             # dynamic shared memory
+
+    def band_rows(self) -> list[int]:
+        """Emitted rows of each band of an image."""
+        return [min(self.rows, self.out_h - i * self.rows)
+                for i in range(self.bands)]
+
+    def computed_pixels(self, batch: int) -> int:
+        """Conv pixels the launch computes, recomputed rows included."""
+        if not self.bands:
+            return batch * self.conv_h * self.conv_w
+        return batch * self.conv_w * sum(
+            (r - 1) * self.pool_stride + self.pool_window
+            for r in self.band_rows())
+
+    def needed_pixels(self, batch: int) -> int:
+        """Conv pixels the emitted map needs, each once."""
+        used = (self.out_h - 1) * self.pool_stride + self.pool_window
+        return batch * used * self.conv_w
+
+    def pixel_tiles(self, batch: int) -> int:
+        units = batch * (self.bands or self.conv_h * self.conv_w)
+        return -(-units // self.per_cta)
+
+    def co_tiles(self, co: int) -> int:
+        return -(-co // self.bco)
+
+    def ctas(self, batch: int, co: int) -> int:
+        return self.pixel_tiles(batch) * self.co_tiles(co)
+
+    def slot_use(self, batch: int) -> float:
+        """Share of the CTAs' pixel slots that hold a computed pixel."""
+        return self.computed_pixels(batch) / (self.pixel_tiles(batch)
+                                              * self.pixels)
+
+    def waves(self, batch: int, co: int) -> float:
+        """CTAs per SM of the launch (one runs on an SM at a time)."""
+        return self.ctas(batch, co) / SM_COUNT
 
 
+def _flat_bounds(pixels: int, oh: int, ow: int, stride: int,
+                 p: int) -> tuple[int, int]:
+    """Most segments (images) and staged input rows of a flat tile of
+    ``pixels`` conv pixels, wherever it starts: the conv rows it touches
+    (a partial row at each end) and, per image, the filter's extra rows."""
+    segs = (pixels - 2) // (oh * ow) + 2
+    rows = min((pixels - 2) // ow + 2, segs * oh)
+    segs = min(rows, segs)
+    return segs, rows * stride + segs * max(p - stride, 0)
+
+
+@functools.lru_cache(maxsize=None)
 def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
                   stride: int = 1, pool_window: int = 0,
                   pool_stride: int = 0) -> ConvGeometry:
-    """Pick the CTA shape and band height for a conv on a padded (h, w, ci)
-    input.  A CTA holds 2048 outputs (256 threads x 8 pixels x 8 channels)
-    as either 32 channels x 512 pixels or 64 x 256; the choice with the
-    fewest thread slots wins.  A band is a whole number of emitted rows at
-    full width, so no pool window is split across CTAs."""
+    """Pick the CTA tile and the pixel tiling for a conv on a padded
+    (h, w, ci) input, from the layer's shape alone.  Every candidate (a
+    tile of :data:`TILES`; flat pixel tiles without a pool, every band
+    height and bands-per-CTA with one) is costed at
+    :data:`NOMINAL_BATCH` as the waves of CTAs it puts on the card (one
+    CTA per SM) times the outputs per thread and their :data:`SLOT_COST`;
+    ties go to more needed pixels per slot, then more slots in use, then
+    fewer staged rows.  Each chunk stages as many groups of :data:`GROUP`
+    channels as shared memory holds (at most :data:`MAX_GROUPS`).  The
+    16-channel tiles are not built for the 11x11 stride-4 filter (its
+    unrolled rows need more than 255 registers)."""
     oh = (h - p) // stride + 1
     ow = (w - q) // stride + 1
     if oh < 1 or ow < 1:
@@ -68,38 +165,99 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
         else (1, 1)
     poh = (oh - pw) // ps + 1
     pow_ = (ow - pw) // ps + 1
+    if poh < 1 or pow_ < 1:
+        raise ValueError(f"pool {pw}/{ps} does not fit a {oh}x{ow} map")
+    specialized = (p, q, stride) in SPECIALIZED
+    split = specialized and stride > 1
+    wst = stride * -(-w // stride) if split else w
+    cpg = 3 if split and ci == 3 else GROUP
+    taps = p * q
+
+    def smem_of(rin: int, bco: int, cap: int, ng: int = 1) -> int:
+        """Dynamic shared memory: the staging ring, or the epilogue tile."""
+        stage = ng * (rin * wst * 4 + taps * cpg * bco
+                      + taps * cpg * bco // 4)
+        stages = 2 if -(-ci // (GROUP * ng)) > 1 else 1
+        return 4 * max(stages * stage, cap * (bco + 1))
+
     best = None
-    for groups in (4, 8):
-        bco = TCO * groups
-        cap = THREADS // groups * TPX
-        rows_max = cap // ow
-        if rows_max < pw:
+    for tpx, tco, groups in TILES:
+        if tpx * tco > 64 and split:
             continue
-        pr = min(poh, (rows_max - pw) // ps + 1)
-        bands = math.ceil(poh / pr)
-        pr = math.ceil(poh / bands)
-        cost = bands * math.ceil(co / bco) * cap * bco
-        if best is None or cost < best[0]:
-            best = (cost, groups, bco, cap, pr, bands)
+        bco = tco * groups
+        cap = THREADS // groups * tpx
+        if pool_window:
+            shapes = set()
+            for nb in range(1, poh + 1):
+                r = -(-poh // nb)
+                shapes.add((-(-poh // r), r))
+            cands = []
+            for nb, r in sorted(shapes):
+                band_px = ((r - 1) * ps + pw) * ow
+                k = min(cap // band_px, MAX_SEGMENTS)
+                if k:
+                    cands.append((nb, r, k, k,
+                                  k * (((r - 1) * ps + pw - 1) * stride + p)))
+        else:
+            px = cap          # the most pixels whose tables and rows fit
+            while px > 1:
+                segs, rin = _flat_bounds(px, oh, ow, stride, p)
+                if (segs <= MAX_SEGMENTS and rin <= MAX_ROWS
+                        and smem_of(rin, bco, cap) <= SMEM_MAX):
+                    break
+                px -= 1
+            cands = [(0, 0, px) + _flat_bounds(px, oh, ow, stride, p)]
+        for nb, r, k, segs, rin in cands:
+            if rin > MAX_ROWS or segs > MAX_SEGMENTS:
+                continue
+            ng = 1
+            while (cpg == GROUP and ng < min(MAX_GROUPS, -(-ci // GROUP))
+                   and smem_of(rin, bco, cap, 2 * ng) <= SMEM_MAX):
+                ng *= 2
+            smem = smem_of(rin, bco, cap, ng)
+            if smem > SMEM_MAX:
+                continue
+            g = ConvGeometry(tpx, tco, groups, bco, cap, cpg, pw, ps, oh, ow,
+                             poh, pow_, nb, r, k, rin, ng, smem)
+            b = NOMINAL_BATCH
+            waves = -(-g.ctas(b, co) // SM_COUNT)
+            cost = waves * tpx * tco * SLOT_COST[tco]
+            key = (cost, -g.needed_pixels(b) / (g.pixel_tiles(b) * cap),
+                   -g.slot_use(b), rin)
+            if best is None or key < best[0]:
+                best = (key, g)
     if best is None:
         raise NotImplementedError(
-            f"sa_conv_implicit: an output row of {ow} pixels does not fit "
-            f"one CTA ({THREADS // 4 * TPX} pixels) with a {pw}-row window")
-    _, groups, bco, cap, pr, bands = best
-    conv_rows = (pr - 1) * ps + pw
-    rin = (conv_rows - 1) * stride + p
-    wrow = stride * math.ceil(w / stride)
-    per_ci = rin * wrow + p * q * bco
-    bci = max(1, min(ci, STAGE_BYTES // (4 * per_ci)))
-    stage = 4 * (-(-bci * rin * wrow // 4) * 4 + p * q * bci * bco)
-    epilogue = 4 * conv_rows * ow * (bco + 1)
-    smem = max(stage, epilogue)
-    if smem > SMEM_MAX:
-        raise NotImplementedError(
-            f"sa_conv_implicit: one input channel of a band needs {smem} "
-            f"bytes of shared memory (> {SMEM_MAX})")
-    return ConvGeometry(groups, bco, cap, pw, ps, poh, pow_, pr, bands,
-                        conv_rows, rin, bci, smem)
+            f"sa_conv_implicit: a {pw}-row pool window over {ow}-pixel rows "
+            f"does not fit one CTA, or its staging does not fit shared "
+            f"memory ({h}x{w}x{ci}, filter {p}x{q}, stride {stride})")
+    return best[1]
+
+
+def conv_tiles(g: ConvGeometry, batch: int, tile: int) -> list[tuple]:
+    """The segments of pixel tile ``tile``, as the kernel builds them:
+    (image, first conv row, conv rows, first and last-plus-one pixel of the
+    segment's rows x ``conv_w`` block that the CTA computes, first emitted
+    row, emitted rows), in the CTA's pixel order."""
+    ow, ohw = g.conv_w, g.conv_h * g.conv_w
+    out = []
+    if not g.bands:
+        p0 = tile * g.per_cta
+        p1 = min(p0 + g.per_cta, batch * ohw)
+        for img in range(p0 // ohw, (p1 - 1) // ohw + 1):
+            a, b = max(p0, img * ohw), min(p1, (img + 1) * ohw)
+            r0, r1 = (a - img * ohw) // ow, (b - 1 - img * ohw) // ow
+            out.append((img, r0, r1 - r0 + 1, a - img * ohw - r0 * ow,
+                        b - img * ohw - r0 * ow, r0, r1 - r0 + 1))
+        return out
+    for u in range(tile * g.per_cta,
+                   min((tile + 1) * g.per_cta, batch * g.bands)):
+        img, band = divmod(u, g.bands)
+        pr0 = band * g.rows
+        npr = min(g.rows, g.out_h - pr0)
+        nr = (npr - 1) * g.pool_stride + g.pool_window
+        out.append((img, pr0 * g.pool_stride, nr, 0, nr * ow, pr0, npr))
+    return out
 
 
 def sa_conv_plain(x: torch.Tensor, f: torch.Tensor,
@@ -169,8 +327,10 @@ def sa_conv_implicit(x: torch.Tensor, f: torch.Tensor,
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         batch, h, w, ci, p, q, co, stride, g.pool_window, g.pool_stride,
-        g.rows, g.bands, g.bci, g.rin, g.groups, _build.act_code(act),
-        g.smem_bytes, torch.cuda.current_stream(x.device).cuda_stream)
+        TILES.index((g.tpx, g.tco, g.groups)), g.bands, g.rows, g.per_cta,
+        g.rin,
+        g.ng, _build.act_code(act), g.smem_bytes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "sa_conv_implicit")
     sa_conv_implicit.launches += 1
     return out

@@ -19,7 +19,8 @@ from repro_torch.kernels.attention import flash_attention, flash_plain
 from repro_torch.kernels.pool_act import maxpool_act
 from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
-from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+from repro_torch.kernels.sa_conv_implicit import (conv_geometry, conv_tiles,
+                                                  sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels import sa_fc as tfc
 from repro_torch.kernels.sa_fc import fc_launch, sa_fc_matmul, sa_fc_plain
@@ -150,6 +151,130 @@ def test_sa_conv_int8_kernel(cuda):
     want = sa_conv_plain(x, qt.q, bias, stride=2, act="relu",
                          w_scale=qt.scale)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def _conv_operands(dev, ci, p, co, wdtype):
+    f = _t(1, (p, p, ci, co), dev, (p * p * ci) ** -0.5)
+    scale = None
+    if wdtype == "int8":
+        qt = quantize(f)
+        f, scale = qt.q, qt.scale
+    return f, scale, _t(2, (co,), dev)
+
+
+@pytest.mark.parametrize("layer,tile", [
+    (dict(h=15, ci=32, p=3, co=48, stride=1, window=0), (8, 8, 4)),
+    (dict(h=15, ci=24, p=3, co=40, stride=1, window=3), (8, 8, 4)),
+    (dict(h=31, ci=12, p=5, co=24, stride=1, window=3), (8, 8, 4)),
+    (dict(h=15, ci=16, p=3, co=384, stride=1, window=0), (8, 16, 4)),
+    (dict(h=15, ci=16, p=3, co=256, stride=1, window=3), (6, 16, 2)),
+    (dict(h=31, ci=8, p=5, co=64, stride=1, window=3), (6, 16, 2)),
+])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8"])
+def test_sa_conv_every_row_equals_its_b1_result(cuda, layer, tile, wdtype):
+    """Bitwise, at every batch the served waves give (flat tiles across
+    images, several bands or images per CTA, partial last tiles), in each
+    tile: 13x13 maps (conv3/conv4) and pooled maps (conv2, conv5) at
+    reduced input widths."""
+    h, ci, p, co = layer["h"], layer["ci"], layer["p"], layer["co"]
+    g = conv_geometry(h, h, ci, p, p, co, stride=layer["stride"],
+                      pool_window=layer["window"],
+                      pool_stride=2 if layer["window"] else 0)
+    assert (g.tpx, g.tco, g.groups) == tile
+    f, scale, bias = _conv_operands(cuda, ci, p, co, wdtype)
+    kw = dict(stride=layer["stride"], act="relu",
+              pool_window=layer["window"],
+              pool_stride=2 if layer["window"] else 0, w_scale=scale)
+    x = _t(0, (65, h, h, ci), cuda)
+    alone = torch.cat([sa_conv_implicit(x[i:i + 1].contiguous(), f, bias,
+                                        **kw) for i in range(65)])
+    for b in (1, 2, 3, 13, 64, 65):
+        got = sa_conv_implicit(x[:b].contiguous(), f, bias, **kw)
+        assert torch.equal(got, alone[:b]), b
+    torch.testing.assert_close(alone, sa_conv_plain(x, f, bias, **kw),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_sa_conv_tile_straddles_two_images(cuda):
+    """A flat 13x13 tile that ends in the middle of an image and the next
+    one that starts there."""
+    x = _t(0, (5, 15, 15, 8), cuda)
+    f, _, bias = _conv_operands(cuda, 8, 3, 16, "fp32")
+    g = conv_geometry(15, 15, 8, 3, 3, 16)
+    assert not g.bands and g.per_cta % 169
+    assert len(conv_tiles(g, 5, 0)) > 1 and conv_tiles(g, 5, 0)[-1][4] < 169
+    got = sa_conv_implicit(x, f, bias, act="none")
+    torch.testing.assert_close(got, sa_conv_plain(x, f, bias, act="none"),
+                               rtol=2e-3, atol=2e-3)
+    for i in range(5):
+        assert torch.equal(got[i:i + 1], sa_conv_implicit(
+            x[i:i + 1].contiguous(), f, bias, act="none"))
+
+
+@pytest.mark.parametrize("ci,p,stride,window", [
+    (3, 11, 4, 3), (3, 3, 1, 0), (5, 3, 1, 3), (5, 5, 1, 0), (5, 11, 4, 0)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8"])
+def test_sa_conv_channels_not_a_multiple_of_four(cuda, ci, p, stride,
+                                                 window, wdtype):
+    """4-byte copies of the input, zero-filled past ci (no 16-byte
+    copies); ci = 3 at 11x11 stride 4 stages its whole window at once."""
+    h = 55 if p == 11 else 17
+    x = _t(0, (3, h, h, ci), cuda)
+    f, scale, bias = _conv_operands(cuda, ci, p, 24, wdtype)
+    kw = dict(stride=stride, act="relu", pool_window=window,
+              pool_stride=2 if window else 0, w_scale=scale)
+    got = sa_conv_implicit(x, f, bias, **kw)
+    torch.testing.assert_close(got, sa_conv_plain(x, f, bias, **kw),
+                               rtol=2e-3, atol=2e-3)
+    assert torch.equal(got[2:], sa_conv_implicit(x[2:].contiguous(), f,
+                                                 bias, **kw))
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_sa_conv_int8_filters_with_ragged_channels(cuda, window):
+    """co % 4 != 0: int8 filters are staged by element loads, not 4-byte
+    copies."""
+    x = _t(0, (3, 15, 15, 8), cuda)
+    f, scale, bias = _conv_operands(cuda, 8, 3, 30, "int8")
+    kw = dict(act="relu", pool_window=window,
+              pool_stride=2 if window else 0, w_scale=scale)
+    got = sa_conv_implicit(x, f, bias, **kw)
+    torch.testing.assert_close(got, sa_conv_plain(x, f, bias, **kw),
+                               rtol=2e-3, atol=2e-3)
+    assert torch.equal(got[1:2], sa_conv_implicit(x[1:2].contiguous(), f,
+                                                  bias, **kw))
+
+
+def test_sa_conv_vgg16_layer_with_a_fused_2x2_pool(cuda):
+    """VGG-16 conv1_2 (224-wide rows, 64 channels) at b = 2 with its 2/2
+    pool, against the plain version and against conv -> pool kernel."""
+    x = _t(0, (2, 226, 226, 64), cuda)
+    f, _, bias = _conv_operands(cuda, 64, 3, 64, "fp32")
+    got = sa_conv_implicit(x, f, bias, act="relu", pool_window=2,
+                           pool_stride=2)
+    assert got.shape == (2, 112, 112, 64)
+    torch.testing.assert_close(
+        got, sa_conv_plain(x, f, bias, act="relu", pool_window=2,
+                           pool_stride=2), rtol=2e-3, atol=2e-3)
+    conv = sa_conv_implicit(x, f, bias, act="relu")
+    assert torch.equal(got, maxpool_act(conv, window=2, stride=2,
+                                        act="none"))
+
+
+def test_sa_conv_operands_off_16_byte_alignment(cuda):
+    """x and f one element into their buffers take 4-byte copies: same
+    bits."""
+    x = _t(0, (2, 15, 15, 16), cuda)
+    f, _, bias = _conv_operands(cuda, 16, 3, 32, "fp32")
+    xo = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    fo = torch.empty(f.numel() + 1, device=cuda)[1:].view(f.shape)
+    xo.copy_(x)
+    fo.copy_(f)
+    for window in (0, 3):
+        kw = dict(act="relu", pool_window=window,
+                  pool_stride=2 if window else 0)
+        assert torch.equal(sa_conv_implicit(xo, fo, bias, **kw),
+                           sa_conv_implicit(x, f, bias, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.uint8,

@@ -32,8 +32,10 @@ from repro_torch.kernels import attention as tattn
 from repro_torch.kernels.attention import flash_attention, live_tiles
 from repro_torch.kernels.pool_act import maxpool_act
 from repro_torch.kernels import sa_conv as tgemm
-from repro_torch.kernels.sa_conv_implicit import (SMEM_MAX, THREADS, TPX,
-                                                  conv_geometry,
+from repro_torch.kernels.sa_conv_implicit import (MAX_ROWS, MAX_SEGMENTS,
+                                                  SMEM_MAX, THREADS,
+                                                  TILES, conv_geometry,
+                                                  conv_tiles,
                                                   sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels import sa_fc as tfc
@@ -249,32 +251,87 @@ def test_declined_fusion_runs_the_pool_kernel_path():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **RTOL_CONV)
 
 
-@pytest.mark.parametrize("h,w,ci,p,co,stride,window", [
-    (227, 227, 3, 11, 96, 4, 3),         # AlexNet conv1 + pool
-    (31, 31, 96, 5, 256, 1, 3),          # conv2 + pool
-    (15, 15, 256, 3, 384, 1, 0),         # conv3
-    (15, 15, 384, 3, 256, 1, 3),         # conv5 + pool
-    (226, 226, 3, 3, 64, 1, 2),          # VGG-16 conv1_2 + pool
-    (13, 15, 5, 3, 24, 2, 0),
+def _check_tiling(g, batch, stride, p):
+    """Every emitted output once, each from a CTA that holds its whole
+    pool window; every CTA within its pixel slots, staged rows and
+    segment table."""
+    computed = np.zeros((batch, g.conv_h, g.conv_w), np.int32)
+    emitted = np.zeros((batch, g.out_h, g.out_w), np.int32)
+    for tile in range(g.pixel_tiles(batch)):
+        segs = conv_tiles(g, batch, tile)
+        assert 1 <= len(segs) <= MAX_SEGMENTS
+        assert sum(hi - lo for _, _, _, lo, hi, _, _ in segs) <= (
+            g.per_cta if not g.bands else g.pixels)
+        assert sum((nr - 1) * stride + p for _, _, nr, *_ in segs) <= g.rin
+        for img, r0, nr, lo, hi, pr0, npr in segs:
+            block = computed[img, r0:r0 + nr].reshape(-1)
+            assert block.size == nr * g.conv_w and 0 <= lo < hi <= block.size
+            block[lo:hi] += 1
+            computed[img, r0:r0 + nr] = block.reshape(nr, g.conv_w)
+            if g.bands:
+                # the emitted rows' windows lie inside the segment's rows
+                assert pr0 * g.pool_stride == r0 and lo == 0
+                assert (npr - 1) * g.pool_stride + g.pool_window <= nr
+                emitted[img, pr0:pr0 + npr] += 1
+    if not g.bands:
+        emitted = computed                    # no pool: emitted == conv
+    assert (emitted == 1).all()
+    used = (g.out_h - 1) * g.pool_stride + g.pool_window
+    assert (computed[:, :used] >= 1).all()
+
+
+@pytest.mark.parametrize("name,h,w,ci,p,co,stride,window", [
+    ("alexnet conv1", 227, 227, 3, 11, 96, 4, 3),
+    ("alexnet conv2", 31, 31, 96, 5, 256, 1, 3),
+    ("alexnet conv3", 15, 15, 256, 3, 384, 1, 0),
+    ("alexnet conv4", 15, 15, 384, 3, 384, 1, 0),
+    ("alexnet conv5", 15, 15, 384, 3, 256, 1, 3),
+    ("vgg16 conv1_2", 226, 226, 64, 3, 64, 1, 2),
+    ("vgg16 conv5_3", 16, 16, 512, 3, 512, 1, 2),
+    ("ragged", 13, 15, 5, 3, 24, 2, 0),
 ])
-def test_conv_geometry_covers_the_output(h, w, ci, p, co, stride, window):
-    """Bands of whole emitted rows cover the map, a full band fits one
-    CTA's pixel capacity, and shared memory fits a Hopper CTA."""
+def test_conv_geometry_covers_the_output(name, h, w, ci, p, co, stride,
+                                         window):
+    """The tiling covers every output once without splitting a pool
+    window, fits a Hopper CTA's shared memory and tables, and at AlexNet's
+    five layers uses at least 90 % of the pixel slots of a b=64 launch."""
     g = conv_geometry(h, w, ci, p, p, co, stride=stride, pool_window=window,
                       pool_stride=2 if window else 0)
-    oh = (h - p) // stride + 1
-    ow = (w - p) // stride + 1
-    assert g.pixels == THREADS // g.groups * TPX and g.bco == 8 * g.groups
-    assert (g.bands - 1) * g.rows < g.out_h <= g.bands * g.rows
-    assert g.conv_rows == (g.rows - 1) * g.pool_stride + g.pool_window
-    assert g.conv_rows * ow <= g.pixels
-    assert (g.out_h - 1) * g.pool_stride + g.pool_window <= oh
-    assert 1 <= g.bci <= ci and g.smem_bytes <= SMEM_MAX
+    assert (g.tpx, g.tco, g.groups) in TILES and g.bco == g.tco * g.groups
+    assert g.pixels == THREADS // g.groups * g.tpx
+    assert g.smem_bytes <= SMEM_MAX and g.rin <= MAX_ROWS
+    assert g.out_h == ((h - p) // stride + 1 - g.pool_window) \
+        // g.pool_stride + 1
+    for batch in (1, 3):
+        _check_tiling(g, batch, stride, p)
+    use = g.slot_use(64)
+    print(f"{name}: tile {g.pixels} px x {g.bco} co, "
+          f"{'flat' if not g.bands else f'{g.bands} bands x {g.rows} rows, {g.per_cta} per CTA'}"
+          f"; b=64: {g.ctas(64, co)} CTAs, one per SM at a time, "
+          f"{g.waves(64, co):.2f} waves, slot use {use:.3f}, needed pixels "
+          f"per slot {g.needed_pixels(64) / (g.pixel_tiles(64) * g.pixels):.3f}")
+    if name.startswith("alexnet"):
+        assert use >= 0.90
+        assert g.waves(64, co) % 1 == 0 or g.waves(64, co) % 1 >= 0.85 \
+            or g.waves(64, co) > 3
+
+
+@pytest.mark.parametrize("batch", [1, 2, 13, 64, 65])
+def test_conv_geometry_does_not_depend_on_the_batch(batch):
+    """The tile is the layer's; the batch changes only the CTA count."""
+    g = conv_geometry(15, 15, 256, 3, 3, 384)
+    assert g.ctas(batch, 384) == -(-batch * 169 // g.per_cta) * (384 // g.bco)
+    _check_tiling(g, batch, 1, 3)
 
 
 def test_conv_geometry_refuses_rows_wider_than_a_cta():
+    """Flat pixel tiles cut rows wider than a CTA (no pool); a pool window
+    whose rows do not fit one CTA is still refused."""
+    g = conv_geometry(1000, 1000, 3, 3, 3, 8)
+    assert not g.bands and g.conv_w > g.pixels
+    _check_tiling(g, 1, 1, 3)
     with pytest.raises(NotImplementedError, match="does not fit"):
-        conv_geometry(600, 600, 3, 3, 3, 8)
+        conv_geometry(1000, 1000, 3, 3, 3, 8, pool_window=3, pool_stride=2)
 
 
 def test_sa_conv_plain_is_the_kernel_order_of_operations():
