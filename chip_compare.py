@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Compare SA-CONV, SA-FC, the CNN server and the OLMo-1B decode step of
-two checkouts on one card.
+"""Compare SA-CONV, SA-FC, flash attention, the CNN server and the OLMo-1B
+decode step of two checkouts on one card.
 
     python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
-                            [--parts conv,fc,lm]
+                            [--parts conv,fc,attn,lm]
 
 ``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
 own (both name their package ``repro_torch``), in ``N`` pairs (10 by
@@ -22,10 +22,13 @@ first on its path and measures with this checkout's ``chip_smoke``:
   time), ``host_ms`` with the card drained before each call (the wrapper's
   host work included) and ``enqueue_us``, the host work alone
   (``chip_smoke.timed`` and ``chip_smoke.host_costs``);
+* ``attn``: ``flash_attention`` at the LM path's two prefill shapes, a
+  full wave (b = 4) and a lone request (b = 1) of 512 tokens with OLMo-1B's
+  heads, causal, ``ms`` with the card held busy;
 * ``lm``: a full-wave prefill and a decode step at b = 4 on the host
   clock, and their device busy time, by ``chip_smoke.lm_throughput``.
 
-``--parts`` picks which of the three run (all by default).
+``--parts`` picks which of the four run (all by default).
 
 Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
 seed.  Prints one JSON object per run, then for each number the medians
@@ -72,6 +75,8 @@ def run_tree(root: str, parts: set) -> dict:
                          for k, v in rep.detail.items()}
     if "fc" in parts:
         out["sa_fc"] = fc_times(cs, params, qparams, gen)
+    if "attn" in parts:
+        out["flash"] = attn_times(cs, gen)
     if "lm" in parts:
         from repro_torch.models import transformer as T
         del params, qparams
@@ -136,17 +141,33 @@ def fc_times(cs, params, qparams, gen) -> dict:
     return out
 
 
+def attn_times(cs, gen) -> dict:
+    """Card ms of flash attention at a full wave's and a lone request's
+    OLMo-1B prefill, causal."""
+    import torch
+    from repro_torch.kernels.attention import flash_attention
+    cfg = cs.olmo_config()
+    out = {}
+    for b in (cs.LM_BATCH, 1):
+        q, k, v = (torch.randn((b, cs.LM_PROMPT, cfg.n_heads, cfg.hd),
+                               generator=gen, device="cuda")
+                   for _ in range(3))
+        out[f"olmo prefill b={b}"] = dict(ms=cs.timed(
+            lambda: flash_attention(q, k, v)))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=str(ROOT))
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out")
-    ap.add_argument("--parts", default="conv,fc,lm")
+    ap.add_argument("--parts", default="conv,fc,attn,lm")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    if not parts or parts - {"conv", "fc", "lm"}:
+    if not parts or parts - {"conv", "fc", "attn", "lm"}:
         ap.error(f"--parts: {args.parts!r}")
     if args.child:
         print(json.dumps(run_tree(args.child, parts)))
@@ -192,7 +213,7 @@ def numbers(run: dict):
     for key in run.get("server", {}):
         out.append((f"server images/s {key}",
                     lambda r, key=key: r["server"][key], True))
-    for part in ("sa_conv", "sa_fc"):
+    for part in ("sa_conv", "sa_fc", "flash"):
         for label, v in run.get(part, {}).items():
             out += [(f"{part} {label} {key}",
                      lambda r, part=part, label=label, key=key:

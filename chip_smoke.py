@@ -9,12 +9,13 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC and SA-CONV instantiation (SA-CONV
-   must not spill);
+   registers and spills of every SA-FC, SA-CONV and flash instantiation
+   (SA-CONV and flash must not spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
    (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
-   int8; fused pool equal to conv then the pool kernel);
+   int8; fused pool equal to conv then the pool kernel), and a fused pool
+   over conv rows wider than a CTA holds (column strips);
 4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
    serves 130 requests on the kernels (and one int8 wave), with every
    dispatch a schedule hit and every kernel of the path launched;
@@ -23,8 +24,10 @@ Phases (any failure raises and exits non-zero):
    before each call (the wrapper's host work included) and as host time
    per enqueued call;
 6. the LM slice: the SA-CONV GEMM and flash-attention kernels against their
-   plain versions at full-width OLMo-1B shapes, SA-FC at the decode (b=4)
-   and lone-prefill (m=512) shapes, then
+   plain versions at full-width OLMo-1B shapes (flash: a full wave's and a
+   lone request's prefill, rows of the first equal to the second bitwise,
+   every head dim), SA-FC at the decode (b=4) and lone-prefill (m=512)
+   shapes, then
    ``ServeEngine(olmo-1b, batch_size=4, max_seq=640)`` serves 9 requests of
    512 prompt tokens and 16 new tokens in fp32 (waves of 4, 4 and 1), with
    every matmul a schedule hit, every kernel of the path launched and no
@@ -198,21 +201,33 @@ def build(rep: Report) -> None:
             f"spill bytes {v['spill_bytes']}")
     if any(v["spill_bytes"] for v in conv.values()):
         raise AssertionError("ptxas: an SA-CONV instantiation spills")
+    attn = flash_ptxas(_build.build_log("attention"))
+    rep.detail["ptxas_attention"] = attn
+    for inst, v in attn.items():
+        log(f"  ptxas flash_kernel<{inst}>: {v['registers']} registers, "
+            f"spill bytes {v['spill_bytes']}")
+    if any(v["spill_bytes"] for v in attn.values()):
+        raise AssertionError("ptxas: a flash instantiation spills")
+
+
+def ptxas_kernels(text: str, pattern: str):
+    """(match of ``pattern`` in the mangled name, registers, spill bytes)
+    of each kernel in ptxas's -v output whose name matches."""
+    for block in text.split("Compiling entry function")[1:]:
+        m = re.search(pattern, block)
+        regs = re.search(r"Used (\d+) registers", block)
+        if m and regs:
+            yield m, int(regs.group(1)), sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", block))
 
 
 def sa_fc_ptxas(text: str) -> dict:
     """Registers and spill bytes of each SA-FC instantiation (weight type,
     row tile) from ptxas's -v output."""
     kinds = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}
-    out = {}
-    for block in text.split("Compiling entry function")[1:]:
-        m = re.search(r"sa_fc_kernelI(f|a|13__nv_bfloat16)Li(\d+)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        if not m or not regs:
-            continue
-        spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", block))
-        out[f"{kinds[m.group(1)]}, RB={m.group(2)}"] = dict(
-            registers=int(regs.group(1)), spill_bytes=spills)
+    out = {f"{kinds[m.group(1)]}, RB={m.group(2)}": dict(
+        registers=regs, spill_bytes=spills) for m, regs, spills in
+        ptxas_kernels(text, r"sa_fc_kernelI(f|a|13__nv_bfloat16)Li(\d+)E")}
     if len(out) != 21:
         raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
                              "not 21")
@@ -225,21 +240,28 @@ def sa_conv_ptxas(text: str) -> dict:
     thread; channels per CTA; channels per staged group) from ptxas's -v
     output."""
     out = {}
-    for block in text.split("Compiling entry function")[1:]:
-        m = re.search(r"sa_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)ELi(\d+)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        if not m or not regs:
-            continue
+    for m, regs, spills in ptxas_kernels(
+            text, r"sa_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                  r"ELi(\d+)ELi(\d+)E"):
         p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups())
         shape = f"{p}x{q}/{s}" if p else "generic"
-        spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", block))
         out[f"{shape}, {tpx}x{tco} per thread, {tco * g} channels, "
-            f"cpg {cpg}"] = dict(registers=int(regs.group(1)),
-                                 spill_bytes=spills)
+            f"cpg {cpg}"] = dict(registers=regs, spill_bytes=spills)
     if len(out) != 11:
         raise AssertionError(f"ptxas: {len(out)} SA-CONV instantiations, "
                              "not 11")
+    return out
+
+
+def flash_ptxas(text: str) -> dict:
+    """Registers and spill bytes of each flash instantiation (head dim,
+    query rows per tile) from ptxas's -v output."""
+    out = {f"d={m.group(1)}, {16 * int(m.group(2))} rows": dict(
+        registers=regs, spill_bytes=spills) for m, regs, spills in
+        ptxas_kernels(text, r"flash_kernelILi(\d+)ELi(\d+)E")}
+    if len(out) != 16:
+        raise AssertionError(f"ptxas: {len(out)} flash instantiations, "
+                             "not 16")
     return out
 
 
@@ -359,6 +381,8 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
     log("  engine conv2d(act=silu, pool 3/2): fusion declined, "
         "maxpool_act launched")
 
+    check_wide_pool(rep)
+
     # FC layers at b in {1, 13, 64}, fp32 and int8, on the real features
     for b in (1, 13, 64):
         h = feats[:b].contiguous()
@@ -388,6 +412,51 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
     log("  sa_fc_matmul: row 0 at b=64 == b=1, bitwise (fp32 and int8)")
     torch.cuda.synchronize()
     return shapes
+
+
+def check_wide_pool(rep: Report) -> None:
+    """A fused pool over conv rows wider than a CTA holds (a 3x3 conv, 16
+    -> 64 channels, over 259- and 388-wide inputs with 3/2 and 2/2 pools):
+    the engine still fuses, the wrapper runs column strips.  Against the
+    plain version; fused == conv -> pool kernel and rows of the b=8 launch
+    == b=1 launches, bitwise."""
+    import torch
+    from repro_torch.core.dataflow import PoolSpec
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.kernels.sa_conv_implicit import (column_strips,
+                                                      sa_conv_implicit,
+                                                      sa_conv_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f = torch.randn((3, 3, 16, 64), generator=gen, device="cuda") / 12
+    b = torch.randn(64, generator=gen, device="cuda")
+    for hw, window in ((259, 3), (388, 2)):
+        x = torch.randn((8, hw, hw, 16), generator=gen, device="cuda")
+        kw = dict(act="relu", pool_window=window, pool_stride=2)
+        eng = Engine(backend="kernels")
+        reset_counters()
+        with eng.tracing() as tr:
+            got = eng.conv2d(x, f, b, act="relu", pool=PoolSpec(window, 2),
+                             name="wide")
+        strips = column_strips(hw, hw, 16, 3, 3, 64, pool_window=window,
+                               pool_stride=2)
+        if not tr[0].conv_plan.fuse_pool:
+            raise AssertionError(f"wide {hw}: the planner declined the pool")
+        expect_counts(counters(), f"wide {hw}",
+                      sa_conv_implicit=len(strips))
+        e = allclose(f"wide {hw} pool {window}/2", got,
+                     sa_conv_plain(x, f, b, **kw), TOL_CONV)
+        rep.note_err("sa_conv_implicit", e)
+        exact(f"wide {hw} fused == conv -> pool", got, maxpool_act(
+            sa_conv_implicit(x, f, b, act="relu"), window=window, stride=2,
+            act="none"))
+        for i in (0, 7):
+            exact(f"wide {hw} row {i} of b=8 == b=1", got[i:i + 1],
+                  sa_conv_implicit(x[i:i + 1].contiguous(), f, b, **kw))
+        log(f"  conv2d over {hw}-wide rows, pool {window}/2: fused, "
+            f"{len(strips)} column strips, out {tuple(got.shape)}, max|d| "
+            f"{e:.3g}; fused == conv -> pool and rows 0, 7 of b=8 == b=1, "
+            "bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -757,7 +826,8 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
     import torch
     from repro_torch.core.quant import quantize
     from repro_torch.kernels import ref
-    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention,
+                                               flash_plain)
     from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                              sa_conv_matmul_plain)
 
@@ -789,10 +859,18 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
     q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEVICE)
                for _ in range(3))
     shapes["attn"] = (q, k, v)
-    e = allclose("flash_attention OLMo prefill", flash_attention(q, k, v),
-                 flash_plain(q, k, v), TOL_ATTN)
+    full = flash_attention(q, k, v)
+    e = allclose("flash_attention OLMo prefill", full, flash_plain(q, k, v),
+                 TOL_ATTN)
     rep.note_err("flash_attention", e)
-    log(f"  flash_attention {tuple(q.shape)} causal: max|d| {e:.3g}")
+    one = [t[-1:].contiguous() for t in (q, k, v)]
+    e1 = allclose("flash_attention OLMo lone prefill",
+                  flash_attention(*one), flash_plain(*one), TOL_ATTN)
+    rep.note_err("flash_attention", e1)
+    exact("flash_attention row 3 of b=4 == b=1", full[-1:],
+          flash_attention(*one))
+    log(f"  flash_attention {tuple(q.shape)} causal: max|d| {e:.3g}; "
+        f"b=1: {e1:.3g}; row 3 of b=4 == b=1, bitwise ({geometry_log(q)})")
     cases = [(2, 256, 256, 4, 2, 64, 0, 0.0), (1, 256, 256, 8, 8, 32, 64, 0.0),
              (2, 128, 128, 4, 1, 64, 0, 50.0), (1, 1, 300, 4, 2, 64, 0, 0.0),
              (1, 1, 300, 4, 2, 64, 128, 0.0), (2, 200, 200, 2, 2, 48, 0, 0.0)]
@@ -805,8 +883,16 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
                      flash_attention(qc, kc, vc, **kw),
                      ref.attention(qc, kc, vc, **kw), TOL_ATTN)
         rep.note_err("flash_attention", e)
+    for d in HEAD_DIMS:
+        qc = torch.randn((2, 300, 4, d), generator=gen, device=DEVICE)
+        kc, vc = (torch.randn((2, 300, 2, d), generator=gen, device=DEVICE)
+                  for _ in range(2))
+        rep.note_err("flash_attention", allclose(
+            f"flash_attention d={d}", flash_attention(qc, kc, vc),
+            flash_plain(qc, kc, vc), TOL_ATTN))
     log(f"  flash_attention: the reference's 6 cases (GQA, window, softcap, "
-        f"1 query x 300 keys, d=48) within {TOL_ATTN}")
+        f"1 query x 300 keys, d=48) and every head dim {HEAD_DIMS} within "
+        f"{TOL_ATTN}")
     check_lm_fc(rep, shapes["gemm"])
     torch.cuda.synchronize()
     return shapes
@@ -1097,17 +1183,24 @@ def measure_lm(rep: Report, shapes: dict) -> None:
                   warmup=1),
             timed(lambda: ref.apply_act(torch.mm(x, w), act)),
             2 * m * n * k, nbytes(x, w, out), per_pass)
-    q, k, v = shapes["attn"]
-    b, s, h, d = q.shape
-    out = flash_attention(q, k, v)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = s * (s + 1) // 2                    # unmasked (query, key) pairs
-    row("flash_attention", f"{tuple(q.shape)} causal",
-        timed(lambda: flash_attention(q, k, v)),
-        timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
-        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True)),
-        4 * b * h * pairs * d, nbytes(q, k, v, out), 16)
+    # flash at a full wave's prefill and a lone request's, one launch per
+    # layer each
+    n_layers = olmo_config().n_layers
+    for phase, (q, k, v) in (("prefill", shapes["attn"]),
+                             ("lone prefill", [t[-1:].contiguous()
+                                               for t in shapes["attn"]])):
+        b, s, h, d = q.shape
+        out = flash_attention(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = s * (s + 1) // 2                # unmasked (query, key) pairs
+        row("flash_attention", f"{tuple(q.shape)} causal, "
+            f"{geometry_log(q)}",
+            timed(lambda: flash_attention(q, k, v)),
+            timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
+            timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)),
+            4 * b * h * pairs * d, nbytes(q, k, v, out), n_layers,
+            phase=phase)
 
     # SA-FC at the decode shapes (b = 4), the weight stream of every step,
     # and at m = 512, every projection of a lone request's prefill
@@ -1124,6 +1217,15 @@ def measure_lm(rep: Report, shapes: dict) -> None:
                 timed(lambda: ref.apply_act(torch.mm(h, w), act)),
                 2 * m * n * kk, nbytes(h, w, out), per_pass, phase=phase,
                 host=host_costs(kern))
+
+
+def geometry_log(q) -> str:
+    """The tiling flash_geometry picks for causal self-attention on q."""
+    from repro_torch.kernels.attention import flash_geometry
+    b, s, h, d = q.shape
+    g = flash_geometry(b, s, s, h, h, d, True, 0)
+    return (f"{g.bq}-row tiles{', paired' if g.paired else ''}, "
+            f"{g.ctas} CTAs")
 
 
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:

@@ -10,241 +10,439 @@
 // a guarded final divide.
 //
 // What bounds it on this card: at a 512-token prefill with d = 128 the
-// operations (4 * sq * skv * d per head, half of it masked away by the
-// causal skip) on the fp32 CUDA cores; the bytes are q, k, v and out once.
-// The (sq, skv) score matrix never touches device memory.
+// operations (4 * d per unmasked (query, key) pair) on the fp32 CUDA cores:
+// fp32 means fp32, no TF32 and no tensor cores.  The bytes are q, k, v and
+// out once; the (sq, skv) score matrix never touches device memory.  What
+// keeps the kernel from the FMA roof is issue slots spent on anything but
+// FMAs (shared-memory loads, the softmax, barriers with nothing in flight)
+// and SMs left idle by CTAs of unequal work.
 //
 // What the design does about it:
-//  * One CTA of 256 threads per (batch * query head, tile of 64 query
-//    rows).  The TPU kernel's sequential kv grid axis becomes a loop inside
-//    the CTA, and its grid-level skip of dead tiles becomes the loop's
-//    bounds: causal ends the loop at the tile of the last query row, the
-//    window starts it at the first tile any row can see.  CTAs with the
-//    most live tiles (the last query tiles) are issued first.
-//  * The query tile stays in shared memory for the whole loop; each 64-row
-//    K and V tile is staged with 16-byte loads, rows padded by 4 floats so
-//    the 16-byte reads of 8 neighbouring rows fall in different banks.  At
-//    d = 128 that is 116 KB: dynamic shared memory above the 48 KB default,
-//    opted in per instantiation.
-//  * Thread (ty, tx) holds query rows 4ty..4ty+3: scores for key columns
-//    tx + 16j and output columns tx + 16c.  The 16 threads of a row share
-//    its running max and sum through warp shuffles, so the statistics stay
-//    in registers, in fp32.  Masked scores take -1e30 and their
-//    probabilities are set to 0 explicitly, as the TPU kernel does.
-//  * Probabilities go through shared memory once per tile for the P V
-//    product; the final divide treats l == 0 (a row that saw no key) as 1.
+//  * A CTA is 256 threads, 8 warps, and holds a tile of BQ = 16 * RPT query
+//    rows of one (batch, query head): 128 rows (RPT = 8) or 64 (RPT = 4).
+//    kernels/attention.py::flash_geometry picks the tile height and whether
+//    a CTA takes two query tiles (tile n-1-u, then tile u: under a causal
+//    mask every pair has the same number of live kv tiles) from the shape
+//    alone, costed as the makespan of its CTAs on 132 SMs.  The TPU kernel's
+//    sequential kv grid axis becomes a loop inside the CTA, and its
+//    grid-level skip of dead tiles becomes the loop's bounds.
+//  * Q stays in shared memory for the CTA's loop over kv tiles; a paired
+//    CTA stages the second tile's Q as soon as the first tile's last scores
+//    are in registers (one extra barrier per CTA).  K and V tiles of BKV =
+//    64 keys stream through a two-stage cp.async ring of 16-byte copies:
+//    tile t + 1 lands while tile t computes, one barrier per tile.  Rows
+//    are padded by 4 floats, so the 16-byte reads of 8 neighbouring rows
+//    fall in 8 different bank groups.  At d = 128 and 128 rows that is 216
+//    KB: one CTA per SM.
+//  * Warp w owns 2 * RPT query rows, interleaved between its half-warps:
+//    lane (half, x) holds rows 2i + half.  For the scores it holds keys
+//    x + 16j (j < 4) of those rows: per 4 columns of d, RPT float4 loads of
+//    Q (one address per half-warp, broadcast) and 4 of K for 16 * RPT FMAs.
+//    For P V it holds output columns 4x..4x+3 and 64+4x..: V is read as
+//    float4, 16 lanes over one contiguous row.
+//  * P never leaves the warp that made it: each warp writes its rows'
+//    probabilities to its own slice of shared memory, 32 keys at a time,
+//    and reads them back after a __syncwarp, as float4 of 4 keys.  No
+//    barrier of the CTA guards P.
+//  * The softmax runs in base 2: scores are scaled by scale * log2(e), so
+//    each probability is one MUFU ex2.  The 16 lanes of a row share its
+//    running max through warp shuffles (a butterfly, so every lane holds
+//    the same bits; the 2 * RPT rows' shuffles interleaved), and a row
+//    whose max stood skips rescaling its accumulators.  Each lane keeps the
+//    running sum of its own keys, and the lanes' sums meet in one butterfly
+//    when the query tile ends.  All in fp32.  Masked scores take -1e30 and
+//    their probabilities are set to 0 explicitly, as the TPU kernel does;
+//    the final divide treats l == 0 (a row that saw no key) as 1.
+//  * One summation order per output row, whatever the tile height, the
+//    pairing or the batch: each score sums d in order (one fmaf each); a
+//    lane's sum of probabilities adds its 4 keys of a tile in order, tile
+//    by tile, and the row's sum is the butterfly over lanes; the output
+//    sums keys in order.  A kv tile in which none of a row's keys is
+//    visible leaves that row's statistics and sums bit-for-bit unchanged
+//    (alpha = 1, p = 0), so a warp skips a tile that none of its rows sees,
+//    and a taller query tile that visits more kv tiles gives the same bits:
+//    rows of a b = 4 launch equal a b = 1 launch.
+//  * __launch_bounds__(256, 1): up to 255 registers for the 8 x 4 score
+//    tile and 8 x 8 accumulators, no spills.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per CTA
 constexpr int BKV = 64;              // keys per tile
 constexpr int THREADS = 256;
-constexpr int PP = BKV + 4;          // padded row of the probability tile
+constexpr int PH = 32 + 4;           // padded row of a warp's half tile of P
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {                     // in elements; the head dim is contiguous
   long long b, s, h;
 };
 
-template <int D>
+template <int D, int RPT>
 constexpr int smem_bytes() {
-  return ((BQ + 2 * BKV) * (D + 4) + BQ * PP) * static_cast<int>(sizeof(float));
+  return ((16 * RPT + 4 * BKV) * (D + 4) + 16 * RPT * PH) * static_cast<int>(sizeof(float));
 }
 
-// rows [s0, s0 + nrows) of one head into a (nrows, D + 4) tile; rows at or
-// beyond len are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* base, Strides st, int bi,
-                                          int head, int s0, int nrows, int len) {
-  constexpr int V4 = D / 4;
-  for (int e = threadIdx.x; e < nrows * V4; e += THREADS) {
-    const int r = e / V4, c4 = e % V4;
-    const int s = s0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (s < len)
-      v = *reinterpret_cast<const float4*>(base + bi * st.b + s * st.s + head * st.h + c4 * 4);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c4 * 4) = v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// 2^x in one MUFU op (a result below 2^-126 flushes to 0: far below what
+// a probability next to the row's max of 1 can add)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [s0, s0 + ROWS) of one head (base: its row 0) into a (ROWS, D + 4)
+// tile, as 16-byte cp.async copies; rows at or beyond len are zero-filled.
+// Where a row's float4 columns divide the CTA, each thread copies one
+// column of every STEP-th row, its addresses moved by a constant stride.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* base, long long row_stride,
+                                           int s0, int len) {
+  constexpr int NC4 = D / 4;
+  if constexpr (THREADS % NC4 == 0) {
+    constexpr int STEP = THREADS / NC4;            // rows per pass of the CTA
+    const int r0 = threadIdx.x / NC4, c = threadIdx.x % NC4;
+    const float* src = base + (s0 + r0) * row_stride + c * 4;
+    float* d = dst + r0 * (D + 4) + c * 4;
+#pragma unroll
+    for (int it = 0; it < (ROWS + STEP - 1) / STEP; ++it) {
+      if (ROWS % STEP == 0 || r0 + it * STEP < ROWS) {
+        const bool ok = s0 + r0 + it * STEP < len;
+        cp_async16(d + it * STEP * (D + 4), ok ? src + it * STEP * row_stride : base, ok);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * NC4; e += THREADS) {
+      const int r = e / NC4, c = e % NC4;
+      const bool ok = s0 + r < len;
+      cp_async16(dst + r * (D + 4) + c * 4, base + (ok ? (s0 + r) * row_stride : 0) + c * 4, ok);
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// kv tiles [begin, end) that query tile iq (rows [iq * BQ, iq * BQ + BQ))
+// visits: the TPU kernel's skip test, as loop bounds
+template <int BQ>
+__device__ __forceinline__ void kv_range(int iq, int sq, int skv, int causal, int window,
+                                         int& begin, int& end) {
+  const int q_lo = iq * BQ + skv - sq;             // position of row 0
+  const int q_hi = min(q_lo + BQ - 1, skv - 1);    // of the last real row
+  const int n_kv = (skv + BKV - 1) / BKV;
+  end = n_kv;
+  if (causal) end = q_hi < 0 ? 0 : min(n_kv, q_hi / BKV + 1);
+  begin = 0;
+  if (window > 0) {
+    const int num = q_lo - window - BKV + 2;       // first kt with k_hi > q_lo - window
+    begin = num <= 0 ? 0 : (num + BKV - 1) / BKV;
+  }
+}
+
+template <int D, int RPT>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, Strides qs_, Strides ks_,
              Strides vs_, int sq, int skv, int hq, int hkv, int causal, int window,
-             float softcap, float scale) {
+             float softcap, float scale, int paired) {
+  constexpr int BQ = 16 * RPT;       // query rows per tile
   constexpr int DP = D + 4;
-  constexpr int DC = D / 16;         // output columns per thread
+  constexpr int NC4 = D / 4;         // float4 columns of a row
+  constexpr int DC4 = (NC4 + 15) / 16;   // float4 output columns per lane
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * DP;
-  float* vs = ks + BKV * DP;
-  float* ps = vs + BKV * DP;
+  float* kvs = qs + BQ * DP;         // [stage][K, V][BKV][DP]
+  float* ps = kvs + 4 * BKV * DP;    // [warp][2 * RPT][PH]
 
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int bh = blockIdx.y;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int half = lane / 16, x = lane % 16;
+  const int nq = (sq + BQ - 1) / BQ;               // query tiles
+  const int units = paired ? (nq + 1) / 2 : nq;    // CTAs per (batch, head)
+  const int bhs = gridDim.x / units;
+  const int unit = blockIdx.x / bhs, bh = blockIdx.x % bhs;
   const int bi = bh / hq, h = bh % hq;
   const int hk = h / (hq / hkv);
-  const int iq = gridDim.x - 1 - blockIdx.x;
   const int offset = skv - sq;                     // queries sit at the end
-  const int q_lo = iq * BQ + offset;               // position of row 0
-  const int q_hi = min(q_lo + BQ - 1, skv - 1);    // of the last real row
+  const float scale2 = __fmul_rn(scale, LOG2E);
 
-  // live kv tiles: the TPU kernel's skip test, as loop bounds
-  const int n_kv = (skv + BKV - 1) / BKV;
-  int kt_end = n_kv;
-  if (causal) kt_end = q_hi < 0 ? 0 : min(n_kv, q_hi / BKV + 1);
-  int kt_begin = 0;
-  if (window > 0) {
-    const int num = q_lo - window - BKV + 2;       // first kt with k_hi > q_lo - window
-    kt_begin = num <= 0 ? 0 : (num + BKV - 1) / BKV;
-  }
+  const float* qbase = q + bi * qs_.b + h * qs_.h;
+  const float* kbase = k + bi * ks_.b + hk * ks_.h;
+  const float* vbase = v + bi * vs_.b + hk * vs_.h;
+  auto stage_kv = [&](int stage, int kt) {
+    float* dst = kvs + stage * 2 * BKV * DP;
+    stage_rows<D, BKV>(dst, kbase, ks_.s, kt * BKV, skv);
+    stage_rows<D, BKV>(dst + BKV * DP, vbase, vs_.s, kt * BKV, skv);
+  };
 
-  load_tile<D>(qs, q, qs_, bi, h, iq * BQ, BQ, sq);
+  // the CTA's query tiles: the heaviest first, then (paired) its mirror
+  const int tile0 = nq - 1 - unit, tile1 = unit;
+  const int ntiles = paired && tile1 != tile0 ? 2 : 1;
+  int kb0, ke0, kb1, ke1;
+  kv_range<BQ>(tile0, sq, skv, causal, window, kb0, ke0);
+  kv_range<BQ>(tile1, sq, skv, causal, window, kb1, ke1);
 
-  float m_run[4], l_run[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  float* pw = ps + w * 2 * RPT * PH;               // this warp's P slice
+  int stage = 0;
+  bool in_flight = false;                          // K/V of the next tile staged into `stage`
+  bool q_in_flight = false;                        // Q of the next query tile staged
+  for (int i = 0; i < ntiles; ++i) {
+    const int iq = i == 0 ? tile0 : tile1;
+    const int kt_begin = i == 0 ? kb0 : kb1, kt_end = i == 0 ? ke0 : ke1;
+    // the first kv tile of the next query tile, -1 if there is none
+    const int kt_next = i + 1 < ntiles && kb1 < ke1 ? kb1 : -1;
+    const int r0 = iq * BQ + w * 2 * RPT;          // the warp's first row
+    const int r_last = min(r0 + 2 * RPT, sq) - 1;  // its last real row
+    if (kt_begin < kt_end) {
+      if (!q_in_flight) {
+        if (i > 0) __syncthreads();                // every warp is done with the last Q
+        stage_rows<D, BQ>(qs, qbase, qs_.s, iq * BQ, sq);
+      }
+      if (!in_flight) stage_kv(stage, kt_begin);
+      cp_async_commit();
+    }
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * BKV;
-    __syncthreads();                               // the previous tile is consumed
-    load_tile<D>(ks, k, ks_, bi, hk, k_lo, BKV, skv);
-    load_tile<D>(vs, v, vs_, bi, hk, k_lo, BKV, skv);
-    __syncthreads();
+    float m_run[RPT], l_run[RPT];
+    float4 acc[RPT][DC4];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      m_run[r] = NEG_INF;
+      l_run[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DC4; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 
-    float s[4][4];
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      cp_async_wait_all();
+      __syncthreads();                             // tile kt is staged; tile kt - 1 is consumed
+      const int nkt = kt + 1 < kt_end ? kt + 1 : kt_next;
+      in_flight = nkt >= 0;
+      if (in_flight) {
+        stage_kv(stage ^ 1, nkt);
+        cp_async_commit();
+      }
+      const float* ks = kvs + stage * 2 * BKV * DP;
+      const float* vs = ks + BKV * DP;
+      stage ^= 1;
+
+      // skip a tile that none of the warp's real rows sees: it would leave
+      // their statistics and sums unchanged
+      const int k_lo = kt * BKV, k_hi = min(k_lo + BKV, skv) - 1;
+      const bool live = r_last >= r0 && !(causal && k_lo > r_last + offset) &&
+                        !(window > 0 && k_hi <= r0 + offset - window);
+
+      // scores: lane (half, x) has rows 2r + half, keys x + 16j
+      float s[RPT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < RPT; ++r)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qv[4], kv[4];
+        for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+      if (live) {
+        const float* qrow = qs + (w * 2 * RPT + half) * DP;
+        const float* krow = ks + x * DP;
+#pragma unroll 8
+        for (int dd = 0; dd < D; dd += 4) {
+          float4 kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * DP + dd);
+          for (int j = 0; j < 4; ++j) kv[j] = lds4(krow + 16 * j * DP + dd);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * DP + dd);
+          for (int r = 0; r < RPT; ++r) {
+            const float4 qv = lds4(qrow + 2 * r * DP + dd);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+            for (int j = 0; j < 4; ++j) {
+              s[r][j] = fmaf(qv.x, kv[j].x, s[r][j]);
+              s[r][j] = fmaf(qv.y, kv[j].y, s[r][j]);
+              s[r][j] = fmaf(qv.z, kv[j].z, s[r][j]);
+              s[r][j] = fmaf(qv.w, kv[j].w, s[r][j]);
+            }
+          }
+        }
+      }
+      // the last scores of this query tile are in registers: the next
+      // tile's Q lands while this one finishes
+      if (kt + 1 == kt_end && kt_next >= 0) {
+        __syncthreads();                           // every warp is done with Q
+        stage_rows<D, BQ>(qs, qbase, qs_.s, tile1 * BQ, sq);
+        cp_async_commit();
+        q_in_flight = true;
+      }
+      if (!live) continue;
+
+      // online softmax in base 2, each operation rounded on its own.  Row r
+      // sees the tile's keys x + 16j with lo < x + 16j <= hi.
+      float mx[RPT];
+      unsigned seen = 0;                           // bit 4r + j: key j of row r is visible
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int qpos = r0 + 2 * r + half + offset;
+        const int hi = min(causal ? qpos - k_lo : BKV - 1, k_hi - k_lo);
+        const int lo = window > 0 ? qpos - window - k_lo : -1;
+        mx[r] = NEG_INF;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          // in log2 units: exp2 of a difference is exp of the scores'
+          float t;
+          if (softcap > 0.f)
+            t = __fmul_rn(__fmul_rn(softcap, tanhf(__fdiv_rn(__fmul_rn(s[r][j], scale), softcap))),
+                          LOG2E);
+          else
+            t = __fmul_rn(s[r][j], scale2);
+          const bool ok = x + 16 * j <= hi && x + 16 * j > lo;
+          seen |= static_cast<unsigned>(ok) << (4 * r + j);
+          s[r][j] = ok ? t : NEG_INF;
+          mx[r] = fmaxf(mx[r], s[r][j]);
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_lo + ty * 4 + i;
-      bool ok[4];
-      float mcur = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k_lo + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        ok[j] = kpos < skv && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? x : NEG_INF;
-        mcur = fmaxf(mcur, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)        // the 16 threads of this row
-        mcur = fmaxf(mcur, __shfl_xor_sync(0xffffffffu, mcur, off));
-      const float mnew = fmaxf(m_run[i], mcur);
-      const float alpha = expf(m_run[i] - mnew);
-      float rsum = 0.f;
+      for (int off = 8; off > 0; off >>= 1)        // the 16 lanes of each row
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - mnew) : 0.f;
-        ps[(ty * 4 + i) * PP + tx + 16 * j] = p;
-        rsum += p;
+        for (int r = 0; r < RPT; ++r)
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float mnew = fmaxf(m_run[r], mx[r]);
+        const float alpha = ex2(__fsub_rn(m_run[r], mnew));
+        float lsum = 0.f;                          // this lane's keys; lanes are summed at the end
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = ex2(__fsub_rn(s[r][j], mnew));
+          s[r][j] = (seen >> (4 * r + j)) & 1u ? p : 0.f;
+          lsum = __fadd_rn(lsum, s[r][j]);
+        }
+        l_run[r] = __fmaf_rn(alpha, l_run[r], lsum);
+        m_run[r] = mnew;
+        if (alpha == 1.f) continue;                // the max stood: acc * 1 is acc
+#pragma unroll
+        for (int c = 0; c < DC4; ++c) {
+          acc[r][c].x = __fmul_rn(acc[r][c].x, alpha);
+          acc[r][c].y = __fmul_rn(acc[r][c].y, alpha);
+          acc[r][c].z = __fmul_rn(acc[r][c].z, alpha);
+          acc[r][c].w = __fmul_rn(acc[r][c].w, alpha);
+        }
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l_run[i] = alpha * l_run[i] + rsum;
-      m_run[i] = mnew;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();                               // the probability tile is complete
 
+      // P V, 32 keys at a time through the warp's P slice, keys in order
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf) __syncwarp();                      // the first half is read
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          pw[(2 * r + half) * PH + x] = s[r][2 * hf];
+          pw[(2 * r + half) * PH + x + 16] = s[r][2 * hf + 1];
+        }
+        __syncwarp();
 #pragma unroll 2
-    for (int jj = 0; jj < BKV; jj += 4) {
-      float4 pv[4];
+        for (int k4 = 0; k4 < 32; k4 += 4) {
+          float4 p[RPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * PP + jj);
+          for (int r = 0; r < RPT; ++r) p[r] = lds4(pw + (2 * r + half) * PH + k4);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float* vc = vs + jj * DP + tx + 16 * c;
-        const float v0 = vc[0], v1 = vc[DP], v2 = vc[2 * DP], v3 = vc[3 * DP];
+          for (int e = 0; e < 4; ++e) {
+            const float* vrow = vs + (32 * hf + k4 + e) * DP;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float a = acc[i][c];
-          a = fmaf(pv[i].x, v0, a);
-          a = fmaf(pv[i].y, v1, a);
-          a = fmaf(pv[i].z, v2, a);
-          a = fmaf(pv[i].w, v3, a);
-          acc[i][c] = a;
+            for (int c = 0; c < DC4; ++c) {
+              if (NC4 % 16 && x + 16 * c >= NC4) continue;
+              const float4 vv = lds4(vrow + 4 * (x + 16 * c));
+#pragma unroll
+              for (int r = 0; r < RPT; ++r) {
+                const float pe = e == 0 ? p[r].x : e == 1 ? p[r].y : e == 2 ? p[r].z : p[r].w;
+                acc[r][c].x = fmaf(pe, vv.x, acc[r][c].x);
+                acc[r][c].y = fmaf(pe, vv.y, acc[r][c].y);
+                acc[r][c].z = fmaf(pe, vv.z, acc[r][c].z);
+                acc[r][c].w = fmaf(pe, vv.w, acc[r][c].w);
+              }
+            }
+          }
         }
       }
     }
-  }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = iq * BQ + ty * 4 + i;
-    if (row >= sq) continue;
-    const float l = l_run[i] == 0.f ? 1.f : l_run[i];
-    float* o = out + ((static_cast<size_t>(bi) * sq + row) * hq + h) * D;
+    for (int off = 8; off > 0; off >>= 1)          // each lane's sums of its keys
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c] / l;
+      for (int r = 0; r < RPT; ++r)
+        l_run[r] = __fadd_rn(l_run[r], __shfl_xor_sync(0xffffffffu, l_run[r], off));
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int row = r0 + 2 * r + half;
+      if (row >= sq) continue;
+      const float l = l_run[r] == 0.f ? 1.f : l_run[r];
+      float* o = out + ((static_cast<size_t>(bi) * sq + row) * hq + h) * D;
+#pragma unroll
+      for (int c = 0; c < DC4; ++c) {
+        if (NC4 % 16 && x + 16 * c >= NC4) continue;
+        *reinterpret_cast<float4*>(o + 4 * (x + 16 * c)) =
+            make_float4(__fdiv_rn(acc[r][c].x, l), __fdiv_rn(acc[r][c].y, l),
+                        __fdiv_rn(acc[r][c].z, l), __fdiv_rn(acc[r][c].w, l));
+      }
+    }
   }
 }
 
-template <int D>
+template <int D, int RPT>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out, Strides qs,
                    Strides ks, Strides vs, int b, int sq, int skv, int hq, int hkv, int causal,
-                   int window, float softcap, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D>,
+                   int window, float softcap, float scale, int paired, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D, RPT>();
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, RPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, b * hq);
-  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(q, k, v, out, qs, ks, vs, sq, skv, hq, hkv,
-                                                    causal, window, softcap, scale);
+  const long long nq = (sq + 16 * RPT - 1) / (16 * RPT);
+  const long long ctas = (paired ? (nq + 1) / 2 : nq) * b * hq;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  flash_kernel<D, RPT><<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
+      q, k, v, out, qs, ks, vs, sq, skv, hq, hkv, causal, window, softcap, scale, paired);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_rows(int bq, const float* q, const float* k, const float* v, float* out,
+                        Strides qs, Strides ks, Strides vs, int b, int sq, int skv, int hq,
+                        int hkv, int causal, int window, float softcap, float scale, int paired,
+                        cudaStream_t stream) {
+  switch (bq) {
+    case 64:
+      return launch<D, 4>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, softcap,
+                          scale, paired, stream);
+    case 128:
+      return launch<D, 8>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, softcap,
+                          scale, paired, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Head dims: multiples of 16 up to 128.  Strides are in elements, for
-// (batch, seq, head); the head dim must be contiguous and every row
+// Head dims: multiples of 16 up to 128; bq: query rows per tile, 64 or 128;
+// paired: a CTA takes query tiles n-1-u and u.  Strides are in elements,
+// for (batch, seq, head); the head dim must be contiguous and every row
 // 16-byte aligned (the wrapper checks).  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int b, int sq, int skv, int hq, int hkv, int d,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kss, long long ksh,
                                       long long vsb, long long vss, long long vsh, int causal,
-                                      int window, float softcap, float scale, void* stream) {
+                                      int window, float softcap, float scale, int bq,
+                                      int paired, void* stream) {
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   auto st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(DIM) \
-  case DIM: return launch<DIM>(qf, kf, vf, of, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, softcap, scale, st)
+#define FLASH_CASE(DIM)                                                                           \
+  case DIM:                                                                                       \
+    return launch_rows<DIM>(bq, qf, kf, vf, of, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, \
+                            softcap, scale, paired, st)
   switch (d) {
     FLASH_CASE(16);
     FLASH_CASE(32);

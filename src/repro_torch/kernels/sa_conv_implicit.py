@@ -11,7 +11,9 @@ current stream, or raises.
 
 The tiling the kernel runs (:func:`conv_geometry`, :func:`conv_tiles`) is
 chosen here, from the layer's shape alone — never from the batch, which
-changes only the CTA count — so it can be tested on the CPU.
+changes only the CTA count — so it can be tested on the CPU.  Where a pool
+window's rows are wider than a CTA holds, :func:`column_strips` cuts the
+emitted columns into strips of whole pool windows, one launch each.
 """
 from __future__ import annotations
 
@@ -234,6 +236,46 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
     return best[1]
 
 
+@functools.lru_cache(maxsize=None)
+def column_strips(h: int, w: int, ci: int, p: int, q: int, co: int, *,
+                  stride: int = 1, pool_window: int = 0,
+                  pool_stride: int = 0) -> tuple[tuple[int, int, int, int],
+                                                 ...]:
+    """The fewest strips of emitted columns whose inputs each fit
+    :func:`conv_geometry`, from the shape alone, as (first and last-plus-one
+    emitted column, first and last-plus-one input column).  Emitted columns
+    [j0, j1) need conv columns [j0 * ps, (j1 - 1) * ps + pw), and those need
+    input columns [j0 * ps * stride, ((j1 - 1) * ps + pw - 1) * stride + q):
+    a strip holds whole pool windows, and neighbouring strips overlap by
+    pw - ps conv columns.  Strip widths differ by at most one column.  One
+    strip, the whole width, wherever the whole width fits."""
+    ow = (w - q) // stride + 1
+    pw, ps = (pool_window, pool_stride or pool_window) if pool_window \
+        else (1, 1)
+    n_out = (ow - pw) // ps + 1 if ow >= pw else 0
+    kw = dict(stride=stride, pool_window=pool_window,
+              pool_stride=pool_stride)
+
+    def in_cols(j0: int, j1: int) -> tuple[int, int]:
+        return j0 * ps * stride, ((j1 - 1) * ps + pw - 1) * stride + q
+
+    err = None
+    for n in range(1, max(n_out, 1) + 1):
+        base, extra = divmod(n_out, n)
+        bounds = [i * base + min(i, extra) for i in range(n + 1)]
+        strips = tuple((j0, j1) + in_cols(j0, j1)
+                       for j0, j1 in zip(bounds, bounds[1:]))
+        try:
+            for width in {x1 - x0 for _, _, x0, x1 in strips}:
+                conv_geometry(h, width, ci, p, q, co, **kw)
+        except NotImplementedError as e:
+            err = e
+            continue
+        return strips
+    raise err if err is not None else ValueError(
+        f"sa_conv_implicit: no emitted column ({h}x{w}, filter {p}x{q})")
+
+
 def conv_tiles(g: ConvGeometry, batch: int, tile: int) -> list[tuple]:
     """The segments of pixel tile ``tile``, as the kernel builds them:
     (image, first conv row, conv rows, first and last-plus-one pixel of the
@@ -315,8 +357,30 @@ def sa_conv_implicit(x: torch.Tensor, f: torch.Tensor,
         raise ValueError("sa_conv_implicit: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sa_conv_implicit: operands must be contiguous")
-    g = conv_geometry(h, w, ci, p, q, co, stride=stride,
-                      pool_window=pool_window, pool_stride=pool_stride)
+    kw = dict(stride=stride, pool_window=pool_window,
+              pool_stride=pool_stride)
+    strips = column_strips(h, w, ci, p, q, co, **kw)
+    if len(strips) == 1:
+        return _launch(x, f, w_scale, bias, stride, act,
+                       conv_geometry(h, w, ci, p, q, co, **kw))
+    # a pool window wider than a CTA: one launch per strip of whole windows
+    # on a copy of its input columns, each output summed in the one order
+    g = conv_geometry(h, strips[0][3] - strips[0][2], ci, p, q, co, **kw)
+    out = torch.empty((batch, g.out_h, strips[-1][1], co),
+                      dtype=torch.float32, device=x.device)
+    for j0, j1, x0, x1 in strips:
+        part = x[:, :, x0:x1].contiguous()
+        out[:, :, j0:j1] = _launch(part, f, w_scale, bias, stride, act,
+                                   conv_geometry(h, x1 - x0, ci, p, q, co,
+                                                 **kw))
+    return out
+
+
+def _launch(x: torch.Tensor, f: torch.Tensor, w_scale, bias, stride: int,
+            act: str, g: ConvGeometry) -> torch.Tensor:
+    """One launch of the kernel over the whole of ``x`` in geometry ``g``."""
+    batch, h, w, ci = x.shape
+    p, q, _, co = f.shape
     out = torch.empty((batch, g.out_h, g.out_w, co), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:

@@ -15,7 +15,9 @@ from repro_torch.core.dataflow import PoolSpec
 from repro_torch.core.engine import Engine
 from repro_torch.core.quant import quantize
 from repro_torch.kernels import ref
-from repro_torch.kernels.attention import flash_attention, flash_plain
+from repro_torch.kernels import attention as tattn
+from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention,
+                                           flash_plain)
 from repro_torch.kernels.pool_act import maxpool_act
 from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
@@ -261,6 +263,34 @@ def test_sa_conv_vgg16_layer_with_a_fused_2x2_pool(cuda):
                                         act="none"))
 
 
+@pytest.mark.parametrize("hw,window", [(259, 3), (388, 2)])
+def test_sa_conv_pooled_rows_wider_than_a_cta(cuda, hw, window):
+    """A pool window whose conv rows (257 or 386 wide) do not fit one CTA:
+    the engine still fuses the pool, and the wrapper runs two column
+    strips.  Against the plain version at b = 8; fused == conv -> pool
+    kernel and every row == its b = 1 result, bitwise."""
+    x = _t(0, (8, hw, hw, 16), cuda)
+    f, _, bias = _conv_operands(cuda, 16, 3, 64, "fp32")
+    kw = dict(act="relu", pool_window=window, pool_stride=2)
+    eng = Engine(backend="kernels")
+    before = sa_conv_implicit.launches
+    with eng.tracing() as tr:
+        got = eng.conv2d(x, f, bias, act="relu", pool=PoolSpec(window, 2),
+                         name="wide")
+    assert tr[0].conv_plan.fuse_pool
+    assert sa_conv_implicit.launches == before + 2
+    n_out = (hw - 2 - window) // 2 + 1
+    assert got.shape == (8, n_out, n_out, 64)
+    torch.testing.assert_close(got, sa_conv_plain(x, f, bias, **kw),
+                               rtol=2e-3, atol=2e-3)
+    conv = sa_conv_implicit(x, f, bias, act="relu")
+    assert torch.equal(got, maxpool_act(conv, window=window, stride=2,
+                                        act="none"))
+    for i in range(8):
+        assert torch.equal(got[i:i + 1], sa_conv_implicit(
+            x[i:i + 1].contiguous(), f, bias, **kw)), i
+
+
 def test_sa_conv_operands_off_16_byte_alignment(cuda):
     """x and f one element into their buffers take 4-byte copies: same
     bits."""
@@ -341,7 +371,11 @@ def test_sa_conv_gemm_kernel(cuda, m, k, n, wdtype, act):
     dict(b=2, sq=200, skv=200, hq=2, hkv=2, d=48, window=0, softcap=0.0),
     dict(b=1, sq=77, skv=77, hq=2, hkv=1, d=128, window=0, softcap=0.0),
     dict(b=1, sq=40, skv=90, hq=2, hkv=2, d=16, window=7, softcap=0.0),
-])
+    # the LM path's prefills: a full wave and a lone request (OLMo-1B)
+    dict(b=4, sq=512, skv=512, hq=16, hkv=16, d=128, window=0, softcap=0.0),
+    dict(b=1, sq=512, skv=512, hq=16, hkv=16, d=128, window=0, softcap=0.0),
+] + [dict(b=2, sq=300, skv=300, hq=4, hkv=2, d=d, window=0, softcap=0.0)
+     for d in HEAD_DIMS])
 def test_flash_attention_kernel(cuda, case):
     c = case
     q = _t(0, (c["b"], c["sq"], c["hq"], c["d"]), cuda)
@@ -351,6 +385,38 @@ def test_flash_attention_kernel(cuda, case):
     torch.testing.assert_close(flash_attention(q, k, v, **kw),
                                flash_plain(q, k, v, **kw), rtol=3e-4,
                                atol=3e-4)
+
+
+def test_flash_attention_rows_of_a_wave_equal_a_lone_request(cuda):
+    """Rows of a b = 4 prefill launch (128-row query tiles) equal a b = 1
+    launch of the same request (64-row tiles), bitwise."""
+    q = _t(0, (4, 512, 16, 128), cuda)
+    k, v = _t(1, q.shape, cuda), _t(2, q.shape, cuda)
+    full = flash_attention(q, k, v)
+    for i in range(4):
+        one = flash_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                              v[i:i + 1].contiguous())
+        assert torch.equal(full[i:i + 1], one), i
+
+
+@pytest.mark.parametrize("d,window", [(128, 0), (48, 0), (64, 100)])
+def test_flash_attention_every_tiling_gives_the_same_bits(cuda, monkeypatch,
+                                                          d, window):
+    """64- and 128-row query tiles, paired or not: the same bits, within
+    the tolerance of the plain version."""
+    b, s, hq, hkv = 2, 390, 4, 2
+    q = _t(0, (b, s, hq, d), cuda)
+    k, v = _t(1, (b, s, hkv, d), cuda), _t(2, (b, s, hkv, d), cuda)
+    want = flash_plain(q, k, v, window=window)
+    outs = []
+    for bq in tattn.BQ:
+        for paired in (False, True):
+            g = tattn.FlashGeometry(bq, paired, -(-s // bq), b * hq,
+                                    tattn.smem_bytes(bq, d), 0.0)
+            monkeypatch.setattr(tattn, "flash_geometry", lambda *a, g=g: g)
+            outs.append(flash_attention(q, k, v, window=window))
+            torch.testing.assert_close(outs[-1], want, rtol=3e-4, atol=3e-4)
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 def test_flash_attention_reads_strided_inputs(cuda):

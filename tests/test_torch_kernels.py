@@ -34,8 +34,8 @@ from repro_torch.kernels.pool_act import maxpool_act
 from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv_implicit import (MAX_ROWS, MAX_SEGMENTS,
                                                   SMEM_MAX, THREADS,
-                                                  TILES, conv_geometry,
-                                                  conv_tiles,
+                                                  TILES, column_strips,
+                                                  conv_geometry, conv_tiles,
                                                   sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels import sa_fc as tfc
@@ -326,12 +326,73 @@ def test_conv_geometry_does_not_depend_on_the_batch(batch):
 
 def test_conv_geometry_refuses_rows_wider_than_a_cta():
     """Flat pixel tiles cut rows wider than a CTA (no pool); a pool window
-    whose rows do not fit one CTA is still refused."""
+    whose rows do not fit one CTA is still refused by the geometry (the
+    wrapper then runs column strips, :func:`column_strips`)."""
     g = conv_geometry(1000, 1000, 3, 3, 3, 8)
     assert not g.bands and g.conv_w > g.pixels
     _check_tiling(g, 1, 1, 3)
     with pytest.raises(NotImplementedError, match="does not fit"):
         conv_geometry(1000, 1000, 3, 3, 3, 8, pool_window=3, pool_stride=2)
+
+
+#: pooled rows wider than a CTA holds: conv_geometry refuses the whole
+#: width, so the wrapper runs column strips (h = w, ci, co, pool)
+WIDE_POOLED = [(259, 16, 64, 3, 2), (388, 16, 64, 2, 2), (1000, 3, 8, 3, 2)]
+
+
+@pytest.mark.parametrize("hw,ci,co,pw,ps", WIDE_POOLED)
+def test_column_strips_cover_the_pooled_columns(hw, ci, co, pw, ps):
+    """Every pooled column in exactly one strip, each strip whole pool
+    windows over its own input columns, each strip's input fits one CTA,
+    and no fewer strips would."""
+    kw = dict(pool_window=pw, pool_stride=ps)
+    with pytest.raises(NotImplementedError, match="does not fit"):
+        conv_geometry(hw, hw, ci, 3, 3, co, **kw)
+    strips = column_strips(hw, hw, ci, 3, 3, co, **kw)
+    n_out = (hw - 3 + 1 - pw) // ps + 1
+    covered = np.zeros(n_out, np.int32)
+    for j0, j1, x0, x1 in strips:
+        covered[j0:j1] += 1
+        # conv columns [j0 ps, (j1 - 1) ps + pw) from input [x0, x1)
+        assert x0 == j0 * ps and x1 == (j1 - 1) * ps + pw - 1 + 3 <= hw
+        g = conv_geometry(hw, x1 - x0, ci, 3, 3, co, **kw)
+        assert g.out_w == j1 - j0 and g.smem_bytes <= SMEM_MAX
+        _check_tiling(g, 1, 1, 3)
+    assert (covered == 1).all()
+    widths = [j1 - j0 for j0, j1, _, _ in strips]
+    assert max(widths) - min(widths) <= 1
+    fewer = -(-n_out // (len(strips) - 1))
+    with pytest.raises(NotImplementedError):
+        conv_geometry(hw, (fewer - 1) * ps + pw - 1 + 3, ci, 3, 3, co, **kw)
+
+
+@pytest.mark.parametrize("h,ci,p,co,stride,window", [
+    (227, 3, 11, 96, 4, 3), (31, 96, 5, 256, 1, 3), (15, 384, 3, 256, 1, 3),
+    (15, 256, 3, 384, 1, 0), (226, 64, 3, 64, 1, 2)])
+def test_column_strips_keep_a_layer_that_fits_whole(h, ci, p, co, stride,
+                                                    window):
+    """AlexNet's and VGG-16's layers stay one launch over the whole width."""
+    kw = dict(stride=stride, pool_window=window,
+              pool_stride=2 if window else 0)
+    g = conv_geometry(h, h, ci, p, p, co, **kw)
+    assert column_strips(h, h, ci, p, p, co, **kw) == (
+        (0, g.out_w, 0, h),)
+
+
+@pytest.mark.parametrize("hw,ci,co,pw,ps", WIDE_POOLED[:2])
+def test_sa_conv_plain_strips_stitch_to_the_whole_width(hw, ci, co, pw, ps):
+    """The plain version run strip by strip and stitched equals it run over
+    the whole width, bitwise (narrow output channels)."""
+    x = torch.from_numpy(_np(0, (1, hw, hw, ci)))
+    f, b = torch.from_numpy(_np(1, (3, 3, ci, 8), 0.1)), \
+        torch.from_numpy(_np(2, (8,)))
+    kw = dict(act="relu", pool_window=pw, pool_stride=ps)
+    whole = sa_conv_plain(x, f, b, **kw)
+    parts = [sa_conv_plain(x[:, :, x0:x1].contiguous(), f, b, **kw)
+             for _, _, x0, x1 in column_strips(hw, hw, ci, 3, 3, co,
+                                               pool_window=pw,
+                                               pool_stride=ps)]
+    assert torch.equal(torch.cat(parts, dim=2), whole)
 
 
 def test_sa_conv_plain_is_the_kernel_order_of_operations():
@@ -465,38 +526,105 @@ def test_flash_attention_non_causal_and_scale():
                                atol=3e-4)
 
 
+def _reference_live(iq, bq, sq, skv, causal, window):
+    """The kv tiles of the kernel's size that the TPU kernel's grid-level
+    test (attention.py, ``live``) keeps for query tile ``iq`` of ``bq``
+    rows."""
+    bkv = tattn.BKV
+    q_lo = iq * bq + skv - sq
+    q_hi = min(q_lo + bq - 1, skv - 1)           # the last real row
+    want = []
+    for ikv in range(-(-skv // bkv)):
+        k_lo, k_hi = ikv * bkv, ikv * bkv + bkv - 1
+        live = k_lo <= skv - 1
+        if causal:
+            live &= k_lo <= q_hi
+        if window > 0:
+            live &= k_hi > q_lo - window
+        if live:
+            want.append(ikv)
+    return want
+
+
 @pytest.mark.parametrize("sq,skv", [(512, 512), (200, 200), (1, 300),
                                     (64, 640), (130, 70)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", [0, 1, 16, 64, 100])
 def test_flash_loop_bounds_are_the_reference_skip(sq, skv, causal, window):
     """The kernel's loop over kv tiles visits exactly the tiles the TPU
-    kernel's grid-level test (attention.py, ``live``) keeps for a query
-    tile of the kernel's own size, and every unmasked key of a real row
-    lies in a visited tile."""
-    bq, bkv = tattn.BQ, tattn.BKV
-    offset = skv - sq
-    for iq in range(-(-sq // bq)):
-        q_lo = iq * bq + offset
-        q_hi = min(q_lo + bq - 1, skv - 1)       # the last real row
-        want = []
-        for ikv in range(-(-skv // bkv)):
-            k_lo, k_hi = ikv * bkv, ikv * bkv + bkv - 1
-            live = k_lo <= skv - 1
-            if causal:
-                live &= k_lo <= q_hi
-            if window > 0:
-                live &= k_hi > q_lo - window
-            if live:
-                want.append(ikv)
-        tiles = live_tiles(iq, sq, skv, causal=causal, window=window)
-        assert list(tiles) == want
-        for qpos in range(q_lo, q_hi + 1):
-            for kpos in range(skv):
-                seen = (not causal or kpos <= qpos) and \
-                    (window <= 0 or kpos > qpos - window)
-                if seen:
-                    assert kpos // bkv in tiles
+    kernel's grid-level test keeps for a query tile of each of the kernel's
+    heights, and every unmasked key of a real row lies in a visited
+    tile."""
+    for bq in tattn.BQ:
+        offset = skv - sq
+        for iq in range(-(-sq // bq)):
+            tiles = live_tiles(iq, sq, skv, causal=causal, window=window,
+                               bq=bq)
+            assert list(tiles) == _reference_live(iq, bq, sq, skv, causal,
+                                                  window)
+            q_lo = iq * bq + offset
+            for qpos in range(q_lo, min(q_lo + bq - 1, skv - 1) + 1):
+                for kpos in range(skv):
+                    seen = (not causal or kpos <= qpos) and \
+                        (window <= 0 or kpos > qpos - window)
+                    if seen:
+                        assert kpos // tattn.BKV in tiles
+
+
+#: (b, sq, skv, hq, hkv, d, causal, window): the LM path's two prefill
+#: shapes (a full wave and a lone request, OLMo-1B), then FLASH_CASES
+GEOMETRY_SHAPES = [(4, 512, 512, 16, 16, 128, True, 0),
+                   (1, 512, 512, 16, 16, 128, True, 0)] + [
+    (c["b"], c["sq"], c["skv"], c["hq"], c["hkv"], c["d"], True,
+     c["window"]) for c in FLASH_CASES]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_flash_geometry_covers_every_row_once(shape):
+    """Every (batch * head, query row) in exactly one CTA's query tiles,
+    each tile looping over the reference's live kv tiles; shared memory
+    within a Hopper CTA's."""
+    b, sq, skv, hq, hkv, d, causal, window = shape
+    g = tattn.flash_geometry(*shape)
+    assert g.bq in tattn.BQ and g.heads == b * hq
+    assert g.q_tiles == -(-sq // g.bq) and g.smem_bytes <= SMEM_OPTIN
+    seen = np.zeros((b * hq, sq), np.int32)
+    for cta in range(g.ctas):
+        bh, tiles = g.cta_tiles(cta)
+        assert 1 <= len(tiles) <= (2 if g.paired else 1)
+        for iq in tiles:
+            seen[bh, iq * g.bq:(iq + 1) * g.bq] += 1
+            assert list(live_tiles(iq, sq, skv, causal=causal, window=window,
+                                   bq=g.bq)) == _reference_live(
+                iq, g.bq, sq, skv, causal, window)
+    assert (seen == 1).all()
+    print(f"{shape}: {g.bq} rows per tile, paired {g.paired}, {g.ctas} "
+          f"CTAs, {g.ctas / tattn.SM_COUNT:.2f} waves, modelled "
+          f"{g.makespan_us:.1f} us")
+
+
+def test_flash_geometry_at_the_path_shapes():
+    """A full wave's prefill pairs query tiles so every CTA has the same
+    live kv tiles; a lone request's prefill keeps at least 128 CTAs."""
+    full = tattn.flash_geometry(4, 512, 512, 16, 16, 128, True, 0)
+    lone = tattn.flash_geometry(1, 512, 512, 16, 16, 128, True, 0)
+    assert lone.ctas >= 128
+    if full.paired:
+        counts = {sum(len(live_tiles(iq, 512, 512, causal=True, window=0,
+                                     bq=full.bq))
+                      for iq in full.cta_tiles(c)[1])
+                  for c in range(full.ctas)}
+        assert len(counts) == 1
+
+
+#: the most shared memory a Hopper CTA may opt into
+SMEM_OPTIN = 232448
+
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+def test_flash_shared_memory_fits_every_head_dim(d):
+    for bq in tattn.BQ:
+        assert tattn.smem_bytes(bq, d) <= SMEM_OPTIN
 
 
 def test_engine_attention_records_and_routes():
