@@ -3,7 +3,7 @@
 decode step of two checkouts on one card.
 
     python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
-                            [--parts conv,fc,attn,lm]
+                            [--parts conv,fc,attn,gemm,lm]
 
 ``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
 own (both name their package ``repro_torch``), in ``N`` pairs (10 by
@@ -25,10 +25,14 @@ first on its path and measures with this checkout's ``chip_smoke``:
 * ``attn``: ``flash_attention`` at the LM path's two prefill shapes, a
   full wave (b = 4) and a lone request (b = 1) of 512 tokens with OLMo-1B's
   heads, causal, ``ms`` with the card held busy;
+* ``gemm``: ``sa_conv_matmul`` at the four GEMM shapes of a full-wave
+  OLMo-1B prefill (m = 2048: q/k/v/o, gate/up with silu, down, lm_head;
+  fp32 weights and inputs, normal, scaled by k^-1/2), ``ms`` with the card
+  held busy;
 * ``lm``: a full-wave prefill and a decode step at b = 4 on the host
   clock, and their device busy time, by ``chip_smoke.lm_throughput``.
 
-``--parts`` picks which of the four run (all by default).
+``--parts`` picks which of the five run (all by default).
 
 Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
 seed.  Prints one JSON object per run, then for each number the medians
@@ -62,9 +66,10 @@ def run_tree(root: str, parts: set) -> dict:
     torch.set_grad_enabled(False)
     _build.build()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    params = init_cnn("alexnet", cs.SEED)
-    qparams = quantize_cnn_params(params)
     out = {}
+    if parts & {"conv", "fc"}:
+        params = init_cnn("alexnet", cs.SEED)
+        qparams = quantize_cnn_params(params)
     if "conv" in parts:
         out["sa_conv"] = conv_times(cs, params, qparams, gen)
         rep = cs.Report()
@@ -77,9 +82,12 @@ def run_tree(root: str, parts: set) -> dict:
         out["sa_fc"] = fc_times(cs, params, qparams, gen)
     if "attn" in parts:
         out["flash"] = attn_times(cs, gen)
+    if "gemm" in parts:
+        out["gemm"] = gemm_times(cs, gen)
     if "lm" in parts:
         from repro_torch.models import transformer as T
-        del params, qparams
+        if parts & {"conv", "fc"}:
+            del params, qparams
         cfg = cs.olmo_config()
         lm = T.init_params(cfg, cs.SEED, device="cuda")
         rep = cs.Report()
@@ -157,17 +165,37 @@ def attn_times(cs, gen) -> dict:
     return out
 
 
+def gemm_times(cs, gen) -> dict:
+    """Card ms of the SA-CONV GEMM at a full-wave OLMo-1B prefill's four
+    shapes (m = 2048, fp32)."""
+    import torch
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
+    cfg = cs.olmo_config()
+    m, d, ff = cs.LM_BATCH * cs.LM_PROMPT, cfg.d_model, cfg.d_ff
+    out = {}
+    for name, k, n, act in (("attn.q/k/v/o", d, d, "none"),
+                            ("mlp.gate/up", d, ff, "silu"),
+                            ("mlp.down", ff, d, "none"),
+                            ("lm_head", d, cfg.vocab_size, "none")):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        out[f"{name} {k}x{n} m={m}"] = dict(ms=cs.timed(
+            lambda: sa_conv_matmul(x, w, act=act)))
+        del x, w
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=str(ROOT))
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out")
-    ap.add_argument("--parts", default="conv,fc,attn,lm")
+    ap.add_argument("--parts", default="conv,fc,attn,gemm,lm")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    if not parts or parts - {"conv", "fc", "attn", "lm"}:
+    if not parts or parts - {"conv", "fc", "attn", "gemm", "lm"}:
         ap.error(f"--parts: {args.parts!r}")
     if args.child:
         print(json.dumps(run_tree(args.child, parts)))
@@ -213,7 +241,7 @@ def numbers(run: dict):
     for key in run.get("server", {}):
         out.append((f"server images/s {key}",
                     lambda r, key=key: r["server"][key], True))
-    for part in ("sa_conv", "sa_fc", "flash"):
+    for part in ("sa_conv", "sa_fc", "flash", "gemm"):
         for label, v in run.get(part, {}).items():
             out += [(f"{part} {label} {key}",
                      lambda r, part=part, label=label, key=key:

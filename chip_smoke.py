@@ -9,8 +9,8 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC, SA-CONV and flash instantiation
-   (SA-CONV and flash must not spill);
+   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM and flash
+   instantiation (SA-CONV, the GEMM and flash must not spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
    (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
@@ -24,15 +24,17 @@ Phases (any failure raises and exits non-zero):
    before each call (the wrapper's host work included) and as host time
    per enqueued call;
 6. the LM slice: the SA-CONV GEMM and flash-attention kernels against their
-   plain versions at full-width OLMo-1B shapes (flash: a full wave's and a
-   lone request's prefill, rows of the first equal to the second bitwise,
-   every head dim), SA-FC at the decode (b=4) and lone-prefill (m=512)
-   shapes, then
+   plain versions at full-width OLMo-1B shapes (the GEMM: rows of the
+   m = 2048 launch equal to m = 1 and m = 512 launches bitwise, operands off
+   16-byte alignment; flash: a full wave's and a lone request's prefill,
+   rows of the first equal to the second bitwise, every head dim), SA-FC at
+   the decode (b=4) and lone-prefill (m=512) shapes, then
    ``ServeEngine(olmo-1b, batch_size=4, max_seq=640)`` serves 9 requests of
    512 prompt tokens and 16 new tokens in fp32 (waves of 4, 4 and 1), with
    every matmul a schedule hit, every kernel of the path launched and no
    plain version called; logits against the ``"torch"`` backend and
-   incremental decode against a full forward; tokens/s; kernel times.
+   incremental decode against a full forward; tokens/s; kernel times, with
+   the card's SM clock and power sampled beside the GEMM's.
 
 The line before the last is the ``{"kernels": [...]}`` summary, the line
 before that the card's ``nvidia-smi`` name and power limit, and the last
@@ -201,6 +203,13 @@ def build(rep: Report) -> None:
             f"spill bytes {v['spill_bytes']}")
     if any(v["spill_bytes"] for v in conv.values()):
         raise AssertionError("ptxas: an SA-CONV instantiation spills")
+    gemm = gemm_ptxas(_build.build_log("sa_conv"))
+    rep.detail["ptxas_sa_conv_gemm"] = gemm
+    for inst, v in gemm.items():
+        log(f"  ptxas sa_conv_gemm_kernel<{inst}>: {v['registers']} "
+            f"registers, spill bytes {v['spill_bytes']}")
+    if any(v["spill_bytes"] for v in gemm.values()):
+        raise AssertionError("ptxas: an SA-CONV GEMM instantiation spills")
     attn = flash_ptxas(_build.build_log("attention"))
     rep.detail["ptxas_attention"] = attn
     for inst, v in attn.items():
@@ -250,6 +259,20 @@ def sa_conv_ptxas(text: str) -> dict:
     if len(out) != 11:
         raise AssertionError(f"ptxas: {len(out)} SA-CONV instantiations, "
                              "not 11")
+    return out
+
+
+def gemm_ptxas(text: str) -> dict:
+    """Registers and spill bytes of each SA-CONV GEMM instantiation (weight
+    type; every one runs the 128 x 128 tile) from ptxas's -v output."""
+    from repro_torch.kernels.sa_conv import BM, BN
+    kinds = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}
+    out = {f"{kinds[m.group(1)]}, {BM}x{BN}": dict(
+        registers=regs, spill_bytes=spills) for m, regs, spills in
+        ptxas_kernels(text, r"sa_conv_gemm_kernelI(f|a|13__nv_bfloat16)E")}
+    if len(out) != 3:
+        raise AssertionError(f"ptxas: {len(out)} SA-CONV GEMM "
+                             "instantiations, not 3")
     return out
 
 
@@ -655,6 +678,32 @@ def host_costs(fn) -> dict:
     return dict(host_ms=timed(fn, host=True), enqueue_us=enqueue_us(fn))
 
 
+def smi_sample(fn, seconds: float = 1.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W), sampled by nvidia-smi
+    every 100 ms while ``fn`` runs back to back for about ``seconds``."""
+    import torch
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text, _ = smi.communicate()
+    samples = [[float(v) for v in line.split(",")]
+               for line in text.splitlines() if line.count(",") == 1]
+    if not samples:
+        raise AssertionError("nvidia-smi gave no clock samples")
+    clocks = [c for c, _ in samples]
+    return dict(samples=len(samples), sm_clock_mhz_min=min(clocks),
+                sm_clock_mhz_median=statistics.median(clocks),
+                power_w_max=max(p for _, p in samples))
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -833,11 +882,14 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     shapes = {"gemm": gemm_shapes(cfg, params, gen)}
+    outs = {}
     for label, x, w, act, _ in shapes["gemm"]:
-        e = allclose(f"sa_conv_matmul {label}", sa_conv_matmul(x, w, act=act),
+        outs[label] = sa_conv_matmul(x, w, act=act)
+        e = allclose(f"sa_conv_matmul {label}", outs[label],
                      sa_conv_matmul_plain(x, w, act=act), TOL_FC)
         rep.note_err("sa_conv_matmul", e)
         log(f"  sa_conv_matmul {label} m={x.shape[0]}: max|d| {e:.3g}")
+    check_gemm_rows(shapes["gemm"], outs)
     x, w = shapes["gemm"][1][1], shapes["gemm"][1][2]
     qw = quantize(w)
     bias = torch.randn(w.shape[1], generator=gen, device=DEVICE)
@@ -854,6 +906,7 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
     rep.note_err("sa_conv_matmul", max(e8, er))
     log(f"  sa_conv_matmul int8 gate + bias + silu: max|d| {e8:.3g}; "
         f"ragged 1000x1001x2999 + gelu: {er:.3g}")
+    check_gemm_unaligned(rep, shapes["gemm"][0][2], gen)
 
     b, s, h, hd = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd
     q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=DEVICE)
@@ -896,6 +949,61 @@ def check_lm_kernels(rep: Report, cfg, params) -> dict:
     check_lm_fc(rep, shapes["gemm"])
     torch.cuda.synchronize()
     return shapes
+
+
+def check_gemm_rows(gemms: list, outs: dict) -> None:
+    """B4's sums do not depend on m: rows 0 and m - 1 of the m = 2048
+    launch equal m = 1 launches of those rows at q/k/v/o and the lm_head,
+    and the first 512 rows of gate/up equal an m = 512 launch, bitwise.
+    The kernel has one tiling, so no other tiling to compare."""
+    from repro_torch.kernels.sa_conv import BM, BN, sa_conv_matmul
+    for label, x, w, act, _ in (gemms[0], gemms[3]):
+        m = x.shape[0]
+        for r in (0, m - 1):
+            exact(f"sa_conv_matmul {label} row {r} of m={m} == m=1",
+                  outs[label][r:r + 1],
+                  sa_conv_matmul(x[r:r + 1].contiguous(), w, act=act))
+    label, x, w, act, _ = gemms[1]
+    exact(f"sa_conv_matmul {label} rows :{LM_PROMPT} of m={x.shape[0]} == "
+          f"m={LM_PROMPT}", outs[label][:LM_PROMPT],
+          sa_conv_matmul(x[:LM_PROMPT].contiguous(), w, act=act))
+    m = x.shape[0]
+    log(f"  sa_conv_matmul: rows 0 and {m - 1} of m={m} == m=1 (q/k/v/o, "
+        f"lm_head), rows :{LM_PROMPT} of gate/up == m={LM_PROMPT}, bitwise; "
+        f"one tiling ({BM} x {BN}), so no other to compare")
+
+
+def check_gemm_unaligned(rep: Report, w, gen) -> None:
+    """B4 on x and w taken one element into their buffers (narrower w
+    copies), fp32 and int8, against its plain version and, bitwise, the
+    aligned launch."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.sa_conv import (copy_bytes, sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    k, n = w.shape
+    x = torch.randn((300, k), generator=gen, device=DEVICE)
+    qt = quantize(w)
+    bias = torch.randn(n, generator=gen, device=DEVICE)
+    xo = torch.empty(x.numel() + 1, device=DEVICE)[1:].view(x.shape)
+    xo.copy_(x)
+    errs = []
+    for wt, ww, scale in (("fp32", w, None), ("int8", qt.q, qt.scale)):
+        wo = torch.empty(ww.numel() + 1, dtype=ww.dtype,
+                         device=DEVICE)[1:].view(ww.shape)
+        wo.copy_(ww)
+        got = sa_conv_matmul(xo, wo, bias, act="relu", w_scale=scale)
+        e = allclose(f"sa_conv_matmul {wt} off 16-byte alignment", got,
+                     sa_conv_matmul_plain(x, ww, bias, act="relu",
+                                          w_scale=scale), TOL_FC)
+        rep.note_err("sa_conv_matmul", e)
+        exact(f"sa_conv_matmul {wt} off alignment == aligned", got,
+              sa_conv_matmul(x, ww, bias, act="relu", w_scale=scale))
+        cb = copy_bytes(n * ww.element_size(), wo.data_ptr())
+        errs.append(f"{wt} max|d| {e:.3g} ("
+                    f"{f'{cb}-byte w copies' if cb else 'w element loads'})")
+    log(f"  sa_conv_matmul x and w one element into their buffers, "
+        f"300x{k}x{n}: {'; '.join(errs)}; == aligned, bitwise")
 
 
 def check_lm_fc(rep: Report, gemms: list) -> None:
@@ -1161,28 +1269,35 @@ def measure_lm(rep: Report, shapes: dict) -> None:
     from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
 
     def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
-            phase="prefill", host=None):
+            phase="prefill", host=None, smi=None):
         b_ms, by = bound(flops, nb)
         rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=by, flops=flops,
                              bytes=nb, path="ServeEngine.run", phase=phase,
-                             per_pass=per_pass, **(host or {})))
+                             per_pass=per_pass, **(host or {}),
+                             **({"smi": smi} if smi else {})))
         log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
             f"({by}, {flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:9.4f}"
             f"  library {lib_ms:.4f}{host_log(host)}  x{per_pass} per "
             f"{phase}")
+        if smi:
+            log(f"    back to back for 1 s: SM clock median "
+                f"{smi['sm_clock_mhz_median']:.0f} MHz (min "
+                f"{smi['sm_clock_mhz_min']:.0f}), power up to "
+                f"{smi['power_w_max']:.1f} W ({smi['samples']} nvidia-smi "
+                "samples)")
 
     for label, x, w, act, per_pass in shapes["gemm"]:
         m, k = x.shape
         n = w.shape[1]
         out = sa_conv_matmul(x, w, act=act)
-        row("sa_conv_matmul", f"{label} m={m}",
-            timed(lambda: sa_conv_matmul(x, w, act=act)),
+        kern = functools.partial(sa_conv_matmul, x, w, act=act)
+        row("sa_conv_matmul", f"{label} m={m}", timed(kern),
             timed(lambda: sa_conv_matmul_plain(x, w, act=act), runs=3,
                   warmup=1),
             timed(lambda: ref.apply_act(torch.mm(x, w), act)),
-            2 * m * n * k, nbytes(x, w, out), per_pass)
+            2 * m * n * k, nbytes(x, w, out), per_pass, smi=smi_sample(kern))
     # flash at a full wave's prefill and a lone request's, one launch per
     # layer each
     n_layers = olmo_config().n_layers

@@ -44,7 +44,7 @@ SIGNATURES = {
     "pool_act": ("pool_act_launch",
                  (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sa_conv": ("sa_conv_launch",
-                (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P)),
+                (_P, _P, _I, _P, _P, _P) + (_I,) * 6 + (_P,)),
     "attention": ("flash_attention_launch",
                   (_P,) * 4 + (_I,) * 6 + (_L,) * 9
                   + (_I, _I, _F, _F, _I, _I, _P)),

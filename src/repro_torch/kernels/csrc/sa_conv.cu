@@ -8,70 +8,238 @@
 // What bounds it on this card: the fp32 FMA rate.  At m = 2048 every weight
 // is reused 2048 times, so the operations (2*m*n*k over 67 TFLOP/s on the
 // CUDA cores; no TF32: fp32 means fp32) take about 10x longer than moving
-// the operands once.  The kernel has to keep the FMA pipes fed from
-// registers, not from memory.
+// the operands once.  An SM issues one warp instruction per scheduler per
+// cycle and retires one warp FFMA per scheduler per cycle, so every other
+// instruction on the k loop (shared-memory loads, copies, addresses,
+// barriers) takes the place of an FMA.
 //
-// What the design does about it:
-//  * A CTA of 256 threads owns a 128 x 128 output tile; each thread holds
-//    an 8 x 8 register tile (two 4-row by two 4-column groups 64 apart), so
-//    every k step does 64 FMAs for four 16-byte shared-memory loads.
-//  * K advances in chunks of 8.  The next chunk of x and w is loaded into
-//    registers while the current one is multiplied out of shared memory,
-//    and stored into the other of two shared buffers: one barrier per
-//    chunk.  x is stored transposed (k-major, rows padded by 4 floats) so
-//    a thread reads four rows with one 16-byte load and the transposing
-//    stores hit 32 different banks.
-//  * int8 and bf16 weights are widened to fp32 as they are staged, so HBM
-//    moves 1 or 2 bytes per weight.
-//  * Ragged m, n and k are masked at the loads (zeros) and the stores: no
-//    padded copies.  The epilogue applies scale, then bias, then the
-//    activation once per output, in fp32, in the plain version's order.
-//  * The k sum of each output runs in increasing k in one thread, so the
-//    result does not depend on m or on the tile an output falls in.
+// What held the first design back, at 30.3-33.1 TFLOP/s on OLMo-1B's
+// prefill shapes (1.51-1.72x torch.mm), and what this one does:
+//  1. Spills: 404 bytes per instantiation on the k loop, under the 128
+//     registers of two CTAs per SM, from 64 sums, 16 fragment values and 8
+//     registers of staged loads.  The tile stays 128 x 128 outputs per CTA
+//     of 256 threads, 8 x 8 a thread, two CTAs per SM, but no register
+//     holds a load in flight any more (item 2), so ptxas fits the sums, two
+//     k steps of fragments and the addresses in 128 registers, no spill.
+//     The fragments of step k + 1 are loaded while step k's 64 FMAs run.
+//     Measured against one CTA per SM with 8 x 16 a thread (up to 255
+//     registers): two CTAs overlap one CTA's barrier and copies with the
+//     other's FMAs, and ran 1-10 % faster at every path shape.
+//  2. Loads staged through registers, 4 bytes at a time.  Now a ring of
+//     STAGES stages in dynamic shared memory is filled by cp.async: w's
+//     rows (n contiguous) in 16-byte pieces straight into a k-major tile (8
+//     or 4 bytes, or element loads, where a row's bytes or its base allow no
+//     more), x in 4-byte copies transposed into a k-major tile padded to
+//     BM + 4 floats (a warp's copies cover two rows of 16 k; its fragment
+//     loads are conflict-free).  Interior tiles and stages copy without
+//     masks: 8 x copies and 2 w copies a thread per stage, ~85 instructions
+//     for 1024 FMAs.  int8 and bf16 weights cross memory in 1 or 2 bytes and
+//     are widened as fragments are loaded.
+//  3. A short chunk: 8 k between barriers, one chunk in flight.  Now 16 k
+//     per stage and STAGES - 1 = 3 stages in flight (32 k spilled at 128
+//     registers; 3 stages ran slower).
+//  4. A grid with n fastest.  Now m is fastest: the row tiles that share a
+//     w panel run together (n fastest ran 6-10 % slower here).  At m = 2048
+//     that is 256 CTAs (0.97 of the 264 slots) for q/k/v/o and down, 1024
+//     for gate/up and 6288 for the lm_head.
+//
+// One summation order per output: every output's k sum runs in one thread,
+// in increasing k, one fmaf per term, from +0, with no split over k.  m and
+// the grid change which thread computes an output, never its terms or
+// their order, so row r of any launch equals row r of a launch over fewer
+// rows, bitwise.  Ragged m, n and k are zero-filled by the copies (k's
+// padding adds +0 * +0 after every real term) and masked at the stores.
+// The epilogue applies scale, then bias, then the activation once per
+// output, in fp32, in the plain version's order.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
 
+// The tiling (kernels/sa_conv.py holds the same constants; the launch
+// refuses another BN).  8 warps, 2 along m by 4 along n, each 64 x 32; a
+// thread owns rows ty..ty+3 and ty+32..ty+35 by columns tx..tx+3 and
+// tx+16..tx+19 of its CTA's tile.
 constexpr int BM = 128;              // rows per CTA
 constexpr int BN = 128;              // columns per CTA
-constexpr int BK = 8;                // k per staged chunk
 constexpr int THREADS = 256;
-constexpr int AP = BM + 4;           // padded row of the transposed x chunk
-constexpr int LOADS = BM * BK / THREADS;   // x (and w) elements per thread per chunk
+constexpr int PER_SM = 2;            // CTAs per SM: 128 registers a thread
+constexpr int BK = 16;               // k per ring stage
+constexpr int STAGES = 4;            // ring depth: STAGES - 1 stages in flight
+constexpr int AP = BM + 4;           // padded k row of the transposed x tile (floats)
+constexpr int XPT = BM * BK / THREADS;  // x copies per thread per stage
 
 template <typename WT>
-__global__ void __launch_bounds__(THREADS, 2)
-sa_conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               float* __restrict__ out, int m, int n, int k, int act) {
-  __shared__ __align__(16) float as[2][BK][AP];
-  __shared__ __align__(16) float bs[2][BK][BN];
+struct Ring {
+  static constexpr int X_BYTES = BK * AP * 4;
+  static constexpr int W_BYTES = BK * BN * static_cast<int>(sizeof(WT));
+  static constexpr int STAGE_BYTES = X_BYTES + W_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES;
+  static_assert(STAGE_BYTES % 16 == 0, "stages start 16-byte aligned");
+};
+
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(V),
+                 "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// The thread's 8 staged weights of one k row (columns tx..tx+3 and
+// tx+16..tx+19), widened to fp32.
+__device__ __forceinline__ void load_b(const float* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float4 q = *reinterpret_cast<const float4*>(p + 16 * j);
+    v[4 * j] = q.x; v[4 * j + 1] = q.y; v[4 * j + 2] = q.z; v[4 * j + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_b(const int8_t* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const char4 q = *reinterpret_cast<const char4*>(p + 16 * j);
+    v[4 * j] = q.x; v[4 * j + 1] = q.y; v[4 * j + 2] = q.z; v[4 * j + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_b(const __nv_bfloat16* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p + 16 * j);
+    v[4 * j] = __uint_as_float(q.x << 16); v[4 * j + 1] = __uint_as_float(q.x & 0xffff0000u);
+    v[4 * j + 2] = __uint_as_float(q.y << 16); v[4 * j + 3] = __uint_as_float(q.y & 0xffff0000u);
+  }
+}
+
+// BK rows x ROW_BYTES bytes of w (rows `stride` elements apart) into the
+// stage's k-major w tile, V bytes per cp.async, consecutive threads on
+// consecutive pieces of a row.  MASKED: rows >= `rows` and elements >=
+// `cols` are zero-filled (a V-byte piece is wholly in or out: V divides a
+// row's bytes); unmasked for a tile inside both.
+template <int V, int ROW_BYTES, bool MASKED = true, typename T>
+__device__ __forceinline__ void copy_w(unsigned char* dst, const T* src, int stride, int rows,
+                                       int cols, const T* any, int t) {
+  constexpr int PER_ROW = ROW_BYTES / V;                  // pieces per row
+  constexpr int EL = V / static_cast<int>(sizeof(T));
+  static_assert(THREADS % PER_ROW == 0, "a thread keeps its column");
+  constexpr int RSTEP = THREADS / PER_ROW;                // rows between a thread's pieces
+  constexpr int ITER = (BK + RSTEP - 1) / RSTEP;
+  const int cv = t % PER_ROW;
+  int r = t / PER_ROW;
+  if (BK % RSTEP != 0 && r >= BK) return;                 // (only when ITER == 1)
+  const bool col_ok = cv * EL < cols;
+  const T* s = src + (r * stride + cv * EL);
+  unsigned char* d = dst + r * ROW_BYTES + cv * V;
+#pragma unroll
+  for (int i = 0; i < ITER; ++i) {
+    const bool ok = !MASKED || (col_ok && r < rows);
+    cp_async<V>(d, ok ? s : any, ok ? V : 0);
+    r += RSTEP;
+    s += RSTEP * stride;
+    d += RSTEP * ROW_BYTES;
+  }
+}
+
+// The epilogue of a thread's 8 x 8 sums (rows row0..row0+3 and row0+32..
+// row0+35, columns col0..col0+3 and col0+16..col0+19): scale, bias, then
+// the activation.
+__device__ __forceinline__ void store_tile(const float (&acc)[8][8], const float* scale,
+                                           const float* bias, float* out, int m, int n, int row0,
+                                           int col0, int act) {
+  const bool vec = (n % 4) == 0;     // rows start 16-byte aligned
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + (i < 4 ? i : 28 + i);
+    if (row >= m) continue;
+    float* orow = out + static_cast<size_t>(row) * n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = col0 + 16 * j;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = c + e < n ? apply_act(scale_bias(acc[i][4 * j + e], scale, bias, c + e), act) : 0.f;
+      if (vec && c + 3 < n) {
+        *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < n) orow[c + e] = v[e];
+      }
+    }
+  }
+}
+
+// grid: one CTA per (row tile, column tile), row tile fastest.  wvec: bytes
+// per copy of a w piece (16, 8 or 4; 0: element loads).
+template <typename WT>
+__global__ void __launch_bounds__(THREADS, PER_SM)
+sa_conv_gemm_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    float* __restrict__ out, int m, int n, int k, int row_tiles, int wvec,
+                    int act) {
+  using C = Ring<WT>;
+  constexpr int ROW_BYTES = BN * static_cast<int>(sizeof(WT));
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int t = threadIdx.x;
-  const int tx = t % 16;             // column group
-  const int ty = t / 16;             // row group
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const int nchunks = (k + BK - 1) / BK;
+  const int warp = t / 32, lane = t % 32;
+  const int ty = (warp / 4) * 64 + (lane / 4) * 4;
+  const int tx = (warp % 4) * 32 + (lane % 4) * 4;
+  const int row0 = (blockIdx.x % row_tiles) * BM;
+  const int col0 = (blockIdx.x / row_tiles) * BN;
+  const int nst = (k + BK - 1) / BK;
 
-  float xa[LOADS], wb[LOADS];
-  auto load = [&](int k0) {
+  // x: the thread copies element (xr + (THREADS / BK) i, xk) of each stage
+  const int xk = t % BK, xr = t / BK;
+  const int xrows = m - row0;
+  const float* xsrc = x + (static_cast<size_t>(row0 + xr) * k + xk);
+  const size_t xstep = static_cast<size_t>(THREADS / BK) * k;  // between a thread's x rows
+  // Interior tiles and stages take their copies unmasked.
+  const bool full_m = row0 + BM <= m, full_n = col0 + BN <= n;
+
+  // stage s of x and w into ring slot `slot`
+  auto load = [&](int s, int slot) {
+    unsigned char* base = smem + slot * C::STAGE_BYTES;
+    float* xs = reinterpret_cast<float*>(base) + xk * AP + xr;
+    const int k0 = s * BK;
+    const bool full_k = k0 + BK <= k;
+    const float* xp = xsrc + k0;
+    if (full_m && full_k) {
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int e = t + THREADS * i;
-      const int r = e / BK, kk = e % BK;               // x: k fastest (coalesced rows)
-      const int row = row0 + r, kx = k0 + kk;
-      xa[i] = (row < m && kx < k) ? x[static_cast<size_t>(row) * k + kx] : 0.f;
-      const int kw = k0 + e / BN, c = col0 + e % BN;   // w: columns fastest
-      wb[i] = (kw < k && c < n) ? to_f32(w[static_cast<size_t>(kw) * n + c]) : 0.f;
+      for (int i = 0; i < XPT; ++i) cp_async<4>(xs + (THREADS / BK) * i, xp + i * xstep, 4);
+    } else {
+      const bool k_ok = k0 + xk < k;
+#pragma unroll
+      for (int i = 0; i < XPT; ++i) {
+        const bool ok = k_ok && xr + (THREADS / BK) * i < xrows;
+        cp_async<4>(xs + (THREADS / BK) * i, ok ? xp + i * xstep : x, ok ? 4 : 0);
+      }
     }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int e = t + THREADS * i;
-      as[buf][e % BK][e / BK] = xa[i];
-      bs[buf][e / BN][e % BN] = wb[i];
+    unsigned char* ws = base + C::X_BYTES;
+    const WT* wt = w + (static_cast<size_t>(k0) * n + col0);
+    if (wvec == 16 && full_n && full_k)
+      copy_w<16, ROW_BYTES, false>(ws, wt, n, k - k0, n - col0, w, t);
+    else if (wvec == 16)
+      copy_w<16, ROW_BYTES>(ws, wt, n, k - k0, n - col0, w, t);
+    else if (wvec == 8)
+      copy_w<8, ROW_BYTES>(ws, wt, n, k - k0, n - col0, w, t);
+    else if (wvec == 4)
+      copy_w<4, ROW_BYTES>(ws, wt, n, k - k0, n - col0, w, t);
+    else {
+      WT* wd = reinterpret_cast<WT*>(ws);
+      for (int e = t; e < BK * BN; e += THREADS) {
+        const int kk = k0 + e / BN, col = col0 + e % BN;
+        wd[e] = (kk < k && col < n) ? w[static_cast<size_t>(kk) * n + col] : WT{};
+      }
     }
   };
 
@@ -81,78 +249,102 @@ sa_conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int buf = ch & 1;
-    const bool more = ch + 1 < nchunks;
-    if (more) load((ch + 1) * BK);
+  float a[2][8], b[2][8];
+  // the fragments of k step kk of a stage: x rows ty.. and ty+32.., w columns
+  auto frag = [&](const float* xs, const WT* ws, int kk, float* av, float* bv) {
+    const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * AP);
+    const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * AP + 32);
+    av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+    av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+    load_b(ws + kk * BN, bv);
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                 // stage s landed; slot (s - 1) % STAGES is free
+    const int nx = s + STAGES - 1;
+    if (nx < nst) load(nx, nx % STAGES);
+    cp_async_commit();
+
+    const unsigned char* base = smem + (s % STAGES) * C::STAGE_BYTES;
+    const float* xs = reinterpret_cast<const float*>(base) + ty;
+    const WT* ws = reinterpret_cast<const WT*>(base + C::X_BYTES) + tx;
+    frag(xs, ws, 0, a[0], b[0]);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const int cur = kk & 1;
+      if (kk + 1 < BK) frag(xs, ws, kk + 1, a[cur ^ 1], b[cur ^ 1]);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[cur][i], b[cur][j], acc[i][j]);
     }
-    if (more) store(buf ^ 1);        // buf ^ 1 was last read before the previous barrier
-    __syncthreads();
   }
 
-  const bool vec = (n % 4) == 0;     // rows start 16-byte aligned
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= m) continue;
-    float* orow = out + static_cast<size_t>(row) * n;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = col0 + h * 64 + tx * 4;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = c + j < n ? apply_act(scale_bias(acc[i][h * 4 + j], scale, bias, c + j), act) : 0.f;
-      if (vec && c + 3 < n) {
-        *reinterpret_cast<float4*>(orow + c) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < n) orow[c + j] = v[j];
-      }
-    }
-  }
+  store_tile(acc, scale, bias, out, m, n, row0 + ty, col0 + tx, act);
 }
 
+struct Args {
+  const float *x, *scale, *bias;
+  const void* w;
+  float* out;
+  int m, n, k, wvec, act;
+  cudaStream_t stream;
+};
+
 template <typename WT>
-cudaError_t launch(const float* x, const WT* w, const float* scale, const float* bias, float* out,
-                   int m, int n, int k, int act, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  sa_conv_kernel<WT><<<grid, THREADS, 0, stream>>>(x, w, scale, bias, out, m, n, k, act);
+cudaError_t launch(const Args& a) {
+  auto kern = sa_conv_gemm_kernel<WT>;
+  // The shared-memory opt-in is a property of the device's context: set it
+  // once per device (bit d of `opted`), not on every launch.
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if ((opted.load(std::memory_order_acquire) & bit) == 0 || bit == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<WT>::SMEM);
+    if (err != cudaSuccess) return err;
+    opted.fetch_or(bit, std::memory_order_release);
+  }
+  const int row_tiles = (a.m + BM - 1) / BM;
+  const long long ctas = static_cast<long long>(row_tiles) * ((a.n + BN - 1) / BN);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(ctas), THREADS, Ring<WT>::SMEM, a.stream>>>(
+      a.x, static_cast<const WT*>(a.w), a.scale, a.bias, a.out, a.m, a.n, a.k, row_tiles, a.wvec,
+      a.act);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// w_kind: 0 fp32, 1 int8, 2 bf16.  scale and bias may be null.  Returns
-// cudaGetLastError() after the launch.
+// w_kind: 0 fp32, 1 int8, 2 bf16.  bn: the caller's columns per CTA, refused
+// unless it is BN.  wvec: bytes per w copy (16, 8 or 4; 0: element loads),
+// refused unless it divides both w's address and its rows' bytes.  scale
+// and bias may be null.  Returns cudaGetLastError() after the launch.
 extern "C" int sa_conv_launch(const void* x, const void* w, int w_kind, const void* scale,
-                              const void* bias, void* out, int m, int k, int n, int act,
-                              void* stream) {
-  const auto* xf = static_cast<const float*>(x);
-  const auto* sf = static_cast<const float*>(scale);
-  const auto* bf = static_cast<const float*>(bias);
-  auto* of = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
+                              const void* bias, void* out, int m, int k, int n, int bn, int wvec,
+                              int act, void* stream) {
+  static constexpr int ELEM[] = {4, 1, 2};
+  if (w_kind < 0 || w_kind > 2 || bn != BN || m < 0 || n < 0 || k < 0)
+    return cudaErrorInvalidValue;
+  const long long align =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(w)) | (static_cast<long long>(n) * ELEM[w_kind]);
+  if (!(wvec == 0 || wvec == 4 || wvec == 8 || wvec == 16) || (wvec != 0 && align % wvec != 0) ||
+      reinterpret_cast<uintptr_t>(x) % 4 != 0)
+    return cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(scale),
+               static_cast<const float*>(bias), w, static_cast<float*>(out), m, n, k, wvec, act,
+               static_cast<cudaStream_t>(stream)};
   switch (w_kind) {
-    case 0: return launch(xf, static_cast<const float*>(w), sf, bf, of, m, n, k, act, st);
-    case 1: return launch(xf, static_cast<const int8_t*>(w), sf, bf, of, m, n, k, act, st);
-    case 2: return launch(xf, static_cast<const __nv_bfloat16*>(w), sf, bf, of, m, n, k, act, st);
+    case 0: return launch<float>(a);
+    case 1: return launch<int8_t>(a);
+    case 2: return launch<__nv_bfloat16>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,6 +19,7 @@ from repro_torch.kernels import attention as tattn
 from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention,
                                            flash_plain)
 from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
 from repro_torch.kernels.sa_conv_implicit import (conv_geometry, conv_tiles,
@@ -360,6 +361,55 @@ def test_sa_conv_gemm_kernel(cuda, m, k, n, wdtype, act):
     got = sa_conv_matmul(x, w, bias, act=act, w_scale=scale)
     want = sa_conv_matmul_plain(x, w, bias, act=act, w_scale=scale)
     torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("m", [1, 3, 130, 257, 2048])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8"])
+def test_sa_conv_gemm_every_row_equals_its_m1_result(cuda, m, wdtype):
+    """Bitwise: an output's k sum runs in one thread in increasing k,
+    whatever m and the tiling."""
+    k, n = 700, 520
+    w, scale, bias = _fc_operands(cuda, k, n, wdtype)
+    x = _t(0, (m, k), cuda)
+    got = sa_conv_matmul(x, w, bias, act="silu", w_scale=scale)
+    for i in range(m):
+        assert torch.equal(got[i:i + 1], sa_conv_matmul(
+            x[i:i + 1].contiguous(), w, bias, act="silu", w_scale=scale)), i
+
+
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_conv_gemm_operands_off_16_byte_alignment(cuda, wdtype):
+    """x and w as views one element into their buffers take narrower w
+    copies (4 bytes, or element loads for int8 and bf16): same bits,
+    within the plain version's tolerance."""
+    m, k, n = 130, 300, 260
+    w, scale, bias = _fc_operands(cuda, k, n, wdtype)
+    x = _t(0, (m, k), cuda)
+    xo = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+    wo = torch.empty(k * n + 1, dtype=w.dtype, device=cuda)[1:].view(k, n)
+    xo.copy_(x)
+    wo.copy_(w)
+    assert tgemm.copy_bytes(n * w.element_size(), wo.data_ptr()) < 16
+    got = sa_conv_matmul(xo, wo, bias, act="relu", w_scale=scale)
+    assert torch.equal(got, sa_conv_matmul(x, w, bias, act="relu",
+                                           w_scale=scale))
+    torch.testing.assert_close(got, sa_conv_matmul_plain(
+        x, w, bias, act="relu", w_scale=scale), rtol=3e-4, atol=3e-4)
+
+
+#: OLMo-1B's prefill GEMMs of a full wave (m = 4 x 512): (k, n, act)
+OLMO_GEMMS = [(2048, 2048, "none"), (2048, 8192, "silu"),
+              (8192, 2048, "none"), (2048, 50304, "none")]
+
+
+@pytest.mark.parametrize("k,n,act", OLMO_GEMMS)
+def test_sa_conv_gemm_at_the_path_shapes(cuda, k, n, act):
+    x, w = _t(0, (2048, k), cuda), _t(1, (k, n), cuda, k ** -0.5)
+    before = sa_conv_matmul.launches
+    got = sa_conv_matmul(x, w, act=act)
+    assert sa_conv_matmul.launches == before + 1
+    torch.testing.assert_close(got, sa_conv_matmul_plain(x, w, act=act),
+                               rtol=3e-4, atol=3e-4)
 
 
 @pytest.mark.parametrize("case", [

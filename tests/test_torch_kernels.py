@@ -444,6 +444,108 @@ def test_sa_conv_matmul_int8_matches_reference(m, n, k, act):
     assert torch.equal(got, plain)
 
 
+def _gemm_tile_cover() -> np.ndarray:
+    """How many threads of a CTA own each output of its BM x BN tile."""
+    cover = np.zeros((tgemm.BM, tgemm.BN), np.int32)
+    for t in range(tgemm.THREADS):
+        rows, cols = tgemm.GemmGeometry.thread_outputs(t)
+        cover[np.ix_(rows, cols)] += 1
+    return cover
+
+
+@settings(max_examples=60, deadline=None)
+@given(m=st.integers(1, 700), n=st.integers(1, 900), k=st.integers(0, 3000),
+       w_kind=st.sampled_from([0, 1, 2]))
+def test_gemm_geometry_covers_every_output_once(m, n, k, w_kind):
+    """Every output of a ragged (m, n) in exactly one CTA and one thread;
+    the CTAs' origins are the distinct tiles, row tiles fastest."""
+    g = tgemm.gemm_geometry(m, n, k, w_kind)
+    assert (_gemm_tile_cover() == 1).all()
+    seen = np.zeros((g.row_tiles * tgemm.BM, g.col_tiles * tgemm.BN),
+                    np.int32)
+    for cta in range(g.ctas):
+        r0, c0 = g.cta_origin(cta)
+        seen[r0:r0 + tgemm.BM, c0:c0 + tgemm.BN] += 1
+        if cta + 1 < g.ctas and (cta + 1) % g.row_tiles:
+            assert g.cta_origin(cta + 1) == (r0 + tgemm.BM, c0)
+    assert (seen == 1).all()
+    assert seen.shape[0] - tgemm.BM < m <= seen.shape[0]
+    assert seen.shape[1] - tgemm.BN < n <= seen.shape[1]
+
+
+#: (m, k, n) of a full-wave OLMo-1B prefill's GEMMs: q/k/v/o, gate/up,
+#: down, lm_head
+OLMO_GEMMS = [(2048, 2048, 2048), (2048, 2048, 8192), (2048, 8192, 2048),
+              (2048, 2048, 50304)]
+
+
+@pytest.mark.parametrize("shape,ctas,waves", [
+    (OLMO_GEMMS[0], 256, 0.97), (OLMO_GEMMS[1], 1024, 3.88),
+    (OLMO_GEMMS[2], 256, 0.97), (OLMO_GEMMS[3], 6288, 23.82)])
+def test_gemm_geometry_at_the_path_shapes(shape, ctas, waves):
+    """128 x 128 tiles at two CTAs per SM: 256 CTAs on 264 slots for
+    q/k/v/o and down, 16-byte w copies, 4-byte x copies."""
+    m, k, n = shape
+    g = tgemm.gemm_geometry(m, n, k, 0)
+    assert (g.row_tiles, g.ctas) == (16, ctas)
+    assert round(g.waves, 2) == waves
+    assert (g.x_copy, g.w_copy) == (4, 16)
+    print(f"{shape}: {g.ctas} CTAs, {g.waves:.2f} waves, "
+          f"{g.smem_bytes} B shared memory per CTA")
+
+
+#: the most shared memory a Hopper CTA may opt into, and an SM holds
+SMEM_OPTIN, SMEM_PER_SM = 232448, 233472
+
+
+@pytest.mark.parametrize("w_kind", [0, 1, 2])
+def test_gemm_shared_memory_fits_every_weight_type(w_kind):
+    g = tgemm.gemm_geometry(2048, 2048, 2048, w_kind)
+    assert g.smem_bytes <= SMEM_OPTIN
+    assert tgemm.PER_SM * (g.smem_bytes + 1024) <= SMEM_PER_SM
+    assert g.smem_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("n,w_kind,w_copy", [
+    (2999, 0, 4), (2998, 0, 8), (1000, 0, 16), (1001, 1, 0), (1002, 1, 0),
+    (1004, 1, 4), (1000, 1, 8), (1008, 1, 16), (1001, 2, 0), (1002, 2, 4),
+    (1004, 2, 8), (1000, 2, 16)])
+def test_gemm_copy_widths_fall_back_for_unaligned_rows(n, w_kind, w_copy):
+    """w's copies narrow to what its row bytes allow (element loads where
+    not 4); x goes in 4-byte copies whatever k (1001 included)."""
+    for k in (1001, 2048):
+        g = tgemm.gemm_geometry(1000, n, k, w_kind)
+        assert (g.x_copy, g.w_copy) == (4, w_copy)
+    # a base one element into its buffer: 4-byte copies (fp32) or
+    # element loads (int8, bf16)
+    item = tgemm.W_BYTES[w_kind]
+    assert tgemm.copy_bytes(n * item, 256 + item) == (4 if item == 4 else 0)
+
+
+@pytest.mark.parametrize("k", [0, 1, 15, 16, 1001, 2048])
+def test_gemm_sum_order_depends_on_k_alone(k):
+    """Every output adds x[r, i] * w[i, c] for i = 0, 1, ..., k - 1 in
+    order, then the zero-filled terms of the last stage: the same sequence
+    at any m, n, weight type, CTA and thread."""
+    want = list(range(k)) + [-1] * (-k % tgemm.BK)
+    for m, n, w_kind in ((1, 1, 0), (2048, 50304, 0), (130, 257, 1),
+                         (3, 8192, 2)):
+        assert tgemm.gemm_geometry(m, n, k, w_kind).k_order(k) == want
+
+
+def test_gemm_constants_match_the_cuda_source():
+    """kernels/sa_conv.py mirrors csrc/sa_conv.cu's tiling and ring, and the
+    ctypes signature has the launch's 13 arguments."""
+    src = (_build.CSRC / "sa_conv.cu").read_text()
+    for name, value in (("BM", tgemm.BM), ("BN", tgemm.BN),
+                        ("THREADS", tgemm.THREADS), ("PER_SM", tgemm.PER_SM),
+                        ("BK", tgemm.BK), ("STAGES", tgemm.STAGES)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "constexpr int AP = BM + 4;" in src
+    name, args = _build.SIGNATURES["sa_conv"]
+    assert name == "sa_conv_launch" and len(args) == 13
+
+
 def test_engine_sa_conv_route_matches_reference():
     """A matmul the policy puts in the sa_conv regime runs the SA-CONV GEMM
     wrapper (its plain version here) and records what the reference
