@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Compare SA-CONV, SA-FC, flash attention, the CNN server and the OLMo-1B
-decode step of two checkouts on one card.
+"""Compare SA-CONV, SA-FC, flash attention, the pool, the CNN server and
+the OLMo-1B decode step of two checkouts on one card.
 
     python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
-                            [--parts conv,fc,attn,gemm,lm]
+                            [--parts conv,fc,attn,gemm,pool,lm]
 
 ``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
 own (both name their package ``repro_torch``), in ``N`` pairs (10 by
@@ -29,10 +29,14 @@ first on its path and measures with this checkout's ``chip_smoke``:
   OLMo-1B prefill (m = 2048: q/k/v/o, gate/up with silu, down, lm_head;
   fp32 weights and inputs, normal, scaled by k^-1/2), ``ms`` with the card
   held busy;
+* ``pool``: ``maxpool_act`` (act none) at every map of
+  ``chip_smoke.POOL_SWEEP`` (AlexNet's and VGG-16's pooled maps at b = 64,
+  fp32 and int8), ``ms`` with the card held busy;
 * ``lm``: a full-wave prefill and a decode step at b = 4 on the host
   clock, and their device busy time, by ``chip_smoke.lm_throughput``.
 
-``--parts`` picks which of the five run (all by default).
+``--parts`` picks which of the six run (all by default); a process builds
+the kernels its parts run.
 
 Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
 seed.  Prints one JSON object per run, then for each number the medians
@@ -49,6 +53,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: the kernel libraries each part runs
+KERNELS = {"conv": ("sa_conv_implicit",), "fc": ("sa_fc",),
+           "attn": ("attention",), "gemm": ("sa_conv",), "pool": ("pool_act",),
+           "lm": ("sa_conv", "attention", "sa_fc")}
 
 
 def run_tree(root: str, parts: set) -> dict:
@@ -64,7 +72,7 @@ def run_tree(root: str, parts: set) -> dict:
     from repro_torch.models.cnn import init_cnn
 
     torch.set_grad_enabled(False)
-    _build.build()
+    _build.build(sorted({k for part in parts for k in KERNELS[part]}))
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     out = {}
     if parts & {"conv", "fc"}:
@@ -84,6 +92,8 @@ def run_tree(root: str, parts: set) -> dict:
         out["flash"] = attn_times(cs, gen)
     if "gemm" in parts:
         out["gemm"] = gemm_times(cs, gen)
+    if "pool" in parts:
+        out["pool"] = pool_times(cs, gen)
     if "lm" in parts:
         from repro_torch.models import transformer as T
         if parts & {"conv", "fc"}:
@@ -185,17 +195,29 @@ def gemm_times(cs, gen) -> dict:
     return out
 
 
+def pool_times(cs, gen) -> dict:
+    """Card ms of the pool kernel at every ``chip_smoke.POOL_SWEEP`` map."""
+    from repro_torch.kernels.pool_act import maxpool_act
+    out = {}
+    for label, hw, c, window, dtype in cs.POOL_SWEEP:
+        x = cs.pool_map(hw, c, dtype, gen)
+        out[f"{label} {hw}x{hw}x{c} {window}/2 {dtype}"] = dict(ms=cs.timed(
+            lambda: maxpool_act(x, window=window, stride=2, act="none")))
+        del x
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=str(ROOT))
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out")
-    ap.add_argument("--parts", default="conv,fc,attn,gemm,lm")
+    ap.add_argument("--parts", default="conv,fc,attn,gemm,pool,lm")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     parts = set(args.parts.split(","))
-    if not parts or parts - {"conv", "fc", "attn", "gemm", "lm"}:
+    if not parts or parts - set(KERNELS):
         ap.error(f"--parts: {args.parts!r}")
     if args.child:
         print(json.dumps(run_tree(args.child, parts)))
@@ -241,7 +263,7 @@ def numbers(run: dict):
     for key in run.get("server", {}):
         out.append((f"server images/s {key}",
                     lambda r, key=key: r["server"][key], True))
-    for part in ("sa_conv", "sa_fc", "flash", "gemm"):
+    for part in ("sa_conv", "sa_fc", "flash", "gemm", "pool"):
         for label, v in run.get(part, {}).items():
             out += [(f"{part} {label} {key}",
                      lambda r, part=part, label=label, key=key:

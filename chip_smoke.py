@@ -9,20 +9,24 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM and flash
-   instantiation (SA-CONV, the GEMM and flash must not spill);
+   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM, flash and
+   pool instantiation (all but SA-FC must not spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
    (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
-   int8; fused pool equal to conv then the pool kernel), and a fused pool
-   over conv rows wider than a CTA holds (column strips);
+   int8; fused pool equal to conv then the pool kernel), NaN kept as the
+   plain versions keep it (every pool window position, standalone and
+   fused; a NaN row through SA-FC, the GEMM and SA-CONV with relu), and a
+   fused pool over conv rows wider than a CTA holds (column strips);
 4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
    serves 130 requests on the kernels (and one int8 wave), with every
    dispatch a schedule hit and every kernel of the path launched;
 5. times: CUDA events, median of 25 runs, L2 flushed and the card held
    busy before each (the card's time); SA-FC also with the card drained
    before each call (the wrapper's host work included) and as host time
-   per enqueued call;
+   per enqueued call; the pool kernel also over ``POOL_SWEEP``
+   (AlexNet's and VGG-16's pooled maps at b = 64, fp32 and int8), each
+   map checked bitwise against the plain version before it is timed;
 6. the LM slice: the SA-CONV GEMM and flash-attention kernels against their
    plain versions at full-width OLMo-1B shapes (the GEMM: rows of the
    m = 2048 launch equal to m = 1 and m = 512 launches bitwise, operands off
@@ -105,6 +109,23 @@ SOURCES = {
 #: kernels line reports for each kernel
 CNN_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act")
 LM_KERNELS = ("sa_conv_matmul", "flash_attention", "sa_fc_matmul")
+#: the pool kernel's sweep: the maps where a pool the planner declined to
+#: fuse would cost bytes, AlexNet's three pooled maps (3/2) and VGG-16's
+#: five (2/2), at b = POOL_BATCH, random normal; (label, h = w, c, window,
+#: dtype), stride 2
+POOL_SWEEP = (("AlexNet conv1", 55, 96, 3, "fp32"),
+              ("AlexNet conv2", 27, 256, 3, "fp32"),
+              ("AlexNet conv2", 27, 256, 3, "int8"),
+              ("AlexNet conv5", 13, 256, 3, "fp32"),
+              ("VGG-16 conv1_2", 224, 64, 2, "fp32"),
+              ("VGG-16 conv1_2", 224, 64, 2, "int8"),
+              ("VGG-16 conv2_2", 112, 128, 2, "fp32"),
+              ("VGG-16 conv3_3", 56, 256, 2, "fp32"),
+              ("VGG-16 conv4_3", 28, 512, 2, "fp32"),
+              ("VGG-16 conv5_3", 14, 512, 2, "fp32"))
+POOL_BATCH = 64
+#: element types of csrc/pool_act.cu's instantiations, as mangled
+POOL_TYPES = {"f": "fp32", "a": "int8", "h": "uint8", "i": "int32"}
 
 
 def log(msg: str) -> None:
@@ -143,6 +164,27 @@ def exact(name: str, got, want) -> None:
     import torch
     if got.shape != want.shape or not torch.equal(got, want):
         raise AssertionError(f"{name}: not bitwise equal")
+
+
+def exact_nan(name: str, got, want) -> None:
+    """NaN at the same places and every other value equal."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN at other places")
+    if not torch.equal(got[~nan], want[~nan]):
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
+def same_nan_mask(name: str, got, want) -> None:
+    import torch
+    if got.shape != want.shape or not torch.equal(torch.isnan(got),
+                                                  torch.isnan(want)):
+        raise AssertionError(f"{name}: NaN at other places than the plain "
+                             "version's")
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +259,36 @@ def build(rep: Report) -> None:
             f"spill bytes {v['spill_bytes']}")
     if any(v["spill_bytes"] for v in attn.values()):
         raise AssertionError("ptxas: a flash instantiation spills")
+    pool = pool_ptxas(_build.build_log("pool_act"))
+    rep.detail["ptxas_pool_act"] = pool
+    regs = [v["registers"] for v in pool.values()]
+    log(f"  ptxas pool_act_kernel: {len(pool)} instantiations, registers "
+        f"{min(regs)}..{max(regs)}, spill bytes "
+        f"{sum(v['spill_bytes'] for v in pool.values())}")
+    for inst, v in pool.items():
+        if ", 16 B, " in inst:
+            log(f"  ptxas pool_act_kernel<{inst}>: {v['registers']} "
+                f"registers, spill bytes {v['spill_bytes']}")
+    if any(v["spill_bytes"] for v in pool.values()):
+        raise AssertionError("ptxas: a pool instantiation spills")
+
+
+def pool_ptxas(text: str) -> dict:
+    """Registers and spills of every pool instantiation (element type;
+    vector bytes; unrolled window, or any) from ptxas's -v output."""
+    out = {}
+    for m, regs, spills in ptxas_kernels(
+            text, r"pool_act_kernelI(f|a|h|i)Li(\d+)ELi(\d+)E"):
+        t, vec, win = m.groups()
+        window = "any" if win == "0" else f"{win}x{win}"
+        out[f"{POOL_TYPES[t]}, {vec} B, {window}"] = dict(
+            registers=regs, spill_bytes=spills)
+    # 3 windows (2x2, 3x3, any) for each type and vector: fp32 and int32
+    # at 16, 8 and 4 bytes, int8 and uint8 also at 1
+    if len(out) != 3 * (3 + 3 + 4 + 4):
+        raise AssertionError(f"ptxas: {len(out)} pool instantiations, "
+                             "expected 42")
+    return out
 
 
 def ptxas_kernels(text: str, pattern: str):
@@ -382,7 +454,18 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
                        device=pool_in.device)
     exact("maxpool_act int8", maxpool_act(ti, window=3, stride=2, act="none"),
           ref.maxpool2d(ti, window=3, stride=2))
-    log("  maxpool_act: conv2 map, 251 channels, int8 — exact")
+    # a base one element off 16-byte alignment (4-byte and 1-byte vectors)
+    flat = torch.randn(8 * 27 * 27 * 256 + 1, device=pool_in.device)
+    flat8 = torch.randint(-128, 127, (flat.numel(),), dtype=torch.int8,
+                          device=pool_in.device)
+    for label, t in (("fp32", flat[1:].view(8, 27, 27, 256)),
+                     ("int8", flat8[1:].view(8, 27, 27, 256))):
+        exact(f"maxpool_act {label} base + 1 element",
+              maxpool_act(t, window=3, stride=2, act="relu"),
+              ref.maxpool_act(t, window=3, stride=2, act="relu"))
+    log("  maxpool_act: conv2 map, 251 channels, int8, a base one element "
+        "off alignment (fp32, int8) — exact")
+    check_nan()
 
     # declined fusion through the engine: silu is not monotone, so the
     # planner declines and the engine runs the standalone pool kernel
@@ -435,6 +518,71 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
     log("  sa_fc_matmul: row 0 at b=64 == b=1, bitwise (fp32 and int8)")
     torch.cuda.synchronize()
     return shapes
+
+
+def check_nan() -> None:
+    """NaN goes through every kernel as through its plain version and the
+    reference: the pool kernel with one NaN at each position of a 2x2 and a
+    3x3 window (act none and relu), bitwise; the fused pool with a NaN conv
+    output at each window position (a 3x3 conv at stride 3 reads each input
+    pixel for one output alone), bitwise equal to conv -> pool kernel; a
+    NaN row of x through SA-FC, the GEMM and SA-CONV with relu, at the
+    plain version's places."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+                                                      sa_conv_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    nan = float("nan")
+    f = torch.randn((3, 3, 8, 16), generator=gen, device="cuda") / 5
+    b = torch.randn(16, generator=gen, device="cuda")
+    for window in (2, 3):
+        for dp in range(window):
+            for dq in range(window):
+                x = torch.randn((2, 9, 9, 36), generator=gen, device="cuda")
+                x[1, 2 + dp, 2 + dq, ::3] = nan
+                for act in ("none", "relu"):
+                    exact_nan(f"maxpool_act NaN at ({dp}, {dq}) of "
+                              f"{window}/2, {act}",
+                              maxpool_act(x, window=window, stride=2,
+                                          act=act),
+                              ref.maxpool_act(x, window=window, stride=2,
+                                              act=act))
+                res = 18 if window == 2 else 15     # windows tile the map
+                xc = torch.randn((2, res, res, 8), generator=gen,
+                                 device="cuda")
+                xc[1, 3 * (2 + dp), 3 * (2 + dq)] = nan
+                kw = dict(stride=3, act="relu")
+                fused = sa_conv_implicit(xc, f, b, pool_window=window,
+                                         pool_stride=2, **kw)
+                exact_nan(f"fused pool NaN at ({dp}, {dq}) of {window}/2 == "
+                          "conv -> pool", fused,
+                          maxpool_act(sa_conv_implicit(xc, f, b, **kw),
+                                      window=window, stride=2, act="none"))
+                same_nan_mask(f"fused pool NaN at ({dp}, {dq})", fused,
+                              sa_conv_plain(xc, f, b, pool_window=window,
+                                            pool_stride=2, **kw))
+    x = torch.randn((6, 300), generator=gen, device="cuda")
+    x[2] = nan
+    w = torch.randn((300, 200), generator=gen, device="cuda") / 17
+    bias = torch.randn(200, generator=gen, device="cuda")
+    for name, kern, plain in (("sa_fc_matmul", sa_fc_matmul, sa_fc_plain),
+                              ("sa_conv_matmul", sa_conv_matmul,
+                               sa_conv_matmul_plain)):
+        same_nan_mask(f"{name} NaN row, relu", kern(x, w, bias, act="relu"),
+                      plain(x, w, bias, act="relu"))
+    xc = torch.randn((3, 13, 13, 8), generator=gen, device="cuda")
+    xc[1] = nan
+    same_nan_mask("sa_conv_implicit NaN image, relu",
+                  sa_conv_implicit(xc, f, b, act="relu"),
+                  sa_conv_plain(xc, f, b, act="relu"))
+    log("  NaN: pool kernel at each position of 2x2 and 3x3 windows and the "
+        "fused pool (== conv -> pool), bitwise; a NaN row through SA-FC, the "
+        "GEMM and SA-CONV with relu at the plain versions' places")
 
 
 def check_wide_pool(rep: Report) -> None:
@@ -721,6 +869,60 @@ def host_log(host: dict | None) -> str:
                                     f"enqueue {host['enqueue_us']:.1f} us")
 
 
+def pool_map(hw: int, c: int, dtype: str, gen):
+    """A sweep map on the card: (POOL_BATCH, hw, hw, c) normal fp32, or
+    normal x 32 rounded into int8."""
+    import torch
+    x = torch.randn((POOL_BATCH, hw, hw, c), generator=gen, device="cuda")
+    if dtype == "int8":
+        x = (x * 32).round_().clamp_(-128, 127).to(torch.int8)
+    return x
+
+
+def pool_sweep(rep: Report) -> None:
+    """The pool kernel at every ``POOL_SWEEP`` map: checked bitwise against
+    its plain version (act none and relu), then timed (act none) beside the
+    plain version and, for fp32, ``F.max_pool2d`` on the channels-last
+    view.  Rows go on the path "maxpool_act sweep", which the kernels line
+    does not sum."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool_act import maxpool_act, pool_geometry
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, hw, c, window, dtype in POOL_SWEEP:
+        x = pool_map(hw, c, dtype, gen)
+        kw = dict(window=window, stride=2)
+        for act in ("none", "relu"):
+            exact(f"maxpool_act {label} {dtype} {act}",
+                  maxpool_act(x, act=act, **kw),
+                  ref.maxpool_act(x, act=act, **kw))
+        out = maxpool_act(x, act="none", **kw)
+        ms = timed(lambda: maxpool_act(x, act="none", **kw))
+        plain_ms = timed(lambda: ref.maxpool_act(x, act="none", **kw),
+                         runs=10)
+        xc = x.permute(0, 3, 1, 2)
+        lib_ms = timed(lambda: F.max_pool2d(xc, window, 2)) \
+            if dtype == "fp32" else None
+        flops, nb = out.numel() * window * window, nbytes(x, out)
+        b_ms, by = bound(flops, nb)
+        g = pool_geometry(*x.shape, x.element_size(), window, 2, 16)
+        geom = dict(vec_bytes=g.vec_bytes, ctas=g.blocks * g.n)
+        rep.rows.append(dict(
+            kernel="maxpool_act", shape=f"{label} {tuple(x.shape)} "
+            f"{window}/2 {dtype}", ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=by, flops=flops,
+            bytes=nb, path="maxpool_act sweep", per_pass=1,
+            tflops=flops / ms / 1e9, pct_of_bound=100 * b_ms / ms,
+            geometry=geom))
+        log(f"  maxpool_act {label:15s} {dtype} {window}/2 "
+            f"{nb / 1e6:8.1f} MB {ms:9.4f} ms  bound {b_ms:8.4f} "
+            f"({100 * b_ms / ms:5.1f} %)  plain {plain_ms:9.4f}  "
+            f"F.max_pool2d {'-' if lib_ms is None else f'{lib_ms:.4f}'}  "
+            f"{g.vec_bytes}-byte vectors, {g.blocks * g.n} CTAs")
+        del x, out, xc
+
+
 def server_throughput(rep: Report, params, images_np):
     """``CNNServer.run`` images/s at b=64 fp32, pipelined and sequential:
     warm schedules, then 4 full waves on the host clock, the card drained
@@ -827,6 +1029,7 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
             timed(lambda: ref.maxpool_act(t, window=3, stride=2, act="none")),
             timed(lambda: F.max_pool2d(tc, 3, 2)),
             out.numel() * 9, nbytes(t, out))
+    pool_sweep(rep)
 
     srv, reqs = server_throughput(rep, params, images_np)
     copies = []

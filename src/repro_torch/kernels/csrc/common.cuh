@@ -10,10 +10,24 @@
 // Activation codes; repro_torch/kernels/_build.py holds the same table.
 enum Act : int { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2, ACT_SILU = 3, ACT_GELU = 4 };
 
+// NaN test on the bits: a compare such as x != x may be folded away under
+// fast-math flags, a test of the bit pattern cannot.
+__device__ __forceinline__ bool is_nan(float x) {
+  return (__float_as_uint(x) & 0x7fffffffu) > 0x7f800000u;
+}
+
+// NaN goes through every activation, as in the reference (jax.nn.relu(NaN)
+// is NaN): relu is max.NaN (NaN if x is NaN, else max(x, +0)), one
+// instruction that no compiler flag folds away, where a compare and select
+// changed SA-FC's register allocation and slowed it (PERF.md §6);
+// leaky relu, silu and gelu propagate NaN by their arithmetic.
 __device__ __forceinline__ float apply_act(float x, int act) {
   switch (act) {
-    case ACT_RELU:
-      return x > 0.f ? x : 0.f;
+    case ACT_RELU: {
+      float r;
+      asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(x));
+      return r;
+    }
     case ACT_LEAKY:                       // slope 0.1, as jax.nn.leaky_relu is called
       return x >= 0.f ? x : __fmul_rn(0.1f, x);
     case ACT_SILU:
@@ -25,6 +39,15 @@ __device__ __forceinline__ float apply_act(float x, int act) {
     default:
       return x;
   }
+}
+
+// The max rule of every pool window, standalone (pool_act.cu) and fused
+// (sa_conv_implicit.cu): fold v, the later element in (dp, dq) order, into
+// m.  NaN if either is NaN, as the reference's jnp.maximum gives; otherwise
+// the first maximum (a strict '>'), so a tie of +0 and -0 keeps the earlier
+// zero.  Both kernels apply it in an order that gives the same bits.
+__device__ __forceinline__ float pool_max(float m, float v) {
+  return v > m || is_nan(v) ? v : m;
 }
 
 // Epilogue of both GEMM-like kernels: (acc * scale) + bias, each rounded on

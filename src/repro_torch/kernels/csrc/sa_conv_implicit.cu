@@ -443,8 +443,7 @@ sa_conv_kernel(const ConvArgs a) {
     float m = tp[0];
     for (int dp = 0; dp < a.pw; ++dp)
       for (int dq = 0; dq < a.pw; ++dq) {
-        const float v = tp[(dp * a.ow + dq) * BCOP];
-        m = v > m ? v : m;
+        m = pool_max(m, tp[(dp * a.ow + dq) * BCOP]);
       }
     const size_t orow = static_cast<size_t>(s_seg[s][SG_IMG]) * a.poh + s_seg[s][SG_PR0] + er;
     a.out[(orow * a.pow_ + ex) * a.co + cog] = apply_act(m, a.act);

@@ -196,10 +196,10 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
             cands = []
             for nb, r in sorted(shapes):
                 band_px = ((r - 1) * ps + pw) * ow
-                k = min(cap // band_px, MAX_SEGMENTS)
+                band_rows = ((r - 1) * ps + pw - 1) * stride + p
+                k = min(cap // band_px, MAX_SEGMENTS, MAX_ROWS // band_rows)
                 if k:
-                    cands.append((nb, r, k, k,
-                                  k * (((r - 1) * ps + pw - 1) * stride + p)))
+                    cands.append((nb, r, k, k, k * band_rows))
         else:
             px = cap          # the most pixels whose tables and rows fit
             while px > 1:

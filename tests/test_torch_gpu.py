@@ -7,6 +7,8 @@ main-path shapes are covered by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import attention as tattn
 from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention,
                                            flash_plain)
-from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels.pool_act import maxpool_act, pool_geometry
 from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
@@ -126,7 +128,7 @@ def test_sa_fc_split_launches_leave_the_arrival_counters_at_zero(cuda):
 
 @pytest.mark.parametrize("h,ci,p,co,stride,window", [
     (13, 5, 3, 24, 1, 0), (17, 5, 3, 70, 4, 0), (35, 6, 3, 24, 1, 3),
-    (67, 3, 11, 40, 4, 3), (10, 8, 3, 16, 1, 2)])
+    (67, 3, 11, 40, 4, 3), (10, 8, 3, 16, 1, 2), (15, 8, 3, 16, 3, 3)])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
 def test_sa_conv_kernel_and_fused_pool(cuda, h, ci, p, co, stride, window,
                                        act):
@@ -319,6 +321,116 @@ def test_pool_kernel(cuda, dtype):
     for act in ("none", "relu"):
         assert torch.equal(maxpool_act(x, window=3, stride=2, act=act),
                            ref.maxpool_act(x, window=3, stride=2, act=act))
+
+
+#: chip_smoke.POOL_SWEEP's maps (h = w, c, window), stride 2, b = 64
+POOL_SWEEP_MAPS = [(55, 96, 3), (27, 256, 3), (13, 256, 3), (224, 64, 2),
+                   (112, 128, 2), (56, 256, 2), (28, 512, 2), (14, 512, 2)]
+POOL_DTYPES = [torch.float32, torch.int8, torch.uint8, torch.int32]
+
+
+def _pool_map(shape, dtype, dev, offset=0):
+    """A map of ``shape`` that starts ``offset`` elements into its
+    buffer: normal fp32, or integers over the dtype's whole range."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    numel = math.prod(shape) + offset
+    if dtype == torch.float32:
+        flat = torch.randn(numel, generator=gen, device=dev)
+    else:
+        info = torch.iinfo(dtype)
+        flat = torch.randint(info.min, info.max, (numel,), generator=gen,
+                             dtype=dtype, device=dev)
+    return flat[offset:].view(shape)
+
+
+def _same_bits(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("hw,c,window", POOL_SWEEP_MAPS)
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+def test_pool_kernel_at_the_sweep_maps(cuda, hw, c, window, dtype):
+    x = _pool_map((64, hw, hw, c), dtype, cuda)
+    for act in ("none", "relu"):
+        assert torch.equal(maxpool_act(x, window=window, stride=2, act=act),
+                           ref.maxpool_act(x, window=window, stride=2,
+                                           act=act))
+
+
+@pytest.mark.parametrize("c,offset", [(3, 0), (251, 0), (256, 1), (256, 2)])
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 2), (3, 1)])
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+def test_pool_kernel_odd_channels_and_bases(cuda, c, offset, window, stride,
+                                            dtype):
+    """Vectors narrower than 16 bytes: an odd channel count, or a base one
+    or two elements off alignment."""
+    x = _pool_map((5, 17, 19, c), dtype, cuda, offset)
+    g = pool_geometry(5, 17, 19, c, x.element_size(), window, stride,
+                      x.data_ptr() & -x.data_ptr())
+    assert g.vec_bytes < 16
+    for act in ("none", "relu"):
+        assert torch.equal(maxpool_act(x, window=window, stride=stride,
+                                       act=act),
+                           ref.maxpool_act(x, window=window, stride=stride,
+                                           act=act))
+
+
+#: one NaN at each position (dp, dq) of a window, for 2/2 and 3/2 pools
+NAN_POSITIONS = [(w, dp, dq) for w in (2, 3) for dp in range(w)
+                 for dq in range(w)]
+
+
+@pytest.mark.parametrize("window,dp,dq", NAN_POSITIONS)
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_pool_kernel_keeps_nan_at_every_window_position(cuda, window, dp, dq,
+                                                        act):
+    x = _t(0, (2, 9, 9, 36), cuda)
+    x[1, 2 + dp, 2 + dq, ::3] = float("nan")
+    got = maxpool_act(x, window=window, stride=2, act=act)
+    assert torch.isnan(got).any()
+    _same_bits(got, ref.maxpool_act(x, window=window, stride=2, act=act))
+
+
+@pytest.mark.parametrize("window,dp,dq", NAN_POSITIONS)
+def test_fused_pool_keeps_nan_at_every_window_position(cuda, window, dp, dq):
+    """One NaN conv output at each window position (a 3x3 conv at stride 3
+    reads each input pixel for one output alone): the fused pool equals
+    conv -> pool kernel bitwise, NaN included, and has the plain version's
+    NaN at its places."""
+    res = 18 if window == 2 else 15
+    x, f, bias = _t(0, (2, res, res, 8), cuda), _t(1, (3, 3, 8, 16), cuda,
+                                                  0.2), _t(2, (16,), cuda)
+    x[1, 3 * (2 + dp), 3 * (2 + dq)] = float("nan")
+    kw = dict(stride=3, act="relu")
+    fused = sa_conv_implicit(x, f, bias, pool_window=window, pool_stride=2,
+                             **kw)
+    assert torch.isnan(fused).any()
+    _same_bits(fused, maxpool_act(sa_conv_implicit(x, f, bias, **kw),
+                                  window=window, stride=2, act="none"))
+    torch.testing.assert_close(
+        fused, sa_conv_plain(x, f, bias, pool_window=window, pool_stride=2,
+                             **kw), rtol=2e-3, atol=2e-3, equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["sa_fc", "gemm", "sa_conv"])
+def test_relu_keeps_nan_as_the_pool_does(cuda, kernel):
+    """A NaN row of x (a NaN image for SA-CONV) through relu: NaN where the
+    plain version has it, the finite outputs within the usual tolerance."""
+    if kernel == "sa_conv":
+        x, w, bias = _t(0, (3, 13, 13, 8), cuda), _t(1, (3, 3, 8, 16), cuda,
+                                                     0.2), _t(2, (16,), cuda)
+        kern, plain, tol = sa_conv_implicit, sa_conv_plain, 2e-3
+    else:
+        x, w, bias = _t(0, (6, 300), cuda), _t(1, (300, 200), cuda, 0.06), \
+            _t(2, (200,), cuda)
+        kern, plain = ((sa_fc_matmul, sa_fc_plain) if kernel == "sa_fc"
+                       else (sa_conv_matmul, sa_conv_matmul_plain))
+        tol = 3e-4
+    x[1] = float("nan")
+    got, want = kern(x, w, bias, act="relu"), plain(x, w, bias, act="relu")
+    assert torch.isnan(got[1]).all() and not torch.isnan(got[0]).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol, equal_nan=True)
 
 
 def test_engine_declined_fusion_launches_the_pool_kernel(cuda):

@@ -30,7 +30,8 @@ from repro_torch.core.engine import DispatchPolicy, Engine
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import attention as tattn
 from repro_torch.kernels.attention import flash_attention, live_tiles
-from repro_torch.kernels.pool_act import maxpool_act
+from repro_torch.kernels import pool_act as tpool
+from repro_torch.kernels.pool_act import maxpool_act, pool_geometry
 from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv_implicit import (MAX_ROWS, MAX_SEGMENTS,
                                                   SMEM_MAX, THREADS,
@@ -289,6 +290,7 @@ def _check_tiling(g, batch, stride, p):
     ("vgg16 conv1_2", 226, 226, 64, 3, 64, 1, 2),
     ("vgg16 conv5_3", 16, 16, 512, 3, 512, 1, 2),
     ("ragged", 13, 15, 5, 3, 24, 2, 0),
+    ("pooled, stride 3", 15, 15, 8, 3, 16, 3, 3),
 ])
 def test_conv_geometry_covers_the_output(name, h, w, ci, p, co, stride,
                                          window):
@@ -769,6 +771,113 @@ def test_maxpool_act_int8_matches_reference():
     got = maxpool_act(torch.from_numpy(x), window=2, stride=2, act="none")
     assert got.dtype == torch.int8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+#: chip_smoke.POOL_SWEEP's maps at b = 64: AlexNet's pooled maps (3/2) and
+#: VGG-16's (2/2); (h = w, c, window, itemsize)
+POOL_SWEEP = [(55, 96, 3, 4), (27, 256, 3, 4), (27, 256, 3, 1),
+              (13, 256, 3, 4), (224, 64, 2, 4), (224, 64, 2, 1),
+              (112, 128, 2, 4), (56, 256, 2, 4), (28, 512, 2, 4),
+              (14, 512, 2, 4)]
+
+
+def _check_pool_geometry(g):
+    """Every output vector of an image stored by exactly one thread, whose
+    window lies inside the map and is loaded row by row, each input row
+    once; the last CTA of an image is the only ragged one."""
+    assert g.vecs * g.vec_bytes == g.c * g.itemsize
+    assert (g.blocks - 1) * tpool.THREADS < g.per_image <= \
+        g.blocks * tpool.THREADS
+    cv, oy, ox = g.outputs()
+    count = np.zeros((g.oh, g.ow, g.vecs), np.int32)
+    np.add.at(count, (oy, ox, cv), 1)
+    assert (count == 1).all()
+    assert (oy * g.stride + g.window <= g.h).all()
+    assert (ox * g.stride + g.window <= g.w).all()
+
+
+@pytest.mark.parametrize("hw,c,window,itemsize", POOL_SWEEP)
+def test_pool_geometry_at_the_sweep_maps(hw, c, window, itemsize):
+    """16-byte vectors, every output once, and enough CTAs to fill the
+    card's 132 SMs several times over."""
+    g = pool_geometry(64, hw, hw, c, itemsize, window, 2, 256)
+    assert g.vec_bytes == 16 and g.grid == (g.blocks, 64)
+    assert g.blocks * g.n >= 4 * 132
+    _check_pool_geometry(g)
+
+
+@pytest.mark.parametrize("c", [3, 251])
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 2), (3, 1)])
+@pytest.mark.parametrize("itemsize,align", [(4, 256), (4, 4), (1, 256),
+                                            (1, 1)])
+def test_pool_geometry_covers_every_output_once(c, window, stride, itemsize,
+                                                align):
+    for n, h, w in ((1, 17, 19), (3, 9, 40)):
+        _check_pool_geometry(pool_geometry(n, h, w, c, itemsize, window,
+                                           stride, align))
+
+
+@pytest.mark.parametrize("c,itemsize,align,vec", [
+    (256, 4, 256, 16), (256, 4, 4, 4), (256, 4, 8, 8), (251, 4, 256, 4),
+    (3, 4, 256, 4), (2, 4, 256, 8), (256, 1, 256, 16), (256, 1, 1, 1),
+    (256, 1, 2, 1), (251, 1, 256, 1), (12, 1, 256, 4), (24, 1, 256, 8)])
+def test_pool_vector_width(c, itemsize, align, vec):
+    """The widest vector that the pixel's bytes and the base allow."""
+    assert tpool.vector_bytes(c, itemsize, align) == vec
+    assert pool_geometry(1, 4, 4, c, itemsize, 2, 2, align).vec_bytes == vec
+
+
+def test_pool_constants_match_the_cuda_source():
+    src = (_build.CSRC / "pool_act.cu").read_text()
+    assert f"constexpr int THREADS = {tpool.THREADS};" in src
+    for window in tpool.UNROLLED:
+        assert f"case {window}: pool_act_kernel<T, VB, {window}>" in src
+    for v in tpool.VEC_BYTES:
+        assert f"case {v}: return by_window<T, {v}>" in src
+    name, args = _build.SIGNATURES["pool_act"]
+    assert name == "pool_act_launch" and len(args) == 13
+
+
+#: one NaN at each position (dp, dq) of a window, for 2/2 and 3/2 pools
+NAN_POSITIONS = [(w, dp, dq) for w in (2, 3) for dp in range(w)
+                 for dq in range(w)]
+
+
+@pytest.mark.parametrize("window,dp,dq", NAN_POSITIONS)
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_pool_keeps_nan_like_the_reference(window, dp, dq, act):
+    """A NaN anywhere in a window gives NaN, as the reference's Pallas
+    pool (jnp.maximum, then jax.nn.relu) gives; atol 0."""
+    x = _np(0, (2, 9, 9, 36))
+    x[1, 2 + dp, 2 + dq, ::3] = np.nan
+    want = np.asarray(r_maxpool_act(jnp.asarray(x), window=window, stride=2,
+                                    act=act))
+    got = maxpool_act(torch.from_numpy(x), window=window, stride=2, act=act)
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("window,dp,dq", NAN_POSITIONS)
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_fused_pool_keeps_nan_like_the_reference(window, dp, dq, act):
+    """The fused conv + pool with one NaN conv output at each window
+    position: a 3x3 conv at stride 3 reads each input pixel for one output
+    alone, so a NaN pixel makes one NaN conv output.  The conv map (6x6 or
+    5x5) is tiled by the pool's windows, so the planner fuses."""
+    res = 18 if window == 2 else 15
+    x, f, b = _np(0, (2, res, res, 6)), _np(1, (3, 3, 6, 24), 0.2), \
+        _np(2, (24,))
+    x[1, 3 * (2 + dp), 3 * (2 + dq)] = np.nan
+    want = np.asarray(REngine(backend="pallas", interpret=True).conv2d(
+        jnp.asarray(x), jnp.asarray(f), jnp.asarray(b), stride=3, act=act,
+        pool=RPoolSpec(window, 2)))
+    eng = Engine(backend="kernels")
+    with eng.tracing() as tr:
+        got = eng.conv2d(*map(torch.from_numpy, (x, f, b)), stride=3,
+                         act=act, pool=PoolSpec(window, 2))
+    assert tr[0].conv_plan.fuse_pool and np.isnan(want).any()
+    np.testing.assert_allclose(got.numpy(), want, equal_nan=True,
+                               **RTOL_CONV)
 
 
 # ---------------------------------------------------------------------------
