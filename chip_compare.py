@@ -3,7 +3,7 @@
 the OLMo-1B decode step of two checkouts on one card.
 
     python3 chip_compare.py OLD_ROOT [NEW_ROOT] [--pairs N] [--out FILE]
-                            [--parts conv,fc,attn,gemm,pool,lm]
+                            [--parts conv,fc,attn,gemm,pool,lm,gemm_types]
 
 ``NEW_ROOT`` defaults to this checkout.  Each root runs in a process of its
 own (both name their package ``repro_torch``), in ``N`` pairs (10 by
@@ -33,10 +33,14 @@ first on its path and measures with this checkout's ``chip_smoke``:
   ``chip_smoke.POOL_SWEEP`` (AlexNet's and VGG-16's pooled maps at b = 64,
   fp32 and int8), ``ms`` with the card held busy;
 * ``lm``: a full-wave prefill and a decode step at b = 4 on the host
-  clock, and their device busy time, by ``chip_smoke.lm_throughput``.
+  clock, and their device busy time, by ``chip_smoke.lm_throughput``;
+* ``gemm_types``: ``sa_conv_matmul`` at a full-wave prefill's q/k/v/o and
+  gate/up shapes (m = 2048, no activation) for x in fp32 and bf16 times w
+  in fp32, bf16 and int8, ``ms`` with the card held busy (both trees must
+  take bf16 activations: PR 19 on).
 
-``--parts`` picks which of the six run (all by default); a process builds
-the kernels its parts run.
+``--parts`` picks which run (all but ``gemm_types`` by default); a
+process builds the kernels its parts run.
 
 Weights from ``chip_smoke.SEED``, normal inputs from a generator with that
 seed.  Prints one JSON object per run, then for each number the medians
@@ -56,7 +60,8 @@ ROOT = Path(__file__).resolve().parent
 #: the kernel libraries each part runs
 KERNELS = {"conv": ("sa_conv_implicit",), "fc": ("sa_fc",),
            "attn": ("attention",), "gemm": ("sa_conv",), "pool": ("pool_act",),
-           "lm": ("sa_conv", "attention", "sa_fc")}
+           "lm": ("sa_conv", "attention", "sa_fc"),
+           "gemm_types": ("sa_conv",)}
 
 
 def run_tree(root: str, parts: set) -> dict:
@@ -94,6 +99,8 @@ def run_tree(root: str, parts: set) -> dict:
         out["gemm"] = gemm_times(cs, gen)
     if "pool" in parts:
         out["pool"] = pool_times(cs, gen)
+    if "gemm_types" in parts:
+        out["gemm_types"] = gemm_type_times(cs, gen)
     if "lm" in parts:
         from repro_torch.models import transformer as T
         if parts & {"conv", "fc"}:
@@ -195,6 +202,31 @@ def gemm_times(cs, gen) -> dict:
     return out
 
 
+def gemm_type_times(cs, gen) -> dict:
+    """Card ms of the SA-CONV GEMM at q/k/v/o and gate/up (m = 2048) for
+    every mix of fp32 or bf16 x with fp32, bf16 or int8 w."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
+    cfg = cs.olmo_config()
+    m, d, ff = cs.LM_BATCH * cs.LM_PROMPT, cfg.d_model, cfg.d_ff
+    out = {}
+    for name, k, n in (("attn.q/k/v/o", d, d), ("mlp.gate/up", d, ff)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        qt = quantize(w)
+        for xt in ("fp32", "bf16"):
+            xx = x if xt == "fp32" else x.to(torch.bfloat16)
+            for wt, ww, scale in (("fp32", w, None),
+                                  ("bf16", w.to(torch.bfloat16), None),
+                                  ("int8", qt.q, qt.scale)):
+                out[f"{name} {k}x{n} m={m} x {xt} w {wt}"] = dict(
+                    ms=cs.timed(lambda: sa_conv_matmul(xx, ww,
+                                                       w_scale=scale)))
+        del x, w, qt
+    return out
+
+
 def pool_times(cs, gen) -> dict:
     """Card ms of the pool kernel at every ``chip_smoke.POOL_SWEEP`` map."""
     from repro_torch.kernels.pool_act import maxpool_act
@@ -263,7 +295,7 @@ def numbers(run: dict):
     for key in run.get("server", {}):
         out.append((f"server images/s {key}",
                     lambda r, key=key: r["server"][key], True))
-    for part in ("sa_conv", "sa_fc", "flash", "gemm", "pool"):
+    for part in ("sa_conv", "sa_fc", "flash", "gemm", "pool", "gemm_types"):
         for label, v in run.get(part, {}).items():
             out += [(f"{part} {label} {key}",
                      lambda r, part=part, label=label, key=key:

@@ -10,7 +10,7 @@ Phases (any failure raises and exits non-zero):
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
    registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM, flash and
-   pool instantiation (all but SA-FC must not spill);
+   pool instantiation (none but an fp32 SA-FC one may spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
    (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
@@ -38,7 +38,22 @@ Phases (any failure raises and exits non-zero):
    every matmul a schedule hit, every kernel of the path launched and no
    plain version called; logits against the ``"torch"`` backend and
    incremental decode against a full forward; tokens/s; kernel times, with
-   the card's SM clock and power sampled beside the GEMM's.
+   the card's SM clock and power sampled beside the GEMM's;
+7. OLMo-1B as ``configs/olmo_1b.py`` publishes it: bf16 parameters, compute
+   and cache at full width and depth.  SA-FC, the SA-CONV GEMM and flash
+   attention in bf16 against their plain versions at the served shapes
+   (within the reference's bf16 tolerance, and bitwise the fp32 launch on
+   the widened operands, rounded once), the bitwise batch invariants in
+   bf16, then ``ServeEngine`` serves the same 9 requests with a bf16
+   cache: every matmul a schedule hit, launches per kernel equal to the
+   schedules' ops per regime, no plain version called, and the
+   teacher-forced logits no farther from the ``"torch"`` backend's bf16
+   logits than those are from its fp32 logits; tokens/s, idle shares and
+   each bf16 kernel's time beside its bound and the bf16 library call.
+
+Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
+against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
+SA-CONV.
 
 The line before the last is the ``{"kernels": [...]}`` summary, the line
 before that the card's ``nvidia-smi`` name and power limit, and the last
@@ -63,6 +78,9 @@ ROOT = Path(__file__).resolve().parent
 # cores' fp32 rate, not a tensor-core rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# bf16 operands: the tensor cores' dense rate, the least time the card
+# could take for a bf16 product (the bf16 kernels here use the CUDA cores)
+PEAK_BF16_FLOPS = 989e12
 
 # Tolerances (allclose: |got - want| <= atol + rtol * |want|), from the
 # reference's own kernel tests (tests/test_kernels.py): both sides accumulate
@@ -82,6 +100,10 @@ TOL_ATTN = dict(rtol=3e-4, atol=3e-4)
 # rounding of differently ordered fp32 sums compounds over 113 matmuls and
 # 16 attentions; the reference's serving tolerance (5e-4) is for 2 layers.
 TOL_LM = dict(rtol=1e-3, atol=1e-3)
+# bf16 kernels against their plain versions: the reference's bf16 kernel
+# tolerance (tests/test_kernels.py); both sum exact fp32 products in other
+# orders and round the output once to bf16 (2^-8 relative).
+TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 
 #: clock cycles the card spins before each timed call (~1 ms at 1.98 GHz)
 HOLD_CYCLES = 2_000_000
@@ -126,6 +148,20 @@ POOL_SWEEP = (("AlexNet conv1", 55, 96, 3, "fp32"),
 POOL_BATCH = 64
 #: element types of csrc/pool_act.cu's instantiations, as mangled
 POOL_TYPES = {"f": "fp32", "a": "int8", "h": "uint8", "i": "int32"}
+#: the kernels with bf16 activations, reported again on the bf16 LM path
+#: under these names
+BF16_KERNELS = {k: f"{k}[bf16]" for k in ("sa_conv_matmul",
+                                           "flash_attention",
+                                           "sa_fc_matmul")}
+#: a template argument of the GEMM-like kernels, as mangled: fp32, int8,
+#: bf16 or a back-reference to a type named before (only bf16 repeats)
+MANGLED_TYPE = r"f|a|13__nv_bfloat16|S\d*_"
+
+
+def type_names(mangled: str) -> list[str]:
+    """The mangled template type arguments of ``mangled``, in order."""
+    return ["fp32" if t == "f" else "int8" if t == "a" else "bf16"
+            for t in re.findall(MANGLED_TYPE, mangled)]
 
 
 def log(msg: str) -> None:
@@ -136,7 +172,7 @@ class Report:
     """What the run measured, per kernel and overall."""
 
     def __init__(self) -> None:
-        self.err = {k: 0.0 for k in SOURCES}
+        self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values()]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
 
@@ -238,6 +274,9 @@ def build(rep: Report) -> None:
     for inst, v in rep.detail["ptxas_sa_fc"].items():
         log(f"  ptxas sa_fc_kernel<{inst}>: {v['registers']} registers, "
             f"spill bytes {v['spill_bytes']}")
+    if any(v["spill_bytes"] for k, v in rep.detail["ptxas_sa_fc"].items()
+           if "x bf16" in k or "out bf16" in k):
+        raise AssertionError("ptxas: a bf16 SA-FC instantiation spills")
     conv = sa_conv_ptxas(_build.build_log("sa_conv_implicit"))
     rep.detail["ptxas_sa_conv_implicit"] = conv
     for inst, v in conv.items():
@@ -303,15 +342,18 @@ def ptxas_kernels(text: str, pattern: str):
 
 
 def sa_fc_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-FC instantiation (weight type,
-    row tile) from ptxas's -v output."""
-    kinds = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}
-    out = {f"{kinds[m.group(1)]}, RB={m.group(2)}": dict(
-        registers=regs, spill_bytes=spills) for m, regs, spills in
-        ptxas_kernels(text, r"sa_fc_kernelI(f|a|13__nv_bfloat16)Li(\d+)E")}
-    if len(out) != 21:
+    """Registers and spill bytes of each SA-FC instantiation (weight,
+    activation and output types, row tile) from ptxas's -v output."""
+    out = {}
+    for m, regs, spills in ptxas_kernels(
+            text, rf"sa_fc_kernelI((?:{MANGLED_TYPE}){{3}})Li(\d+)E"):
+        w, x, o = type_names(m.group(1))
+        key = f"{w}, RB={m.group(2)}" if (x, o) == ("fp32", "fp32") else \
+            f"{w}, x {x}, out {o}, RB={m.group(2)}"
+        out[key] = dict(registers=regs, spill_bytes=spills)
+    if len(out) != 84:
         raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
-                             "not 21")
+                             "not 84")
     return out
 
 
@@ -335,28 +377,36 @@ def sa_conv_ptxas(text: str) -> dict:
 
 
 def gemm_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-CONV GEMM instantiation (weight
-    type; every one runs the 128 x 128 tile) from ptxas's -v output."""
+    """Registers and spill bytes of each SA-CONV GEMM instantiation (weight,
+    activation and output types; every one runs the 128 x 128 tile) from
+    ptxas's -v output."""
     from repro_torch.kernels.sa_conv import BM, BN
-    kinds = {"f": "fp32", "a": "int8", "13__nv_bfloat16": "bf16"}
-    out = {f"{kinds[m.group(1)]}, {BM}x{BN}": dict(
-        registers=regs, spill_bytes=spills) for m, regs, spills in
-        ptxas_kernels(text, r"sa_conv_gemm_kernelI(f|a|13__nv_bfloat16)E")}
-    if len(out) != 3:
+    out = {}
+    for m, regs, spills in ptxas_kernels(
+            text, rf"sa_conv_gemm_kernelI((?:{MANGLED_TYPE}){{3}})E"):
+        w, x, o = type_names(m.group(1))
+        key = f"{w}, {BM}x{BN}" if (x, o) == ("fp32", "fp32") else \
+            f"{w}, x {x}, out {o}, {BM}x{BN}"
+        out[key] = dict(registers=regs, spill_bytes=spills)
+    if len(out) != 12:
         raise AssertionError(f"ptxas: {len(out)} SA-CONV GEMM "
-                             "instantiations, not 3")
+                             "instantiations, not 12")
     return out
 
 
 def flash_ptxas(text: str) -> dict:
     """Registers and spill bytes of each flash instantiation (head dim,
-    query rows per tile) from ptxas's -v output."""
-    out = {f"d={m.group(1)}, {16 * int(m.group(2))} rows": dict(
-        registers=regs, spill_bytes=spills) for m, regs, spills in
-        ptxas_kernels(text, r"flash_kernelILi(\d+)ELi(\d+)E")}
-    if len(out) != 16:
+    query rows per tile, element type) from ptxas's -v output."""
+    out = {}
+    for m, regs, spills in ptxas_kernels(
+            text, rf"flash_kernelILi(\d+)ELi(\d+)E({MANGLED_TYPE})E"):
+        (t,) = type_names(m.group(3))
+        key = f"d={m.group(1)}, {16 * int(m.group(2))} rows" + \
+            ("" if t == "fp32" else f", {t}")
+        out[key] = dict(registers=regs, spill_bytes=spills)
+    if len(out) != 32:
         raise AssertionError(f"ptxas: {len(out)} flash instantiations, "
-                             "not 16")
+                             "not 32")
     return out
 
 
@@ -852,8 +902,12 @@ def smi_sample(fn, seconds: float = 1.0) -> dict:
                 power_w_max=max(p for _, p in samples))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes"): the larger of the FLOPs over
+    ``peak`` (fp32's, or bf16's for bf16 operands) and the bytes over the
+    memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1241,15 +1295,16 @@ def check_lm_fc(rep: Report, gemms: list) -> None:
         del qt
 
 
-def teacher_forced(cfg, params, prompt, output, eng):
+def teacher_forced(cfg, params, prompt, output, eng, cache_dtype=None):
     """Per-step logits (len(output), V) of one request under ``eng``, fed
-    the served tokens (prefill, then one decode step per output token)."""
+    the served tokens (prefill, then one decode step per output token),
+    with a cache of ``cache_dtype`` (fp32 by default)."""
     import torch
     from repro_torch.serve.serve_step import decode_step, prefill_step
     tok = torch.as_tensor(prompt, dtype=torch.int64, device=DEVICE)[None]
     with eng.activate():
         logits, cache = prefill_step(cfg, params, {"tokens": tok},
-                                     LM_MAX_SEQ, torch.float32)
+                                     LM_MAX_SEQ, cache_dtype or torch.float32)
         rows = [logits[0].cpu()]
         for i in range(1, len(output)):
             t = torch.tensor([[int(output[i - 1])]], device=DEVICE)
@@ -1352,16 +1407,20 @@ def serve_lm(rep: Report, cfg, params) -> dict:
     return dict(launches=c)
 
 
-def lm_throughput(rep: Report, cfg, params) -> None:
+def lm_throughput(rep: Report, cfg, params, cache_dtype=None,
+                  prefix: str = "lm") -> None:
     """Host clock around drained work after warm-up: one full-wave prefill,
     one decode step at b=4, and a whole ``ServeEngine.run`` of 9 requests
-    (schedules already compiled)."""
+    (schedules already compiled), with a cache of ``cache_dtype`` (fp32 by
+    default); the numbers go to ``rep.detail`` as ``<prefix>_*``."""
     import numpy as np
     import torch
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.serve_step import decode_step, prefill_step
 
-    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ)
+    cache_dtype = cache_dtype or torch.float32
+    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ,
+                      cache_dtype=cache_dtype)
     reqs = lm_requests(cfg)
     toks = torch.as_tensor(np.stack([r.prompt for r in reqs[:LM_BATCH]]),
                            dtype=torch.int64, device=DEVICE)
@@ -1372,7 +1431,7 @@ def lm_throughput(rep: Report, cfg, params) -> None:
         t0 = time.perf_counter()
         with srv.engine.with_schedule(psched).activate():
             logits, cache = prefill_step(cfg, params, {"tokens": toks},
-                                         LM_MAX_SEQ, torch.float32)
+                                         LM_MAX_SEQ, cache_dtype)
         torch.cuda.synchronize()
         times["prefill"].append(time.perf_counter() - t0)
         tok = logits.argmax(-1)[:, None]
@@ -1390,7 +1449,7 @@ def lm_throughput(rep: Report, cfg, params) -> None:
     def prefill():
         with srv.engine.with_schedule(psched).activate():
             return prefill_step(cfg, params, {"tokens": toks}, LM_MAX_SEQ,
-                                torch.float32)
+                                cache_dtype)
 
     def decode():
         with srv.engine.with_schedule(srv.decode_schedule).activate():
@@ -1405,18 +1464,18 @@ def lm_throughput(rep: Report, cfg, params) -> None:
     srv.run()
     run_s = time.perf_counter() - t0
     d = rep.detail
-    d["lm_prefill_wave_ms"] = prefill_s * 1e3
-    d["lm_prefill_tokens_per_s"] = LM_BATCH * LM_PROMPT / prefill_s
-    d["lm_decode_step_ms"] = decode_s * 1e3
-    d["lm_decode_tokens_per_s"] = LM_BATCH / decode_s
-    d["lm_run_s"] = run_s
-    d["lm_run_new_tokens_per_s"] = LM_REQUESTS * LM_NEW / run_s
-    d["lm_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    d["lm_device_busy"] = busy
+    d[f"{prefix}_prefill_wave_ms"] = prefill_s * 1e3
+    d[f"{prefix}_prefill_tokens_per_s"] = LM_BATCH * LM_PROMPT / prefill_s
+    d[f"{prefix}_decode_step_ms"] = decode_s * 1e3
+    d[f"{prefix}_decode_tokens_per_s"] = LM_BATCH / decode_s
+    d[f"{prefix}_run_s"] = run_s
+    d[f"{prefix}_run_new_tokens_per_s"] = LM_REQUESTS * LM_NEW / run_s
+    d[f"{prefix}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    d[f"{prefix}_device_busy"] = busy
     log(f"  prefill of a full wave ({LM_BATCH} x {LM_PROMPT} tokens): "
-        f"{prefill_s * 1e3:.1f} ms = {d['lm_prefill_tokens_per_s']:.0f} "
+        f"{prefill_s * 1e3:.1f} ms = {d[f'{prefix}_prefill_tokens_per_s']:.0f} "
         f"tokens/s; decode step at b={LM_BATCH}: "
-        f"{decode_s * 1e3:.2f} ms = {d['lm_decode_tokens_per_s']:.1f} "
+        f"{decode_s * 1e3:.2f} ms = {d[f'{prefix}_decode_tokens_per_s']:.1f} "
         f"tokens/s (host clock, medians)")
     for phase, b in busy.items():
         if b["device_ms"] is None:
@@ -1427,8 +1486,8 @@ def lm_throughput(rep: Report, cfg, params) -> None:
             f"{b['wall_ms']:.2f} ms (idle share {b['idle_share']:.3f}; "
             f"torch.profiler); top kernels {b['top']}")
     log(f"  ServeEngine.run, {LM_REQUESTS} requests: {run_s:.2f} s = "
-        f"{d['lm_run_new_tokens_per_s']:.1f} new tokens/s; peak memory "
-        f"{d['lm_peak_mem_gb']:.1f} GB")
+        f"{d[f'{prefix}_run_new_tokens_per_s']:.1f} new tokens/s; peak memory "
+        f"{d[f'{prefix}_peak_mem_gb']:.1f} GB")
 
 
 def device_busy(fn, wall_s: float) -> dict:
@@ -1537,6 +1596,373 @@ def measure_lm(rep: Report, shapes: dict) -> None:
                 host=host_costs(kern))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: OLMo-1B as published (bf16 parameters, compute and cache)
+# ---------------------------------------------------------------------------
+def olmo_bf16_config():
+    """OLMo-1B as ``configs/olmo_1b.py`` publishes it, bf16 throughout."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("olmo-1b")
+    if (cfg.param_dtype, cfg.compute_dtype) != ("bfloat16", "bfloat16"):
+        raise AssertionError(f"olmo-1b is published in {cfg.param_dtype} / "
+                             f"{cfg.compute_dtype}, not bf16")
+    return cfg
+
+
+def check_widened(name: str, got, kern, *args, **kw) -> None:
+    """``got``, a launch on bf16 operands, equals the fp32 launch of
+    ``kern`` on the widened operands rounded once to ``got``'s dtype,
+    bitwise: the kernels widen bf16 exactly and keep fp32's sums and
+    order."""
+    import torch
+    wide = [a.float() if isinstance(a, torch.Tensor) and
+            a.dtype == torch.bfloat16 else a for a in args]
+    exact(f"{name} == the fp32 launch on the widened operands", got,
+          kern(*wide, **kw).to(got.dtype))
+
+
+def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
+    """B4, B1 and B5 with bf16 activations at the served shapes: the
+    GEMM at a full wave's four prefill shapes (bf16 weights; the head also
+    with fp32 logits), SA-FC at b = 4 and m = 512 with bf16, int8 and fp32
+    weights, flash at a full wave's and a lone request's prefill; each
+    against its plain version, the bitwise batch invariants, and each
+    equal to the fp32 launch on the widened operands."""
+    import torch
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gemms = [(label, x.to(bf), w, act, per)
+             for label, x, w, act, per in gemm_shapes(cfg, params, gen)]
+    name = BF16_KERNELS["sa_conv_matmul"]
+    outs = {}
+    for label, x, w, act, _ in gemms:
+        if w.dtype != bf:
+            raise AssertionError(f"{label}: weights are {w.dtype}")
+        got = outs[label] = sa_conv_matmul(x, w, act=act)
+        if got.dtype != bf:
+            raise AssertionError(f"{name} {label}: wrote {got.dtype}")
+        e = allclose(f"{name} {label}", got,
+                     sa_conv_matmul_plain(x, w, act=act), TOL_BF16)
+        check_widened(f"{name} {label}", got, sa_conv_matmul, x, w, act=act)
+        rep.note_err(name, e)
+        log(f"  {name} {label} m={x.shape[0]}: max|d| {e:.3g}; == fp32 on "
+            "the widened operands")
+    label, x, w, _, _ = gemms[3]
+    logits = sa_conv_matmul(x, w, out_dtype=torch.float32)
+    rep.note_err(name, allclose(
+        f"{name} {label} fp32 logits", logits,
+        sa_conv_matmul_plain(x, w, out_dtype=torch.float32), TOL_BF16))
+    check_widened(f"{name} {label} fp32 logits", logits, sa_conv_matmul,
+                  x, w, out_dtype=torch.float32)
+    del logits
+    check_gemm_rows(gemms, outs)
+    del outs
+
+    name = BF16_KERNELS["sa_fc_matmul"]
+    for label, x, w, act, _ in gemms:
+        qt = quantize(w.float())
+        for wt, ww, scale in (("bf16", w, None), ("int8", qt.q, qt.scale),
+                              ("fp32", w.float(), None)):
+            one = sa_fc_matmul(x[:1].contiguous(), ww, act=act,
+                               w_scale=scale)
+            errs = []
+            for m in (LM_BATCH, LM_PROMPT):
+                h = x[:m].contiguous()
+                got = sa_fc_matmul(h, ww, act=act, w_scale=scale)
+                e = allclose(f"{name} {label} b={m} {wt}", got,
+                             sa_fc_plain(h, ww, act=act, w_scale=scale),
+                             TOL_BF16)
+                rep.note_err(name, e)
+                exact(f"{name} {label} {wt} row 0 of b={m} == b=1", got[:1],
+                      one)
+                if m == LM_BATCH:
+                    check_widened(f"{name} {label} b={m} {wt}", got,
+                                  sa_fc_matmul, h, ww.to(bf).float()
+                                  if wt == "fp32" else ww, act=act,
+                                  w_scale=scale)
+                errs.append(f"b={m} max|d| {e:.3g}")
+            log(f"  {name} {label} {wt} weights: {'; '.join(errs)}; row 0 "
+                "== b=1, b=4 == fp32 on the widened operands")
+        del qt
+    label, x, w, _, _ = gemms[3]
+    h = x[:LM_BATCH].contiguous()
+    rep.note_err(name, allclose(
+        f"{name} {label} b={LM_BATCH} fp32 logits",
+        sa_fc_matmul(h, w, out_dtype=torch.float32),
+        sa_fc_plain(h, w, out_dtype=torch.float32), TOL_BF16))
+
+    name = BF16_KERNELS["flash_attention"]
+    q, k, v = (torch.randn((LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd),
+                           generator=gen, device=DEVICE).to(bf)
+               for _ in range(3))
+    full = flash_attention(q, k, v)
+    e = allclose(f"{name} OLMo prefill", full, flash_plain(q, k, v),
+                 TOL_BF16)
+    check_widened(f"{name} OLMo prefill", full, flash_attention, q, k, v)
+    one = [t[-1:].contiguous() for t in (q, k, v)]
+    lone = flash_attention(*one)
+    e1 = allclose(f"{name} OLMo lone prefill", lone, flash_plain(*one),
+                  TOL_BF16)
+    exact(f"{name} row 3 of b=4 == b=1", full[-1:], lone)
+    rep.note_err(name, max(e, e1))
+    log(f"  {name} {tuple(q.shape)} causal: max|d| {e:.3g}; b=1: {e1:.3g}; "
+        "row 3 of b=4 == b=1 and == fp32 on the widened operands, bitwise")
+    torch.cuda.synchronize()
+    return {"gemm": gemms, "attn": (q, k, v)}
+
+
+def schedule_launches(srv, cfg, waves: list[int]) -> dict:
+    """Launches per kernel that ``ServeEngine.run`` must make for waves of
+    ``waves`` requests of ``LM_PROMPT`` tokens and ``LM_NEW`` new tokens:
+    each matmul of a schedule runs on its regime's kernel once per layer
+    (the head once per pass), each prefill attention on flash once per
+    layer."""
+    kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
+    out = {"sa_conv_matmul": 0, "sa_fc_matmul": 0,
+           "flash_attention": cfg.n_layers * len(waves)}
+    for b in waves:
+        for sched, passes in (
+                (srv._schedule("prefill", b, LM_PROMPT), 1),
+                (srv.decode_schedule if b == srv.batch_size
+                 else srv._schedule("decode", b), LM_NEW - 1)):
+            for key in sched:
+                per = 1 if key.name == "lm_head" else cfg.n_layers
+                out[kernel[sched[key].regime]] += per * passes
+    return out
+
+
+def serve_lm_bf16(rep: Report, cfg, params) -> dict:
+    """``ServeEngine`` with bf16 parameters, compute and cache: every
+    matmul a schedule hit, launches as the schedules say, no plain version
+    called; the teacher-forced logits of two requests on the kernels no
+    farther from the ``"torch"`` backend's bf16 logits than those are from
+    its fp32 logits (on the same weights, widened), and the lone request's
+    served logits bitwise its teacher-forced ones.  A request served in a
+    wave of 4 is only compared, not bounded: the plain PyTorch ops around
+    the kernels (norms, decode attention) may sum in another order at b =
+    4 than at b = 1, which moves bf16 roundings."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.serve.engine import ServeEngine
+
+    bf = torch.bfloat16
+    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ,
+                      cache_dtype=bf)
+    if srv.engine.backend != "kernels":
+        raise AssertionError("ServeEngine's default backend is not kernels")
+    for r in lm_requests(cfg):
+        srv.submit(r)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with srv.engine.tracing() as tr:
+        done = srv.run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    c = counters()
+    full = LM_REQUESTS // LM_BATCH
+    waves = [LM_BATCH] * full + ([LM_REQUESTS % LM_BATCH]
+                                 if LM_REQUESTS % LM_BATCH else [])
+    want = schedule_launches(srv, cfg, waves)
+    expect_counts(c, "ServeEngine.run bf16", **want)
+    mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")]
+    if not mm or any(x.schedule != "hit" or x.dtype != "bfloat16"
+                     or x.weight_dtype != "bfloat16" for x in mm):
+        raise AssertionError("ServeEngine.run bf16: a matmul missed its "
+                             "schedule or ran in another dtype")
+    if len(done) != LM_REQUESTS or not all(r.done for r in done):
+        raise AssertionError(f"served {len(done)} of {LM_REQUESTS}")
+    logits = np.stack([r.logits for r in done])
+    if logits.shape != (LM_REQUESTS, LM_NEW, cfg.vocab_size) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"logits {logits.shape} not finite or shaped")
+    log(f"  served {LM_REQUESTS} requests (waves {waves}) in {first_s:.2f}s "
+        f"(schedules compiled on the way); {len(mm)} matmuls, all bf16 "
+        f"schedule hits; launches {c} == the schedules' {want}")
+    rep.detail["lm_bf16_launches_per_run"] = c
+
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = widen_tree(params)
+    plain = Engine(backend="torch")
+    err = spread = served = 0.0
+    covered = 0
+    sq = {"kernels_vs_torch": 0.0, "torch_bf16_vs_fp32": 0.0}
+    for r in (done[0], done[-1]):
+        got = teacher_forced(cfg, params, r.prompt, r.output, srv.engine, bf)
+        want16 = teacher_forced(cfg, params, r.prompt, r.output, plain, bf)
+        want32 = teacher_forced(cfg32, params32, r.prompt, r.output, plain)
+        if not (torch.isfinite(got).all() and torch.isfinite(want16).all()):
+            raise AssertionError("teacher-forced bf16 logits not finite")
+        err = max(err, (got - want16).abs().max().item())
+        s = (want16 - want32).abs().max().item()
+        spread = max(spread, s)
+        sq["kernels_vs_torch"] += (got - want16).double().pow(2).mean().item()
+        sq["torch_bf16_vs_fp32"] += \
+            (want16 - want32).double().pow(2).mean().item()
+        covered += check_tokens(f"request {r.uid} bf16", want16, r.output,
+                                dict(atol=s))
+        served_r = torch.from_numpy(r.logits)
+        if r is done[-1]:
+            # the lone request was served at b = 1, as it is fed here
+            exact(f"request {r.uid} served bf16 logits == teacher-forced",
+                  served_r, got)
+        served = max(served, (served_r - got).abs().max().item())
+    del params32
+    torch.cuda.empty_cache()
+    d = rep.detail
+    d["lm_bf16_logits_max_abs_err"] = err
+    d["lm_bf16_vs_fp32_spread"] = spread
+    d["lm_bf16_served_vs_teacher_forced"] = served
+    rms = {k: (v / 2) ** 0.5 for k, v in sq.items()}
+    d["lm_bf16_logits_rms"] = rms
+    if not err <= spread:
+        raise AssertionError(f"bf16 logits: kernels vs torch backend max|d| "
+                             f"{err:.4g} > the torch backend's bf16 vs fp32 "
+                             f"spread {spread:.4g}")
+    log(f"  teacher-forced bf16 logits, kernels vs torch backend (requests 0 "
+        f"and 8): max|d| {err:.4g} <= the torch backend's bf16 vs fp32 "
+        f"spread {spread:.4g} (|logits| max {np.abs(logits).max():.3g}); "
+        f"tokens equal at {covered} of {2 * LM_NEW} steps with a clear "
+        f"margin; RMS {rms['kernels_vs_torch']:.4g} against "
+        f"{rms['torch_bf16_vs_fp32']:.4g}; served logits vs teacher-forced: "
+        f"request 8 (b = 1) bitwise, request 0 (served at b = 4) max|d| "
+        f"{served:.4g}")
+    return dict(launches=c)
+
+
+def widen_tree(tree):
+    """A copy of a parameter tree with every bf16 leaf widened to fp32."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: widen_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [widen_tree(v) for v in tree]
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
+
+
+def measure_lm_bf16(rep: Report, shapes: dict) -> None:
+    """Card time of each bf16 kernel at its served shapes, beside its bound
+    (bf16's tensor-core rate for the operations) and the bf16 library
+    call: the GEMM at a full wave's prefill (and a lone request's, m =
+    512), flash at both prefills, SA-FC at a decode step (b = 4)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
+            phase, host=None):
+        b_ms, by = bound(flops, nb, PEAK_BF16_FLOPS)
+        rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=by, flops=flops,
+                             bytes=nb, path="ServeEngine.run bf16",
+                             phase=phase, per_pass=per_pass,
+                             pct_of_bound=100 * b_ms / ms, **(host or {})))
+        log(f"  {kernel:22s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
+            f"({by}, {100 * b_ms / ms:.1f} %, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s)  plain {plain_ms:9.4f}  library {lib_ms:.4f}"
+            f"{host_log(host)}  x{per_pass} per {phase}")
+
+    name = BF16_KERNELS["sa_conv_matmul"]
+    for m, phase in ((LM_BATCH * LM_PROMPT, "prefill"),
+                     (LM_PROMPT, "lone prefill")):
+        for label, x, w, act, per_pass in shapes["gemm"]:
+            h = x[:m].contiguous()
+            n, k = w.shape[1], w.shape[0]
+            out = sa_conv_matmul(h, w, act=act)
+            row(name, f"{label} m={m}",
+                timed(lambda: sa_conv_matmul(h, w, act=act)),
+                timed(lambda: sa_conv_matmul_plain(h, w, act=act), runs=3,
+                      warmup=1) if phase == "prefill" else
+                timed(lambda: sa_conv_matmul_plain(h, w, act=act), runs=2,
+                      warmup=1),
+                timed(lambda: ref.apply_act(torch.mm(h, w), act)),
+                2 * m * n * k, nbytes(h, w, out), per_pass, phase)
+    name = BF16_KERNELS["flash_attention"]
+    n_layers = olmo_bf16_config().n_layers
+    for phase, (q, k, v) in (("prefill", shapes["attn"]),
+                             ("lone prefill", [t[-1:].contiguous()
+                                               for t in shapes["attn"]])):
+        b, s, hh, d = q.shape
+        out = flash_attention(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = s * (s + 1) // 2
+        row(name, f"{tuple(q.shape)} causal, {geometry_log(q)}",
+            timed(lambda: flash_attention(q, k, v)),
+            timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
+            timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)),
+            4 * b * hh * pairs * d, nbytes(q, k, v, out), n_layers, phase)
+    name = BF16_KERNELS["sa_fc_matmul"]
+    for label, x, w, act, per_pass in shapes["gemm"]:
+        h = x[:LM_BATCH].contiguous()
+        kk, n = w.shape
+        out = sa_fc_matmul(h, w, act=act)
+        kern = functools.partial(sa_fc_matmul, h, w, act=act)
+        row(name, f"{label} b={LM_BATCH}", timed(kern),
+            timed(lambda: sa_fc_plain(h, w, act=act), runs=5, warmup=1),
+            timed(lambda: ref.apply_act(torch.mm(h, w), act)),
+            2 * LM_BATCH * n * kk, nbytes(h, w, out), per_pass, "decode",
+            host=host_costs(kern))
+
+
+# ---------------------------------------------------------------------------
+# conv2d_im2col: the patch matrix on the SA-CONV GEMM (B4), a benchmark
+# reference beside the implicit-GEMM SA-CONV (B2)
+# ---------------------------------------------------------------------------
+def check_im2col(rep: Report, shapes: dict) -> None:
+    """``conv2d_im2col`` against ``conv2d_mpna`` at AlexNet conv2-conv5 (b
+    = 64, fp32, their padded inputs, relu, no pool): within the conv
+    tolerance, one GEMM launch each (and one SA-CONV launch for the shim),
+    timed beside SA-CONV and beside the GEMM alone on the patch matrix."""
+    import torch
+    from repro_torch.kernels.conv2d import (conv2d_im2col, conv2d_mpna,
+                                            im2col)
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
+    for name, xin, p, _, kw in shapes["conv"][1:]:
+        f, b, s = p["f"], p["b"], kw["stride"]
+        reset_counters()
+        got = conv2d_im2col(xin, f, b, stride=s, act="relu")
+        expect_counts(counters(), f"conv2d_im2col {name}", sa_conv_matmul=1)
+        reset_counters()
+        want = conv2d_mpna(xin, f, b, stride=s, act="relu")
+        expect_counts(counters(), f"conv2d_mpna {name}", sa_conv_implicit=1)
+        e = allclose(f"conv2d_im2col {name} vs conv2d_mpna", got, want,
+                     TOL_CONV)
+        rep.note_err("sa_conv_matmul", e)
+        pp, qq, ci, co = f.shape
+        lhs = im2col(xin, pp, qq, s)
+        rhs = f.permute(2, 0, 1, 3).reshape(ci * pp * qq, co)
+        flops = 2 * lhs.shape[0] * lhs.shape[1] * co
+        ms = timed(lambda: conv2d_im2col(xin, f, b, stride=s, act="relu"))
+        gemm_ms = timed(lambda: sa_conv_matmul(lhs, rhs, b, act="relu"))
+        mpna_ms = timed(lambda: conv2d_mpna(xin, f, b, stride=s, act="relu"))
+        rep.rows.append(dict(
+            kernel="sa_conv_matmul", shape=f"conv2d_im2col {name} "
+            f"{tuple(xin.shape)} patches {tuple(lhs.shape)}", ms=ms,
+            gemm_ms=gemm_ms, conv2d_mpna_ms=mpna_ms, flops=flops,
+            patch_bytes=nbytes(lhs), path="conv2d_im2col", per_pass=1,
+            max_abs_err=e))
+        log(f"  conv2d_im2col {name}: patches {tuple(lhs.shape)} "
+            f"({nbytes(lhs) / 1e6:.0f} MB), max|d| vs conv2d_mpna {e:.3g}; "
+            f"{ms:.4f} ms (GEMM alone {gemm_ms:.4f}) vs SA-CONV "
+            f"{mpna_ms:.4f} ms; 1 GEMM launch")
+        del lhs, rhs, got, want
+    torch.cuda.synchronize()
+
+
 def geometry_log(q) -> str:
     """The tiling flash_geometry picks for causal self-attention on q."""
     from repro_torch.kernels.attention import flash_geometry
@@ -1546,18 +1972,48 @@ def geometry_log(q) -> str:
             f"{g.ctas} CTAs")
 
 
-def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
+def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
+                 lm_bf16: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
-    OLMo-1B requests) for the SA-CONV GEMM and flash attention.  Times sum
-    one unit of that path at its shapes: a b=64 CNN wave, or a full-wave
-    OLMo prefill (each shape times its launches per prefill).
-    ``launches_by_path`` gives every path's count; ``host_ms``, where
-    measured (SA-FC), sums the same unit timed with the card drained before
-    each call."""
+    OLMo-1B requests, fp32) for the SA-CONV GEMM and flash attention.
+    Times sum one unit of that path at its shapes: a b=64 CNN wave, or a
+    full-wave OLMo prefill (each shape times its launches per prefill).
+    Then one entry per bf16 kernel (``<kernel>[bf16]``), read on the bf16
+    ``ServeEngine.run`` (OLMo-1B as published): a full-wave prefill for
+    the GEMM and flash, a decode step at b = 4 for SA-FC, bounded by bf16's
+    tensor-core rate.  ``launches_by_path`` gives every path's count;
+    ``host_ms``, where measured (SA-FC), sums the same unit timed with the
+    card drained before each call."""
+    def entry(name, kernel, path, launches, rows, peak):
+        if not rows:
+            raise AssertionError(f"{name}: no timing on {path}")
+
+        def total(key):
+            return sum(r[key] * r["per_pass"] for r in rows)
+
+        lib = [r["library_ms"] for r in rows]
+        t_ops = total("flops") / peak * 1e3
+        t_bytes = total("bytes") / PEAK_BYTES_PER_S * 1e3
+        source, replaces = SOURCES[kernel]
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, path=path,
+            launches_by_path={"CNNServer.run": cnn[kernel],
+                              "ServeEngine.run": lm[kernel],
+                              "ServeEngine.run bf16": lm_bf16[kernel]},
+            max_abs_err=rep.err[name],
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            host_ms=None if any(r.get("host_ms") is None for r in rows)
+            else total("host_ms"),
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None if any(v is None for v in lib) else
+            sum(v * r["per_pass"] for v, r in zip(lib, rows)))
+
     out = []
-    for kernel, (source, replaces) in SOURCES.items():
+    for kernel in SOURCES:
         if kernel == "maxpool_act":
             path, launches = "Engine.conv2d, pool fusion declined", declined
         elif kernel in CNN_KERNELS:
@@ -1568,28 +2024,15 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict) -> dict:
         rows = [r for r in rep.rows if r["kernel"] == kernel
                 and r["path"] == timing and not r["shape"].endswith("int8")
                 and r.get("phase", "prefill") == "prefill"]
-        if not rows:
-            raise AssertionError(f"{kernel}: no timing on {path}")
-
-        def total(key):
-            return sum(r[key] * r["per_pass"] for r in rows)
-
-        lib = [r["library_ms"] for r in rows]
-        t_ops = total("flops") / PEAK_FP32_FLOPS * 1e3
-        t_bytes = total("bytes") / PEAK_BYTES_PER_S * 1e3
-        out.append(dict(
-            name=kernel, route="cuda", source=source, replaces=replaces,
-            launches=launches[kernel], path=path,
-            launches_by_path={"CNNServer.run": cnn[kernel],
-                              "ServeEngine.run": lm[kernel]},
-            max_abs_err=rep.err[kernel],
-            ms=total("ms"), plain_ms=total("plain_ms"),
-            host_ms=None if any(r.get("host_ms") is None for r in rows)
-            else total("host_ms"),
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None if any(v is None for v in lib) else
-            sum(v * r["per_pass"] for v, r in zip(lib, rows))))
+        out.append(entry(kernel, kernel, path, launches[kernel], rows,
+                         PEAK_FP32_FLOPS))
+    for kernel, name in BF16_KERNELS.items():
+        phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
+        rows = [r for r in rep.rows if r["kernel"] == name
+                and r["path"] == "ServeEngine.run bf16"
+                and r["phase"] == phase]
+        out.append(entry(name, kernel, "ServeEngine.run bf16",
+                         lm_bf16[kernel], rows, PEAK_BF16_FLOPS))
     return {"kernels": out}
 
 
@@ -1628,7 +2071,9 @@ def main() -> int:
     log("== phase 5: times (median of 25, CUDA events, L2 flushed, card "
         "held busy)")
     measure(rep, shapes, params, images_np)
-    del params, qparams
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        check_im2col(rep, shapes)
+    del params, qparams, shapes["conv"], shapes["fc"], shapes["pool"]
     torch.cuda.empty_cache()
 
     from repro_torch.models import transformer as T
@@ -1646,9 +2091,25 @@ def main() -> int:
         "fewer runs)")
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         measure_lm(rep, lm_shapes)
+    del lm_params, lm_shapes
+    torch.cuda.empty_cache()
+
+    log("== phase 7: ServeEngine, full-width OLMo-1B as published (bf16 "
+        "parameters, compute and cache)")
+    cfg16 = olmo_bf16_config()
+    params16 = T.init_params(cfg16, SEED, device=DEVICE)
+    log(f"  OLMo-1B bf16: {cfg16.n_params() / 1e9:.3f} B parameters, "
+        f"{cache_bytes(params16) / 1e9:.2f} GB on the card (with the "
+        "contiguous tied-head copy)")
+    bf16_shapes = check_lm_kernels_bf16(rep, cfg16, params16)
+    bf16_served = serve_lm_bf16(rep, cfg16, params16)
+    lm_throughput(rep, cfg16, params16, torch.bfloat16, prefix="lm_bf16")
+    log("  bf16 times (median of 25, CUDA events, L2 flushed, card held "
+        "busy; bound: bf16 operations at 989 TFLOP/s or bytes)")
+    measure_lm_bf16(rep, bf16_shapes)
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
-                        lm_served["launches"])
+                        lm_served["launches"], bf16_served["launches"])
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

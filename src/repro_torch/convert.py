@@ -20,7 +20,11 @@ from repro_torch.core.quant import QTensor
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":    # numpy has no bf16: widen, then round
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_from_reference(params: list, *, device=None) -> list:

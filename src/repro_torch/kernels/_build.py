@@ -38,14 +38,14 @@ _F = ctypes.c_float
 #: C signature (argument types) of each library's launch function
 SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
-              (_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
+              (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
                          (_P, _P, _I, _P, _P, _P) + (_I,) * 18 + (_P,)),
     "pool_act": ("pool_act_launch", (_P, _P) + (_I,) * 10 + (_P,)),
     "sa_conv": ("sa_conv_launch",
-                (_P, _P, _I, _P, _P, _P) + (_I,) * 6 + (_P,)),
+                (_P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 6 + (_P,)),
     "attention": ("flash_attention_launch",
-                  (_P,) * 4 + (_I,) * 6 + (_L,) * 9
+                  (_P,) * 4 + (_I,) * 7 + (_L,) * 9
                   + (_I, _I, _F, _F, _I, _I, _P)),
 }
 

@@ -2,7 +2,8 @@
 CUDA kernel (``csrc/attention.cu``) with its plain PyTorch version.
 
 ``flash_attention(q, k, v)`` takes q (b, sq, hq, d) and k/v (b, skv, hkv,
-d) in fp32 (GQA: hq % hkv == 0) and returns (b, sq, hq, d): causal with
+d), all fp32 or all bf16 (GQA: hq % hkv == 0), and returns (b, sq, hq, d)
+in their dtype (scores, softmax and P V in fp32 either way): causal with
 queries aligned to the end of the keys, an optional sliding ``window`` and
 a tanh logit ``softcap``.  For CPU tensors it runs :func:`flash_plain`
 (:func:`repro_torch.kernels.ref.attention`); for CUDA tensors it launches
@@ -31,6 +32,9 @@ BQ = (64, 128)
 BKV = 64
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: element types the kernel is instantiated for, and their codes
+#: (csrc/common.cuh Kind)
+DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 #: padded row of a warp's half tile of probabilities (csrc/attention.cu PH)
 PH = 36
 #: modelled card time, in microseconds at d = 128, of one kv tile of a query
@@ -97,10 +101,11 @@ def live_tiles(iq: int, sq: int, skv: int, *, causal: bool, window: int,
     return range(begin, end)
 
 
-def smem_bytes(bq: int, d: int) -> int:
+def smem_bytes(bq: int, d: int, itemsize: int = 4) -> int:
     """Dynamic shared memory of a CTA (csrc/attention.cu ``smem_bytes``):
-    the Q tile, two stages of K and V, and the warps' slices of P."""
-    return 4 * ((bq + 4 * BKV) * (d + 4) + bq * PH)
+    the Q tile (fp32), two stages of K and V (``itemsize`` bytes an
+    element), and the warps' slices of P."""
+    return 4 * (bq * (d + 4) + bq * PH) + itemsize * 4 * BKV * (d + 4)
 
 
 def _makespan(works: list[float]) -> float:
@@ -114,7 +119,8 @@ def _makespan(works: list[float]) -> float:
 
 @functools.lru_cache(maxsize=None)
 def flash_geometry(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
-                   causal: bool, window: int) -> FlashGeometry:
+                   causal: bool, window: int,
+                   itemsize: int = 4) -> FlashGeometry:
     """Pick the query-tile height and the pairing of query tiles for a
     launch from its shape alone: each candidate is costed as the card time
     of its CTAs (:data:`TILE_US` per live kv tile, :data:`QTILE_US` per
@@ -131,7 +137,8 @@ def flash_geometry(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
                                   bq=bq))
             work.append(live * TILE_US[bq] + (QTILE_US[bq] if live else 0.0))
         for paired in (False, True):
-            g = FlashGeometry(bq, paired, n, b * hq, smem_bytes(bq, d), 0.0)
+            g = FlashGeometry(bq, paired, n, b * hq,
+                              smem_bytes(bq, d, itemsize), 0.0)
             works = []
             for u in range(g.units):
                 _, tiles = g.cta_tiles(u * g.heads)
@@ -148,8 +155,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("flash_attention: operands on different devices")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("flash_attention: q, k and v must be float32")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in (k, v)):
+        raise TypeError("flash_attention: q, k and v must be all float32 "
+                        f"or all bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -160,8 +169,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
                              "head dim and 16-byte aligned rows")
 
@@ -178,14 +187,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else d ** -0.5)
-    out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    g = flash_geometry(b, sq, skv, hq, hkv, d, bool(causal), int(window))
+    g = flash_geometry(b, sq, skv, hq, hkv, d, bool(causal), int(window),
+                       q.element_size())
     lib = _build.load("attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, hq, hkv, d, *q.stride()[:3], *k.stride()[:3],
+        DTYPES[q.dtype], b, sq, skv, hq, hkv, d, *q.stride()[:3],
+        *k.stride()[:3],
         *v.stride()[:3], int(causal), window, softcap, scale, g.bq,
         int(g.paired), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attention")

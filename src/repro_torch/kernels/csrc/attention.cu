@@ -1,6 +1,9 @@
 // Flash attention on Hopper: out = softmax(mask(cap(q k^T * scale))) v per
-// (batch, query head), q (b, sq, hq, d), k/v (b, skv, hkv, d), fp32, read
-// through their strides; out (b, sq, hq, d) fp32, contiguous.
+// (batch, query head), q (b, sq, hq, d), k/v (b, skv, hkv, d), all fp32 or
+// all bf16, read through their strides; out (b, sq, hq, d) in their type,
+// contiguous.  Scores, softmax and P V run in fp32 for either type, as in
+// the TPU kernel (which widens q, k and v to fp32): bf16 operands are
+// widened where they are read, and the output is rounded once.
 //
 // Replaces: src/repro/kernels/attention.py::flash_attention (Pallas body
 // _flash_kernel): blocked online-softmax attention, causal with queries
@@ -64,6 +67,16 @@
 //    rows of a b = 4 launch equal a b = 1 launch.
 //  * __launch_bounds__(256, 1): up to 255 registers for the 8 x 4 score
 //    tile and 8 x 8 accumulators, no spills.
+//  * bf16 (the type is a template parameter, so the fp32 instantiations are
+//    the code they were before bf16): K and V stream through the same ring
+//    in 2 bytes, 8-byte cp.async copies (as many as fp32's 16-byte ones) into
+//    rows padded by 4 elements, where 8-byte reads of 16 neighbouring rows
+//    fall in distinct banks; each 4-value read is widened to fp32 in
+//    registers.  Q is widened once as it is staged (synchronous loads: it is
+//    staged once per query tile).  The loops and their order are fp32's,
+//    so a bf16 launch equals the fp32 launch on the widened operands,
+//    rounded once.  Not on the tensor cores yet: the bf16 bound is their
+//    rate (989 TFLOP/s), far above these FMAs (kernels/attention.py).
 #include "common.cuh"
 
 namespace {
@@ -78,21 +91,46 @@ struct Strides {                     // in elements; the head dim is contiguous
   long long b, s, h;
 };
 
-template <int D, int RPT>
+// the Q tile (fp32), two stages of K and V (in T), the warps' P slices
+template <int D, int RPT, typename T>
 constexpr int smem_bytes() {
-  return ((16 * RPT + 4 * BKV) * (D + 4) + 16 * RPT * PH) * static_cast<int>(sizeof(float));
+  return (16 * RPT * (D + 4) + 16 * RPT * PH) * static_cast<int>(sizeof(float)) +
+         4 * BKV * (D + 4) * static_cast<int>(sizeof(T));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+// four consecutive elements of a row: 16 bytes of fp32, 8 of bf16
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 __device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// four consecutive bf16 values widened to fp32 (one 8-byte load)
+__device__ __forceinline__ float4 widen4(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
 
 // 2^x in one MUFU op (a result below 2^-126 flushes to 0: far below what
 // a probability next to the row's max of 1 can add)
@@ -103,31 +141,51 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // rows [s0, s0 + ROWS) of one head (base: its row 0) into a (ROWS, D + 4)
-// tile, as 16-byte cp.async copies; rows at or beyond len are zero-filled.
-// Where a row's float4 columns divide the CTA, each thread copies one
-// column of every STEP-th row, its addresses moved by a constant stride.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* base, long long row_stride,
+// tile, as cp.async copies of 4 elements; rows at or beyond len are
+// zero-filled.  Where a row's 4-element columns divide the CTA, each thread
+// copies one column of every STEP-th row, its addresses moved by a
+// constant stride.
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* base, long long row_stride,
                                            int s0, int len) {
   constexpr int NC4 = D / 4;
   if constexpr (THREADS % NC4 == 0) {
     constexpr int STEP = THREADS / NC4;            // rows per pass of the CTA
     const int r0 = threadIdx.x / NC4, c = threadIdx.x % NC4;
-    const float* src = base + (s0 + r0) * row_stride + c * 4;
-    float* d = dst + r0 * (D + 4) + c * 4;
+    const T* src = base + (s0 + r0) * row_stride + c * 4;
+    T* d = dst + r0 * (D + 4) + c * 4;
 #pragma unroll
     for (int it = 0; it < (ROWS + STEP - 1) / STEP; ++it) {
       if (ROWS % STEP == 0 || r0 + it * STEP < ROWS) {
         const bool ok = s0 + r0 + it * STEP < len;
-        cp_async16(d + it * STEP * (D + 4), ok ? src + it * STEP * row_stride : base, ok);
+        cp_async4(d + it * STEP * (D + 4), ok ? src + it * STEP * row_stride : base, ok);
       }
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * NC4; e += THREADS) {
       const int r = e / NC4, c = e % NC4;
       const bool ok = s0 + r < len;
-      cp_async16(dst + r * (D + 4) + c * 4, base + (ok ? (s0 + r) * row_stride : 0) + c * 4, ok);
+      cp_async4(dst + r * (D + 4) + c * 4, base + (ok ? (s0 + r) * row_stride : 0) + c * 4, ok);
     }
+  }
+}
+
+// The query tile into the fp32 Q tile: fp32 rows by cp.async; bf16 rows
+// loaded (8 bytes a thread), widened and stored, zeros past len.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_q(float* dst, const float* base, long long row_stride,
+                                        int s0, int len) {
+  stage_rows<D, ROWS>(dst, base, row_stride, s0, len);
+}
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_q(float* dst, const __nv_bfloat16* base,
+                                        long long row_stride, int s0, int len) {
+  constexpr int NC4 = D / 4;
+  for (int e = threadIdx.x; e < ROWS * NC4; e += THREADS) {
+    const int r = e / NC4, c = e % NC4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s0 + r < len) v = widen4(*reinterpret_cast<const uint2*>(base + (s0 + r) * row_stride + c * 4));
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + c * 4) = v;
   }
 }
 
@@ -148,10 +206,10 @@ __device__ __forceinline__ void kv_range(int iq, int sq, int skv, int causal, in
   }
 }
 
-template <int D, int RPT>
+template <int D, int RPT, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, Strides qs_, Strides ks_,
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out, Strides qs_, Strides ks_,
              Strides vs_, int sq, int skv, int hq, int hkv, int causal, int window,
              float softcap, float scale, int paired) {
   constexpr int BQ = 16 * RPT;       // query rows per tile
@@ -160,8 +218,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DC4 = (NC4 + 15) / 16;   // float4 output columns per lane
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* kvs = qs + BQ * DP;         // [stage][K, V][BKV][DP]
-  float* ps = kvs + 4 * BKV * DP;    // [warp][2 * RPT][PH]
+  T* kvs = reinterpret_cast<T*>(qs + BQ * DP);       // [stage][K, V][BKV][DP]
+  float* ps = reinterpret_cast<float*>(kvs + 4 * BKV * DP);  // [warp][2 * RPT][PH]
 
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int half = lane / 16, x = lane % 16;
@@ -174,11 +232,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int offset = skv - sq;                     // queries sit at the end
   const float scale2 = __fmul_rn(scale, LOG2E);
 
-  const float* qbase = q + bi * qs_.b + h * qs_.h;
-  const float* kbase = k + bi * ks_.b + hk * ks_.h;
-  const float* vbase = v + bi * vs_.b + hk * vs_.h;
+  const T* qbase = q + bi * qs_.b + h * qs_.h;
+  const T* kbase = k + bi * ks_.b + hk * ks_.h;
+  const T* vbase = v + bi * vs_.b + hk * vs_.h;
   auto stage_kv = [&](int stage, int kt) {
-    float* dst = kvs + stage * 2 * BKV * DP;
+    T* dst = kvs + stage * 2 * BKV * DP;
     stage_rows<D, BKV>(dst, kbase, ks_.s, kt * BKV, skv);
     stage_rows<D, BKV>(dst + BKV * DP, vbase, vs_.s, kt * BKV, skv);
   };
@@ -204,7 +262,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kt_begin < kt_end) {
       if (!q_in_flight) {
         if (i > 0) __syncthreads();                // every warp is done with the last Q
-        stage_rows<D, BQ>(qs, qbase, qs_.s, iq * BQ, sq);
+        stage_q<D, BQ>(qs, qbase, qs_.s, iq * BQ, sq);
       }
       if (!in_flight) stage_kv(stage, kt_begin);
       cp_async_commit();
@@ -229,8 +287,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         stage_kv(stage ^ 1, nkt);
         cp_async_commit();
       }
-      const float* ks = kvs + stage * 2 * BKV * DP;
-      const float* vs = ks + BKV * DP;
+      const T* ks = kvs + stage * 2 * BKV * DP;
+      const T* vs = ks + BKV * DP;
       stage ^= 1;
 
       // skip a tile that none of the warp's real rows sees: it would leave
@@ -247,7 +305,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
       if (live) {
         const float* qrow = qs + (w * 2 * RPT + half) * DP;
-        const float* krow = ks + x * DP;
+        const T* krow = ks + x * DP;
 #pragma unroll 8
         for (int dd = 0; dd < D; dd += 4) {
           float4 kv[4];
@@ -270,7 +328,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // tile's Q lands while this one finishes
       if (kt + 1 == kt_end && kt_next >= 0) {
         __syncthreads();                           // every warp is done with Q
-        stage_rows<D, BQ>(qs, qbase, qs_.s, tile1 * BQ, sq);
+        stage_q<D, BQ>(qs, qbase, qs_.s, tile1 * BQ, sq);
         cp_async_commit();
         q_in_flight = true;
       }
@@ -346,7 +404,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int r = 0; r < RPT; ++r) p[r] = lds4(pw + (2 * r + half) * PH + k4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float* vrow = vs + (32 * hf + k4 + e) * DP;
+            const T* vrow = vs + (32 * hf + k4 + e) * DP;
 #pragma unroll
             for (int c = 0; c < DC4; ++c) {
               if (NC4 % 16 && x + 16 * c >= NC4) continue;
@@ -375,46 +433,64 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = r0 + 2 * r + half;
       if (row >= sq) continue;
       const float l = l_run[r] == 0.f ? 1.f : l_run[r];
-      float* o = out + ((static_cast<size_t>(bi) * sq + row) * hq + h) * D;
+      T* o = out + ((static_cast<size_t>(bi) * sq + row) * hq + h) * D;
 #pragma unroll
       for (int c = 0; c < DC4; ++c) {
         if (NC4 % 16 && x + 16 * c >= NC4) continue;
-        *reinterpret_cast<float4*>(o + 4 * (x + 16 * c)) =
-            make_float4(__fdiv_rn(acc[r][c].x, l), __fdiv_rn(acc[r][c].y, l),
-                        __fdiv_rn(acc[r][c].z, l), __fdiv_rn(acc[r][c].w, l));
+        store4(o + 4 * (x + 16 * c),
+               make_float4(__fdiv_rn(acc[r][c].x, l), __fdiv_rn(acc[r][c].y, l),
+                           __fdiv_rn(acc[r][c].z, l), __fdiv_rn(acc[r][c].w, l)));
       }
     }
   }
 }
 
-template <int D, int RPT>
-cudaError_t launch(const float* q, const float* k, const float* v, float* out, Strides qs,
-                   Strides ks, Strides vs, int b, int sq, int skv, int hq, int hkv, int causal,
-                   int window, float softcap, float scale, int paired, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D, RPT>();
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, RPT>,
+template <int D, int RPT, typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
+                   Strides vs, int b, int sq, int skv, int hq, int hkv, int causal, int window,
+                   float softcap, float scale, int paired, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D, RPT, T>();
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D, RPT, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const long long nq = (sq + 16 * RPT - 1) / (16 * RPT);
   const long long ctas = (paired ? (nq + 1) / 2 : nq) * b * hq;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_kernel<D, RPT><<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
-      q, k, v, out, qs, ks, vs, sq, skv, hq, hkv, causal, window, softcap, scale, paired);
+  flash_kernel<D, RPT, T><<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), qs, ks, vs, sq, skv, hq, hkv, causal, window, softcap, scale, paired);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_rows(int bq, const float* q, const float* k, const float* v, float* out,
+template <int D, typename T>
+cudaError_t launch_rows(int bq, const void* q, const void* k, const void* v, void* out,
                         Strides qs, Strides ks, Strides vs, int b, int sq, int skv, int hq,
                         int hkv, int causal, int window, float softcap, float scale, int paired,
                         cudaStream_t stream) {
   switch (bq) {
     case 64:
-      return launch<D, 4>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, softcap,
-                          scale, paired, stream);
+      return launch<D, 4, T>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window,
+                             softcap, scale, paired, stream);
     case 128:
-      return launch<D, 8>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, softcap,
-                          scale, paired, stream);
+      return launch<D, 8, T>(q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal, window,
+                             softcap, scale, paired, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_kind(int kind, int bq, const void* q, const void* k, const void* v, void* out,
+                        Strides qs, Strides ks, Strides vs, int b, int sq, int skv, int hq,
+                        int hkv, int causal, int window, float softcap, float scale, int paired,
+                        cudaStream_t stream) {
+  switch (kind) {
+    case KIND_F32:
+      return launch_rows<D, float>(bq, q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal,
+                                   window, softcap, scale, paired, stream);
+    case KIND_BF16:
+      return launch_rows<D, __nv_bfloat16>(bq, q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv,
+                                           causal, window, softcap, scale, paired, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -422,27 +498,24 @@ cudaError_t launch_rows(int bq, const float* q, const float* k, const float* v, 
 
 }  // namespace
 
-// Head dims: multiples of 16 up to 128; bq: query rows per tile, 64 or 128;
-// paired: a CTA takes query tiles n-1-u and u.  Strides are in elements,
-// for (batch, seq, head); the head dim must be contiguous and every row
-// 16-byte aligned (the wrapper checks).  Returns cudaGetLastError().
+// kind: the type of q, k, v and out (0 fp32, 2 bf16).  Head dims:
+// multiples of 16 up to 128; bq: query rows per tile, 64 or 128; paired: a
+// CTA takes query tiles n-1-u and u.  Strides are in elements, for (batch,
+// seq, head); the head dim must be contiguous and every row 16-byte
+// aligned (the wrapper checks).  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int b, int sq, int skv, int hq, int hkv, int d,
+                                      int kind, int b, int sq, int skv, int hq, int hkv, int d,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kss, long long ksh,
                                       long long vsb, long long vss, long long vsh, int causal,
                                       int window, float softcap, float scale, int bq,
                                       int paired, void* stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(out);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   auto st = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(DIM)                                                                           \
-  case DIM:                                                                                       \
-    return launch_rows<DIM>(bq, qf, kf, vf, of, qs, ks, vs, b, sq, skv, hq, hkv, causal, window, \
-                            softcap, scale, paired, st)
+#define FLASH_CASE(DIM)                                                                          \
+  case DIM:                                                                                      \
+    return launch_kind<DIM>(kind, bq, q, k, v, out, qs, ks, vs, b, sq, skv, hq, hkv, causal,    \
+                            window, softcap, scale, paired, st)
   switch (d) {
     FLASH_CASE(16);
     FLASH_CASE(32);

@@ -70,8 +70,17 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
                     ) -> torch.Tensor:
     """``act((x @ w) * w_scale + b)`` for ``x`` (m, k) and ``w`` (k, n),
     fp32 accumulation; ``w`` may be int8 with (1, n) per-column scales
-    (the scale multiplies the accumulator, as in the kernel epilogue)."""
+    (the scale multiplies the accumulator, as in the kernel epilogue).
+
+    ``w`` is first rounded to ``x``'s dtype, as the reference does (an
+    fp32 ``w`` with bf16 ``x`` rounds to nearest even; int8 and bf16 stay
+    exact), then both are widened to fp32: a product of two bf16 values is
+    exact in fp32, so only the order of the sums differs from the
+    kernels'.  The epilogue runs in fp32 and the result is rounded once to
+    ``out_dtype`` (default ``x``'s)."""
     out_dtype = out_dtype or x.dtype
+    if w.dtype != x.dtype:
+        w = w.to(x.dtype)
     xf = x.to(torch.float32)
     wf = w.to(torch.float32)
     if xf.device.type == "meta":            # shapes only (schedule compile)

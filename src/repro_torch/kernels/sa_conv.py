@@ -3,16 +3,21 @@ regime, as a hand-written CUDA kernel (``csrc/sa_conv.cu``) with its plain
 PyTorch version.
 
 ``sa_conv_matmul`` computes ``act((x @ w) * w_scale + bias)`` for ``x``
-(m, k) fp32 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n) or
-(n,) per-column ``w_scale``), fp32 accumulation, the epilogue once per
-output.  For a CPU tensor it runs :func:`sa_conv_matmul_plain`; for a CUDA
-tensor it launches the kernel on the current stream, or raises.  The
+(m, k) fp32 or bf16 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n)
+or (n,) per-column ``w_scale``): ``w`` rounded to ``x``'s dtype, fp32
+accumulation, the epilogue once per output in fp32, written as
+``out_dtype`` (fp32 or bf16, by default ``x``'s).  For a CPU tensor it
+runs :func:`sa_conv_matmul_plain`; for a CUDA tensor it launches the
+kernel on the current stream, or raises.  The
 planner's TPU tiles do not reach the kernel: it runs 128 x 128 output
 tiles, and :func:`gemm_geometry` mirrors its grid, shared memory and copy
 widths in Python so that the CPU tests reach them.  Ragged m, n and k are masked inside the kernel: no padded copies.
 
 Every output's k sum runs in one thread, in increasing k, whatever m, so
-a row's result is bitwise the same in any launch.
+a row's result is bitwise the same in any launch.  With bf16 ``x``, x and
+w are widened to fp32 in shared memory (w rounded to bf16 first) before
+the same k loop, so the result is the fp32 launch's on the widened
+operands, rounded once; it does not use the tensor cores yet.
 """
 from __future__ import annotations
 
@@ -23,16 +28,18 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.sa_conv_implicit import SM_COUNT
-from repro_torch.kernels.sa_fc import W_KINDS, check_operands
+from repro_torch.kernels.sa_fc import W_KINDS, X_KINDS, check_operands
 
 #: the kernel's tiling (csrc/sa_conv.cu's constants): a CTA of THREADS
 #: threads owns BM x BN outputs, a thread 8 x 8 of them, PER_SM CTAs share
 #: an SM (128 registers a thread); k advances BK per stage of a ring of
-#: STAGES; the x tile is stored k-major with rows of AP floats
+#: STAGES (STAGES_BF16 with bf16 x); the x tile is stored k-major with rows
+#: of AP floats; bf16 x is staged as it lies, rows XRP bytes apart
 BM, BN, THREADS, PER_SM = 128, 128, 256, 2
-BK, STAGES = 16, 4
+BK, STAGES, STAGES_BF16 = 16, 4, 5
 AP = BM + 4
-#: bytes per weight of each weight kind (``W_KINDS``' codes)
+XRP = 48
+#: bytes per element of each operand kind (``W_KINDS``' codes)
 W_BYTES = {0: 4, 1: 1, 2: 2}
 
 
@@ -45,10 +52,15 @@ def copy_bytes(row_bytes: int, address: int = 0) -> int:
     return 16 if a % 16 == 0 else 8 if a % 8 == 0 else 4 if a % 4 == 0 else 0
 
 
-def smem_bytes(w_kind: int) -> int:
+def smem_bytes(w_kind: int, x_kind: int = 0) -> int:
     """Dynamic shared memory of a CTA: the ring of STAGES stages of an x
-    tile (BK x AP floats) and a w tile (BK x BN weights)."""
-    return STAGES * (BK * AP * 4 + BK * BN * W_BYTES[w_kind])
+    tile (BK x AP floats) and a w tile (BK x BN weights); with bf16 x, a
+    ring of STAGES_BF16 stages of BM staged x rows and a w tile, then two
+    x and two w tiles widened to fp32."""
+    w_tile = BK * BN * W_BYTES[w_kind]
+    if x_kind == 0:
+        return STAGES * (BK * AP * 4 + w_tile)
+    return STAGES_BF16 * (BM * XRP + w_tile) + 2 * BK * (AP + BN) * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +72,8 @@ class GemmGeometry:
     row_tiles: int
     col_tiles: int
     smem_bytes: int             # dynamic shared memory per CTA
-    x_copy: int                 # bytes per x copy (4: transposed, k-major)
+    x_copy: int                 # bytes per x copy (fp32: 4, transposed,
+    #                             k-major; bf16: rows as they lie)
     w_copy: int                 # bytes per w copy for rows from an aligned base
 
     @property
@@ -100,13 +113,16 @@ class GemmGeometry:
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_geometry(m: int, n: int, k: int, w_kind: int) -> GemmGeometry:
+def gemm_geometry(m: int, n: int, k: int, w_kind: int,
+                  x_kind: int = 0) -> GemmGeometry:
     """The launch of ``(m, k) @ (k, n)`` with weights of kind ``w_kind``
-    (``W_KINDS``' codes): one CTA per 128 x 128 output tile, row tiles
-    fastest; x in 4-byte copies, w in the widest copies its row length
-    allows (the wrapper narrows them further for an unaligned base)."""
-    return GemmGeometry(-(-m // BM), -(-n // BN), smem_bytes(w_kind), 4,
-                        copy_bytes(n * W_BYTES[w_kind]))
+    and activations of kind ``x_kind`` (``W_KINDS``' codes): one CTA per
+    128 x 128 output tile, row tiles fastest; fp32 x in 4-byte copies,
+    bf16 x and w in the widest copies their row lengths allow (narrower
+    still for an unaligned base: w's from the wrapper, x's in C)."""
+    x_copy = 4 if x_kind == 0 else copy_bytes(k * W_BYTES[x_kind])
+    return GemmGeometry(-(-m // BM), -(-n // BN), smem_bytes(w_kind, x_kind),
+                        x_copy, copy_bytes(n * W_BYTES[w_kind]))
 
 
 def sa_conv_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -128,17 +144,18 @@ def sa_conv_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return sa_conv_matmul_plain(x, w, bias, act=act, w_scale=w_scale,
                                     out_dtype=out_dtype)
-    w_scale = check_operands("sa_conv_matmul", x, w, bias, w_scale,
-                             out_dtype)
+    out_dtype, w_scale, bias = check_operands("sa_conv_matmul", x, w, bias,
+                                              w_scale, out_dtype)
     m, k = x.shape
     n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     w_kind = W_KINDS[w.dtype]
     lib = _build.load("sa_conv")
     err = lib.sa_conv_launch(
-        x.data_ptr(), w.data_ptr(), w_kind,
+        x.data_ptr(), w.data_ptr(), w_kind, X_KINDS[x.dtype],
+        X_KINDS[out_dtype],
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         m, k, n, BN, copy_bytes(n * w.element_size(), w.data_ptr()),

@@ -2,10 +2,13 @@
 (``csrc/sa_fc.cu``) with its plain PyTorch version.
 
 ``sa_fc_matmul`` computes ``act((x @ w) * w_scale + bias)`` for ``x`` (b, k)
-fp32 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n) or (n,)
-per-column ``w_scale``).  For a CPU tensor it runs :func:`sa_fc_plain`; for
-a CUDA tensor it launches the kernel on the current stream, or raises.
-Ragged k, n and b are masked inside the kernel: no padded copies.
+fp32 or bf16 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n) or
+(n,) per-column ``w_scale``), written as ``out_dtype`` (fp32 or bf16, by
+default ``x``'s).  As in the TPU kernel, ``w`` is rounded to ``x``'s dtype,
+products are summed in fp32 and the epilogue runs in fp32.  For a CPU
+tensor it runs :func:`sa_fc_plain`; for a CUDA tensor it launches the
+kernel on the current stream, or raises.  Ragged k, n and b are masked
+inside the kernel: no padded copies.
 
 The kernel splits k into :func:`fc_split` segments, a function of (k, n)
 only, and adds every output's terms in an order fixed by that split, so a
@@ -22,8 +25,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: weight types of the GEMM kernels and their codes
+#: weight types of the GEMM kernels and their codes (csrc/common.cuh Kind)
 W_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+#: activation and output types of the GEMM kernels, the same codes
+X_KINDS = {torch.float32: 0, torch.bfloat16: 2}
 #: columns per CTA at each batch tile the kernel is instantiated for
 #: (``Cfg<WT, RB>::BN`` in csrc/sa_fc.cu, whose launch refuses a width that
 #: differs from its own, so a change to one side fails on the card)
@@ -46,38 +51,47 @@ def sa_fc_plain(x: torch.Tensor, w: torch.Tensor,
 
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor,
                    bias: torch.Tensor | None, w_scale: torch.Tensor | None,
-                   out_dtype) -> torch.Tensor | None:
+                   out_dtype) -> tuple[torch.dtype, torch.Tensor | None,
+                                       torch.Tensor | None]:
     """Refuse what the GEMM kernels (SA-FC and SA-CONV) do not take: a
     device other than CUDA, shapes that do not chain, activations other
-    than fp32, weights other than fp32, bf16 or int8, an output type other
-    than fp32, a scale or bias of another length or type, operands on
-    different devices or not contiguous.  Returns ``w_scale`` flattened."""
+    than fp32 or bf16, weights other than fp32, bf16 or int8, an output
+    type other than fp32 or bf16, a scale or bias of another length or
+    type than fp32 or bf16, operands on different devices or not
+    contiguous.  Returns ``(out_dtype, w_scale, bias)``: the output type
+    resolved (``x``'s by default), ``w_scale`` flattened, and both widened
+    to fp32 (exact: the epilogue runs in fp32)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: x must be float32, got {x.dtype}")
+    if x.dtype not in X_KINDS:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
     if w.dtype not in W_KINDS:
         raise TypeError(f"{name}: w dtype {w.dtype} not supported")
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"{name}: the kernel writes float32")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in X_KINDS:
+        raise TypeError(f"{name}: the kernel writes float32 or bfloat16, "
+                        f"not {out_dtype}")
     n = w.shape[1]
     if w_scale is not None:
         w_scale = w_scale.reshape(-1)
     for what, t in (("w_scale", w_scale), ("bias", bias)):
         if t is None:
             continue
-        if t.dtype != torch.float32 or t.numel() != n:
-            raise ValueError(f"{name}: {what} must be float32 with "
-                             f"{n} elements")
+        if t.dtype not in X_KINDS or t.numel() != n:
+            raise ValueError(f"{name}: {what} must be float32 or bfloat16 "
+                             f"with {n} elements")
     tensors = [x, w] + [t for t in (w_scale, bias) if t is not None]
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
-    return w_scale
+    widen = [None if t is None else t.to(torch.float32)
+             for t in (w_scale, bias)]
+    return out_dtype, widen[0], widen[1]
 
 
 def row_tile(b: int) -> int:
@@ -171,10 +185,11 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return sa_fc_plain(x, w, bias, act=act, w_scale=w_scale,
                            out_dtype=out_dtype)
-    w_scale = check_operands("sa_fc_matmul", x, w, bias, w_scale, out_dtype)
+    out_dtype, w_scale, bias = check_operands("sa_fc_matmul", x, w, bias,
+                                              w_scale, out_dtype)
     b, k = x.shape
     n = w.shape[1]
-    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     plan = fc_launch(b, k, n)
@@ -186,7 +201,8 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
                                   plan.segments * b * n)
     lib = _build.load("sa_fc")
     err = lib.sa_fc_launch(
-        x.data_ptr(), w.data_ptr(), W_KINDS[w.dtype],
+        x.data_ptr(), w.data_ptr(), W_KINDS[w.dtype], X_KINDS[x.dtype],
+        X_KINDS[out_dtype],
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         part.data_ptr() if part is not None else None,

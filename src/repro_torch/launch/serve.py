@@ -2,16 +2,19 @@
 the port's kernels — the counterpart of ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
-        --requests 8 --max-new 16
+        --requests 8 --max-new 16 [--dtype bfloat16]
 
 Runs on the card unless ``--device cpu`` is given (the kernels' plain
-versions then run).
+versions then run).  ``--dtype`` sets the parameters, the compute and the
+KV cache: fp32 by default, or bf16, the dtype every LM config is published
+in.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import all_lm_configs
@@ -29,16 +32,20 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="parameters, compute and KV cache")
     args = ap.parse_args(argv)
 
-    cfg = reduced(all_lm_configs()[args.arch], param_dtype="float32",
-                  compute_dtype="float32")
+    cfg = reduced(all_lm_configs()[args.arch], param_dtype=args.dtype,
+                  compute_dtype=args.dtype)
     if cfg.enc_dec or cfg.vision_tokens:
         raise SystemExit("multimodal serving needs the stubbed frontend "
                          "inputs, which the port does not take yet")
     params = T.init_params(cfg, 0, device=args.device)
     eng = ServeEngine(cfg, params, batch_size=args.batch_size,
-                      max_seq=args.max_seq)
+                      max_seq=args.max_seq,
+                      cache_dtype=getattr(torch, args.dtype))
     rng = np.random.default_rng(0)
     for uid in range(args.requests):
         eng.submit(Request(uid=uid,

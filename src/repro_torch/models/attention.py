@@ -47,7 +47,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention: q (b, 1, hq, d) against cache k/v (b, S, hkv, d)
     with an explicit per-slot validity mask ((S,) or (b, S)); slot order is
     irrelevant once RoPE is burned into the cached keys.  fp32
-    accumulation."""
+    accumulation; the probabilities are rounded to ``v``'s dtype before
+    they multiply it, as the reference rounds them."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
@@ -63,7 +64,11 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.full_like(logits, -1e30))
     pmax = logits.amax(-1, keepdim=True)
     un = torch.exp(logits - pmax)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", un, v.to(torch.float32))
+    # the probabilities meet v in v's dtype, as in the reference (a no-op
+    # for fp32; rounded to bf16 against a bf16 cache); the sum stays fp32
+    out = torch.einsum("bhgqk,bkhd->bqhgd",
+                       un.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
     den = un.sum(-1).permute(0, 3, 1, 2)[..., None]         # (b, q, h, g, 1)
     out = out / torch.clamp(den, min=1e-30)
     return out.reshape(b, sq, hq, d).to(q.dtype)

@@ -9,7 +9,7 @@ two traces compare record for record.
 """
 from __future__ import annotations
 
-from collections.abc import Iterator
+from collections.abc import Iterator, Sequence
 from dataclasses import dataclass
 
 import torch
@@ -112,6 +112,67 @@ def network_stats(name: str, *, in_res: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# classifier head in isolation — the SA-FC workload (paper Fig. 6b: the FC
+# stack holds nearly all of AlexNet's and VGG-16's weights at weight reuse
+# 1, so it is the batch-amortization target the server batches for)
+# ---------------------------------------------------------------------------
+def fc_head(name: str, *, in_res: int | None = None, in_ch: int = 3,
+            width_mult: float = 1.0) -> list[tuple[int, int, str]]:
+    """(fan_in, fan_out, act) of the network's FC stack, its geometry from
+    :func:`network_stats`.  ``width_mult`` scales every dimension alike
+    (at least 8), so a narrowed head keeps its chain of shapes."""
+    spec, _ = NETWORKS[name]
+    fcs = [s for s in spec if s.kind == "fc"]
+    stats = [s for s in network_stats(name, in_res=in_res, in_ch=in_ch)
+             if s.kind == "fc"]
+
+    def scale(d: int) -> int:
+        return max(8, int(d * width_mult))
+
+    return [(scale(st.ifm[2]), scale(st.ofm[2]), s.act)
+            for st, s in zip(stats, fcs)]
+
+
+def init_fc_head(head: Sequence[tuple[int, int, str]],
+                 seed: int | torch.Generator, *, dtype=torch.float32,
+                 device=None) -> list:
+    """``{"w", "b"}`` per layer of ``head``: weights truncated-normal(±3) /
+    sqrt(fan_in) as (fan_in, fan_out), zero biases, drawn on the CPU from a
+    ``torch.Generator`` as :func:`init_cnn` draws its FC layers, then moved
+    to ``device`` — the card unless the caller names another."""
+    dev = resolve_device(device)
+    gen = seed if isinstance(seed, torch.Generator) else \
+        torch.Generator().manual_seed(seed)
+    return [{"w": _fc_weight(fan_in, fan_out, gen).to(device=dev,
+                                                      dtype=dtype),
+             "b": torch.zeros(fan_out, dtype=dtype, device=dev)}
+            for fan_in, fan_out, _ in head]
+
+
+def _fc_weight(fan_in: int, fan_out: int,
+               gen: torch.Generator) -> torch.Tensor:
+    """(fan_in, fan_out) truncated-normal(±3) / sqrt(fan_in), on the CPU."""
+    w = torch.nn.init.trunc_normal_(torch.empty(fan_in, fan_out), a=-3.0,
+                                    b=3.0, generator=gen)
+    return w * fan_in ** -0.5
+
+
+def fc_head_forward(head: Sequence[tuple[int, int, str]], params: list,
+                    x2d: torch.Tensor, *, backend: str = "kernels",
+                    eng: engine.Engine | None = None) -> torch.Tensor:
+    """The classifier head alone, ``(batch, fan_in) -> logits``: every layer
+    an engine-dispatched matmul named ``fc1..`` as in :func:`cnn_forward`,
+    so SA-FC plans, traces and schedules apply unchanged.  ``eng``
+    overrides ``backend``; otherwise an engine is derived from the ambient
+    one."""
+    if eng is None:
+        eng = engine.current().with_(backend=backend)
+    for i, ((_, _, act), p) in enumerate(zip(head, params), start=1):
+        x2d = eng.matmul(x2d, p["w"], p["b"], act=act, name=f"fc{i}")
+    return x2d
+
+
+# ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 def param_shapes(name: str, *, in_res: int | None = None, in_ch: int = 3,
@@ -162,9 +223,7 @@ def init_cnn(name: str, seed: int | torch.Generator, *,
             w = torch.randn(shape, generator=gen) * fan_in ** -0.5
             key = "f"
         else:
-            w = torch.nn.init.trunc_normal_(torch.empty(shape), a=-3.0,
-                                            b=3.0, generator=gen)
-            w = w * shape[0] ** -0.5
+            w = _fc_weight(*shape, gen)
             key = "w"
         params.append({key: w.to(device=dev, dtype=dtype),
                        "b": torch.zeros(shape[-1], dtype=dtype, device=dev)})

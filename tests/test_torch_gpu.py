@@ -628,3 +628,210 @@ def test_serve_engine_on_the_card_matches_the_torch_backend(cuda):
     for uid, r in outs["kernels"].items():
         np.testing.assert_allclose(r.logits[0], outs["torch"][uid].logits[0],
                                    rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# bf16 activations (SA-FC, the SA-CONV GEMM, flash attention)
+# ---------------------------------------------------------------------------
+#: the reference's bf16 kernel tolerance (tests/test_kernels.py)
+TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
+BF16 = torch.bfloat16
+
+
+def _bf16_operands(dev, m, k, n, wdtype):
+    """x (m, k) bf16; w (k, n) in ``wdtype``; its scale; a bias; and the fp32
+    weights the bf16 kernels multiply by (w rounded to bf16, widened)."""
+    x = _t(0, (m, k), dev).to(BF16)
+    w = _t(1, (k, n), dev, k ** -0.5)
+    scale = None
+    if wdtype == "int8":
+        qt = quantize(w)
+        w, scale = qt.q, qt.scale
+        wide = w.float()
+    elif wdtype == "bf16":
+        w = w.to(BF16)
+        wide = w.float()
+    else:
+        wide = w.to(BF16).float()
+    return x, w, scale, _t(2, (n,), dev), wide
+
+
+@pytest.mark.parametrize("b,k,n", [(1, 130, 190), (4, 2048, 2048),
+                                   (33, 512, 384), (70, 1000, 129),
+                                   (4, 8192, 256)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("out", ["bf16", "fp32"])
+def test_sa_fc_bf16_kernel(cuda, b, k, n, wdtype, out):
+    """bf16 x against the plain version within the reference's bf16
+    tolerance; bitwise the fp32 launch on the widened operands, rounded
+    once (the same sums in the same order)."""
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    x, w, scale, bias, wide = _bf16_operands(cuda, b, k, n, wdtype)
+    got = sa_fc_matmul(x, w, bias, act="silu", w_scale=scale,
+                       out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    want = sa_fc_plain(x, w, bias, act="silu", w_scale=scale,
+                       out_dtype=out_dtype)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    fp32 = sa_fc_matmul(x.float(), wide, bias, act="silu", w_scale=scale)
+    assert torch.equal(got, fp32.to(out_dtype))
+
+
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_bf16_every_row_equals_its_b1_result(cuda, wdtype):
+    """Bitwise across row tiles and both launch forms, in bf16."""
+    x, w, scale, bias, _ = _bf16_operands(cuda, 130, 700, 4100, wdtype)
+    alone = torch.cat([sa_fc_matmul(x[i:i + 1].contiguous(), w, bias,
+                                    act="gelu", w_scale=scale)
+                       for i in range(130)])
+    for b in (1, 3, 4, 13, 64, 65, 130):
+        got = sa_fc_matmul(x[:b].contiguous(), w, bias, act="gelu",
+                           w_scale=scale)
+        assert torch.equal(got, alone[:b]), b
+
+
+@pytest.mark.parametrize("k,n", [(300, 260), (301, 261), (302, 262),
+                                 (296, 257)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_bf16_odd_widths_and_unaligned_bases(cuda, k, n, wdtype):
+    """bf16 rows whose bytes are not a multiple of 16 (odd k: element
+    loads), from bases one element into their buffers: the aligned
+    launch's bits, and the plain version's values."""
+    b = 5
+    x, w, scale, bias, _ = _bf16_operands(cuda, b, k, n, wdtype)
+    want = sa_fc_matmul(x, w, bias, act="relu", w_scale=scale)
+    torch.testing.assert_close(
+        want.float(), sa_fc_plain(x, w, bias, act="relu",
+                                  w_scale=scale).float(), **TOL_BF16)
+    xo = torch.empty(b * k + 1, dtype=BF16, device=cuda)[1:].view(b, k)
+    wo = torch.empty(k * n + 1, dtype=w.dtype, device=cuda)[1:].view(k, n)
+    xo.copy_(x)
+    wo.copy_(w)
+    assert torch.equal(sa_fc_matmul(xo, wo, bias, act="relu",
+                                    w_scale=scale), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 2048), (512, 2048, 8192),
+                                   (130, 257, 300), (1000, 1001, 2999),
+                                   (3, 64, 50304)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("out", ["bf16", "fp32"])
+def test_gemm_bf16_kernel(cuda, m, k, n, wdtype, out):
+    """bf16 x against the plain version within the reference's bf16
+    tolerance; bitwise the fp32 launch on the widened operands, rounded
+    once."""
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    x, w, scale, bias, wide = _bf16_operands(cuda, m, k, n, wdtype)
+    got = sa_conv_matmul(x, w, bias, act="silu", w_scale=scale,
+                         out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    if m * n * k <= 2**32:
+        want = sa_conv_matmul_plain(x, w, bias, act="silu", w_scale=scale,
+                                    out_dtype=out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
+    fp32 = sa_conv_matmul(x.float(), wide, bias, act="silu", w_scale=scale)
+    assert torch.equal(got, fp32.to(out_dtype))
+
+
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_gemm_bf16_every_row_equals_its_m1_launch(cuda, wdtype):
+    x, w, scale, bias, _ = _bf16_operands(cuda, 2048, 520, 300, wdtype)
+    full = sa_conv_matmul(x, w, bias, act="relu", w_scale=scale)
+    for m in (1, 3, 130, 257):
+        assert torch.equal(sa_conv_matmul(x[:m].contiguous(), w, bias,
+                                          act="relu", w_scale=scale),
+                           full[:m]), m
+    for r in (0, 1000, 2047):
+        assert torch.equal(sa_conv_matmul(x[r:r + 1].contiguous(), w, bias,
+                                          act="relu", w_scale=scale),
+                           full[r:r + 1]), r
+
+
+@pytest.mark.parametrize("k,n", [(300, 260), (301, 261), (302, 262),
+                                 (296, 257)])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_gemm_bf16_odd_widths_and_unaligned_bases(cuda, k, n, wdtype):
+    """bf16 x rows of 600, 602, 604 and 592 bytes (8-byte, element,
+    4-byte and 16-byte copies) from bases one element into their buffers:
+    the aligned launch's bits, and the plain version's values."""
+    m = 300
+    x, w, scale, bias, _ = _bf16_operands(cuda, m, k, n, wdtype)
+    want = sa_conv_matmul(x, w, bias, act="relu", w_scale=scale)
+    torch.testing.assert_close(
+        want.float(), sa_conv_matmul_plain(x, w, bias, act="relu",
+                                           w_scale=scale).float(),
+        **TOL_BF16)
+    xo = torch.empty(m * k + 1, dtype=BF16, device=cuda)[1:].view(m, k)
+    wo = torch.empty(k * n + 1, dtype=w.dtype, device=cuda)[1:].view(k, n)
+    xo.copy_(x)
+    wo.copy_(w)
+    assert torch.equal(sa_conv_matmul(xo, wo, bias, act="relu",
+                                      w_scale=scale), want)
+    assert tgemm.gemm_geometry(m, n, k, 0, 2).x_copy in (0, 4, 8, 16)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window,softcap", [
+    (4, 512, 512, 16, 16, 128, 0, 0.0), (1, 512, 512, 16, 16, 128, 0, 0.0),
+    (2, 256, 256, 4, 2, 64, 0, 0.0), (1, 256, 256, 8, 8, 32, 64, 0.0),
+    (2, 128, 128, 4, 1, 64, 0, 50.0), (1, 1, 300, 4, 2, 64, 128, 0.0),
+    (2, 200, 200, 2, 2, 48, 0, 0.0)])
+def test_flash_attention_bf16_kernel(cuda, b, sq, skv, hq, hkv, d, window,
+                                     softcap):
+    """bf16 q, k, v (causal, window, GQA, softcap, 1 query): within the
+    reference's bf16 tolerance of the plain version, and bitwise the fp32
+    launch on the widened operands, rounded once."""
+    q = _t(0, (b, sq, hq, d), cuda).to(BF16)
+    k, v = (_t(s, (b, skv, hkv, d), cuda).to(BF16) for s in (1, 2))
+    kw = dict(window=window, softcap=softcap)
+    got = flash_attention(q, k, v, **kw)
+    assert got.dtype == BF16
+    torch.testing.assert_close(got.float(),
+                               flash_plain(q, k, v, **kw).float(), **TOL_BF16)
+    fp32 = flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert torch.equal(got, fp32.to(BF16))
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_attention_bf16_every_head_dim(cuda, d):
+    q, k, v = (_t(s, (2, 300, 4 if s == 0 else 2, d), cuda).to(BF16)
+               for s in range(3))
+    got = flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), flash_plain(q, k, v).float(),
+                               **TOL_BF16)
+    assert torch.equal(got, flash_attention(q.float(), k.float(),
+                                            v.float()).to(BF16))
+
+
+def test_flash_attention_bf16_rows_of_a_wave_equal_a_lone_request(cuda):
+    q, k, v = (_t(s, (4, 512, 16, 128), cuda).to(BF16) for s in range(3))
+    full = flash_attention(q, k, v)
+    for i in (0, 3):
+        one = [t[i:i + 1].contiguous() for t in (q, k, v)]
+        assert torch.equal(full[i:i + 1], flash_attention(*one))
+
+
+def test_bf16_wrappers_refuse_unsupported_mixes(cuda):
+    """A bf16 call with a mix the kernels do not take raises: no cast, no
+    plain fallback."""
+    x = _t(0, (4, 64), cuda).to(BF16)
+    w = _t(1, (64, 32), cuda)
+    for kern in (sa_fc_matmul, sa_conv_matmul):
+        before = (kern.launches, ref.matmul_bias_act.calls)
+        with pytest.raises(TypeError):
+            kern(x.half(), w)
+        with pytest.raises(TypeError):
+            kern(x, w, out_dtype=torch.float16)
+        with pytest.raises(ValueError):
+            kern(x, w, _t(2, (32,), cuda).half())
+        assert (kern.launches, ref.matmul_bias_act.calls) == before
+    q = _t(0, (1, 64, 2, 64), cuda)
+    before = (flash_attention.launches, ref.attention.calls)
+    with pytest.raises(TypeError):
+        flash_attention(q.to(BF16), q, q.to(BF16))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    assert (flash_attention.launches, ref.attention.calls) == before
+    # a bf16 row of 72 bytes is not 16-byte aligned
+    q = _t(0, (1, 8, 2, 52), cuda).to(BF16)[..., :48]
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, q, q)

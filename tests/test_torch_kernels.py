@@ -537,15 +537,17 @@ def test_gemm_sum_order_depends_on_k_alone(k):
 
 def test_gemm_constants_match_the_cuda_source():
     """kernels/sa_conv.py mirrors csrc/sa_conv.cu's tiling and ring, and the
-    ctypes signature has the launch's 13 arguments."""
+    ctypes signature has the launch's 15 arguments."""
     src = (_build.CSRC / "sa_conv.cu").read_text()
     for name, value in (("BM", tgemm.BM), ("BN", tgemm.BN),
                         ("THREADS", tgemm.THREADS), ("PER_SM", tgemm.PER_SM),
-                        ("BK", tgemm.BK), ("STAGES", tgemm.STAGES)):
+                        ("BK", tgemm.BK), ("STAGES", tgemm.STAGES),
+                        ("STAGES_BF16", tgemm.STAGES_BF16),
+                        ("XRP", tgemm.XRP)):
         assert f"constexpr int {name} = {value};" in src, name
     assert "constexpr int AP = BM + 4;" in src
     name, args = _build.SIGNATURES["sa_conv"]
-    assert name == "sa_conv_launch" and len(args) == 13
+    assert name == "sa_conv_launch" and len(args) == 15
 
 
 def test_engine_sa_conv_route_matches_reference():
