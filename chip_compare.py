@@ -120,8 +120,8 @@ def conv_times(cs, params, qparams, gen) -> dict:
     """Card ms of each AlexNet conv layer at b = 64, fp32 and int8."""
     import torch
     from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
-    convs, _ = cs.alexnet_layers(params)
-    qconvs, _ = cs.alexnet_layers(qparams)
+    convs, _ = cs.cnn_layers("alexnet", params)
+    qconvs, _ = cs.cnn_layers("alexnet", qparams)
     x = torch.randn((64, 227, 227, 3), generator=gen, device="cuda")
     out = {}
     for (name, s, p, pool), (_, _, qp, _) in zip(convs, qconvs):
@@ -143,8 +143,8 @@ def fc_times(cs, params, qparams, gen) -> dict:
     import torch
     from repro_torch.kernels.sa_fc import sa_fc_matmul
     from repro_torch.models import transformer as T
-    _, fcs = cs.alexnet_layers(params)
-    _, qfcs = cs.alexnet_layers(qparams)
+    _, fcs = cs.cnn_layers("alexnet", params)
+    _, qfcs = cs.cnn_layers("alexnet", qparams)
     calls = []
     for (name, s, p), (_, _, qp) in zip(fcs, qfcs):
         h = torch.randn((64, p["w"].shape[0]), generator=gen, device="cuda")

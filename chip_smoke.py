@@ -49,7 +49,26 @@ Phases (any failure raises and exits non-zero):
    schedules' ops per regime, no plain version called, and the
    teacher-forced logits no farther from the ``"torch"`` backend's bf16
    logits than those are from its fp32 logits; tokens/s, idle shares and
-   each bf16 kernel's time beside its bound and the bf16 library call.
+   each bf16 kernel's time beside its bound and the bf16 library call;
+8. the model zoo, ``ModelZooServer`` over ``build_zoo(("alexnet", "vgg16",
+   "alexnet-int8"))`` at full width and native resolution (227² and
+   224², waves of 64), and bf16 activations in SA-CONV implicit and the
+   pool (C6).  First SA-CONV in bf16 at AlexNet conv1-conv5 and VGG-16
+   conv1_2, conv3_3 and conv5_3 (b = 64, fp32 and int8 filters, pools
+   fused and unfused) and the pool in bf16 at the ``POOL_SWEEP`` maps:
+   within the bf16 tolerance of the plain versions, bitwise the fp32
+   launch on the widened operands rounded once, fused == conv -> pool and
+   rows == b = 1 bitwise; AlexNet's forward with bf16 activations and the
+   declined-fusion dispatch in bf16, launches counted.  Then the
+   reference example's three-tenant trace (64 requests a tenant) under
+   fifo, smf and edf: every request served once, its logits bitwise its
+   model's single-request forward and within TOL_LOGITS of the torch
+   backend, every dispatch a schedule hit, launches as the stage
+   schedules say, no plain call; the chaos benchmark's full trace under
+   edf with admission control and seeded faults, executed, equal to its
+   modeled schedule with no execution-side quarantine; images/s per
+   policy, a b = 64 wave of each variant, every VGG-16 layer beside its
+   bound and library call, the bf16 kernels' times.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -147,12 +166,31 @@ POOL_SWEEP = (("AlexNet conv1", 55, 96, 3, "fp32"),
               ("VGG-16 conv5_3", 14, 512, 2, "fp32"))
 POOL_BATCH = 64
 #: element types of csrc/pool_act.cu's instantiations, as mangled
-POOL_TYPES = {"f": "fp32", "a": "int8", "h": "uint8", "i": "int32"}
+POOL_TYPES = {"f": "fp32", "a": "int8", "h": "uint8", "i": "int32",
+              "13__nv_bfloat16": "bf16"}
 #: the kernels with bf16 activations, reported again on the bf16 LM path
 #: under these names
 BF16_KERNELS = {k: f"{k}[bf16]" for k in ("sa_conv_matmul",
                                            "flash_attention",
                                            "sa_fc_matmul")}
+#: the CNN kernels with bf16 activations (C6), reported on their bf16
+#: paths under these names
+CNN_BF16_KERNELS = {k: f"{k}[bf16]" for k in ("sa_conv_implicit",
+                                               "maxpool_act")}
+#: phase 8: the zoo's variants at full width and native resolution, the
+#: requests per tenant of the three-tenant trace, the wave size
+ZOO_MODELS = ("alexnet", "vgg16", "alexnet-int8")
+ZOO_RES = {"alexnet": 227, "vgg16": 224}
+ZOO_PER_TENANT = 64
+ZOO_BATCH = 64
+#: SA-CONV launches (each pool fused into its conv) and SA-FC launches a
+#: zoo wave makes, by net
+ZOO_CONVS = {"alexnet": 5, "vgg16": 13}
+ZOO_FCS = 3
+#: the convs phase 8 holds in bf16 (C6)
+BF16_CONV_LAYERS = {"alexnet": ("conv1", "conv2", "conv3", "conv4",
+                                "conv5"),
+                    "vgg16": ("conv1_2", "conv3_3", "conv5_3")}
 #: a template argument of the GEMM-like kernels, as mangled: fp32, int8,
 #: bf16 or a back-reference to a type named before (only bf16 repeats)
 MANGLED_TYPE = r"f|a|13__nv_bfloat16|S\d*_"
@@ -172,7 +210,8 @@ class Report:
     """What the run measured, per kernel and overall."""
 
     def __init__(self) -> None:
-        self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values()]}
+        self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values(),
+                                     *CNN_BF16_KERNELS.values()]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
 
@@ -317,16 +356,16 @@ def pool_ptxas(text: str) -> dict:
     vector bytes; unrolled window, or any) from ptxas's -v output."""
     out = {}
     for m, regs, spills in ptxas_kernels(
-            text, r"pool_act_kernelI(f|a|h|i)Li(\d+)ELi(\d+)E"):
+            text, r"pool_act_kernelI(f|a|h|i|13__nv_bfloat16)Li(\d+)ELi(\d+)E"):
         t, vec, win = m.groups()
         window = "any" if win == "0" else f"{win}x{win}"
         out[f"{POOL_TYPES[t]}, {vec} B, {window}"] = dict(
             registers=regs, spill_bytes=spills)
     # 3 windows (2x2, 3x3, any) for each type and vector: fp32 and int32
-    # at 16, 8 and 4 bytes, int8 and uint8 also at 1
-    if len(out) != 3 * (3 + 3 + 4 + 4):
+    # at 16, 8 and 4 bytes, int8 and uint8 also at 1, bf16 also at 2
+    if len(out) != 3 * (3 + 3 + 4 + 4 + 4):
         raise AssertionError(f"ptxas: {len(out)} pool instantiations, "
-                             "expected 42")
+                             "expected 54")
     return out
 
 
@@ -358,21 +397,24 @@ def sa_fc_ptxas(text: str) -> dict:
 
 
 def sa_conv_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-CONV instantiation (filter
-    rows, columns and stride, 0 for the generic one; pixels x channels per
-    thread; channels per CTA; channels per staged group) from ptxas's -v
-    output."""
+    """Registers and spill bytes of each SA-CONV instantiation (activation
+    type, "bf16 x, " before the key where it is bf16; filter rows, columns
+    and stride, 0 for the generic one; pixels x channels per thread;
+    channels per CTA; channels per staged group) from ptxas's -v output."""
     out = {}
     for m, regs, spills in ptxas_kernels(
-            text, r"sa_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
-                  r"ELi(\d+)ELi(\d+)E"):
-        p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups())
+            text, rf"sa_conv_kernelI({MANGLED_TYPE})Li(\d+)ELi(\d+)ELi(\d+)"
+                  r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"):
+        (x,) = type_names(m.group(1))
+        p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups()[1:])
         shape = f"{p}x{q}/{s}" if p else "generic"
-        out[f"{shape}, {tpx}x{tco} per thread, {tco * g} channels, "
-            f"cpg {cpg}"] = dict(registers=regs, spill_bytes=spills)
-    if len(out) != 11:
+        out[f"{'' if x == 'fp32' else 'bf16 x, '}{shape}, {tpx}x{tco} per "
+            f"thread, {tco * g} channels, cpg {cpg}"] = dict(
+                registers=regs, spill_bytes=spills)
+    # fp32 x: 11; bf16 x: the same less the 8 x 16 tile's three
+    if len(out) != 11 + 8:
         raise AssertionError(f"ptxas: {len(out)} SA-CONV instantiations, "
-                             "not 11")
+                             "not 19")
     return out
 
 
@@ -418,19 +460,25 @@ def _pad(x, pad: int):
     return F.pad(x, (0, 0, pad, pad, pad, pad)).contiguous() if pad else x
 
 
-def alexnet_layers(params):
-    """(name, spec, params, pool) of AlexNet's conv layers, pools paired."""
-    from repro_torch.models.cnn import ALEXNET
-    out, i, ci = [], 0, 0
-    while ALEXNET[i].kind != "fc":
-        s = ALEXNET[i]
-        ci += 1
-        nxt = ALEXNET[i + 1]
+def cnn_layers(net: str, params):
+    """(name, spec, params, pool) of a net's conv layers, each paired with
+    the pool after it, and (name, spec, params) of its FC layers.  VGG-16's
+    convs are named by block (conv1_1 ... conv5_3)."""
+    from repro_torch.models.cnn import NETWORKS
+    spec, _ = NETWORKS[net]
+    out, i, n, block, j = [], 0, 0, 1, 0
+    while spec[i].kind != "fc":
+        s = spec[i]
+        n, j = n + 1, j + 1
+        nxt = spec[i + 1]
         pool = (nxt.kernel, nxt.stride) if nxt.kind == "pool" else None
-        out.append((f"conv{ci}", s, params[i], pool))
+        out.append((f"conv{block}_{j}" if net == "vgg16" else f"conv{n}",
+                    s, params[i], pool))
+        if pool:
+            block, j = block + 1, 0
         i += 2 if pool else 1
-    fcs = [(f"fc{j + 1}", s, params[i + j])
-           for j, s in enumerate(ALEXNET[i:])]
+    fcs = [(f"fc{k + 1}", s, params[i + k])
+           for k, s in enumerate(spec[i:])]
     return out, fcs
 
 
@@ -447,8 +495,8 @@ def check_kernels(rep: Report, params, qparams, images) -> dict:
                                                       sa_conv_plain)
     from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
 
-    convs, fcs = alexnet_layers(params)
-    qconvs, qfcs = alexnet_layers(qparams)
+    convs, fcs = cnn_layers("alexnet", params)
+    qconvs, qfcs = cnn_layers("alexnet", qparams)
     shapes: dict = {"conv": [], "fc": [], "pool": None}
     x = images
     for (name, s, p, pool), (_, _, qp, _) in zip(convs, qconvs):
@@ -923,6 +971,145 @@ def host_log(host: dict | None) -> str:
                                     f"enqueue {host['enqueue_us']:.1f} us")
 
 
+def add_row(rep: Report, kernel: str, path: str, label: str, ms: float,
+            plain_ms: float, lib_ms: float | None, flops: float, nb: int, *,
+            peak: float = PEAK_FP32_FLOPS, per_pass: int = 1,
+            phase: str | None = None, host: dict | None = None,
+            smi: dict | None = None) -> None:
+    """Record and log one timed shape of ``kernel`` on ``path`` beside its
+    bound (operations at ``peak`` or bytes), its plain version and its
+    library call; ``per_pass`` launches of it in one unit of the path's
+    ``phase``."""
+    b_ms, by = bound(flops, nb, peak)
+    rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=by, flops=flops, bytes=nb,
+                         path=path, per_pass=per_pass,
+                         tflops=flops / ms / 1e9,
+                         pct_of_bound=100 * b_ms / ms,
+                         **({} if phase is None else {"phase": phase}),
+                         **(host or {}), **({"smi": smi} if smi else {})))
+    log(f"  {kernel:24s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
+        f"({by}, {100 * b_ms / ms:.1f} %, {flops / ms / 1e9:.1f} TFLOP/s)  "
+        f"plain {plain_ms:9.4f}  library "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}{host_log(host)}"
+        f"{'' if phase is None else f'  x{per_pass} per {phase}'}")
+    if smi:
+        log(f"    back to back for 1 s: SM clock median "
+            f"{smi['sm_clock_mhz_median']:.0f} MHz (min "
+            f"{smi['sm_clock_mhz_min']:.0f}), power up to "
+            f"{smi['power_w_max']:.1f} W ({smi['samples']} nvidia-smi "
+            "samples)")
+
+
+def layer_chain(net: str, params, x) -> tuple[list, list, object]:
+    """``net``'s layers on the card, each fed the kernel output before it:
+    (label, padded input, params, None, conv kwargs) of each conv, (label,
+    input, params, None, act) of each FC (the rows ``cnn_layer_rows``
+    takes; None where phase 3 puts the int8 params), and the logits."""
+    from repro_torch.kernels.sa_conv_implicit import sa_conv_implicit
+    from repro_torch.kernels.sa_fc import sa_fc_matmul
+    convs, fcs = cnn_layers(net, params)
+    conv_rows, fc_rows = [], []
+    for label, s, p, pool in convs:
+        xin = _pad(x, s.pad)
+        pw, ps = pool or (0, 0)
+        kw = dict(stride=s.stride, act=s.act, pool_window=pw, pool_stride=ps)
+        conv_rows.append((label, xin, p, None, kw))
+        x = sa_conv_implicit(xin, p["f"], p["b"], **kw)
+    h = x.reshape(x.shape[0], -1).contiguous()
+    for label, s, p in fcs:
+        fc_rows.append((label, h, p, None, s.act))
+        h = sa_fc_matmul(h, p["w"], p["b"], act=s.act)
+    return conv_rows, fc_rows, h
+
+
+def cnn_layer_rows(rep: Report, path: str, convs: list, fcs: list, *,
+                   plain_runs: int = 20, host: bool = False) -> None:
+    """Each conv and FC of a CNN chain (the rows of ``layer_chain``, or
+    phase 3's with int8 params) first held against its plain version on the
+    same inputs (TOL_CONV, TOL_FC; TOL_BF16 for bf16 activations), then
+    timed beside its bound, its plain version and its library call
+    (``F.conv2d`` with TF32 off on the NCHW view and a channels_last filter
+    in the activations' dtype, ``addmm``); int8 rows where int8 params are
+    given.  ``host`` adds the FC rows' host costs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+                                                      sa_conv_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    def checked(kernel, label, fn, plain, tol, *args, **kw):
+        rep.note_err(kernel, allclose(label, fn(*args, **kw).float(),
+                                      plain(*args, **kw).float(), tol))
+        return functools.partial(fn, *args, **kw)
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for name, xin, p, qp, kw in convs:
+            f, b = p["f"], p["b"]
+            fp32 = xin.dtype == torch.float32
+            kernel = "sa_conv_implicit" if fp32 else \
+                CNN_BF16_KERNELS["sa_conv_implicit"]
+            peak = PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS
+            batch, h, w, ci = xin.shape
+            kk, _, _, co = f.shape
+            oh = (h - kk) // kw["stride"] + 1
+            ow = (w - kk) // kw["stride"] + 1
+            flops = 2 * batch * oh * ow * co * kk * kk * ci
+            label = (f"{name} b={batch} {'fp32' if fp32 else 'bf16'}"
+                     f"{' pool' if kw['pool_window'] else ''}")
+            kern = checked(kernel, label, sa_conv_implicit, sa_conv_plain,
+                           TOL_CONV if fp32 else TOL_BF16, xin, f, b, **kw)
+            out = kern()
+            xc = xin.permute(0, 3, 1, 2)          # NCHW view, channels_last
+            fc = f.to(xin.dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bc = b.to(xin.dtype)
+            add_row(rep, kernel, path, label, timed(kern),
+                    timed(lambda: sa_conv_plain(xin, f, b, **kw),
+                          runs=plain_runs, warmup=1),
+                    timed(lambda: F.conv2d(xc, fc, bc, stride=kw["stride"])),
+                    flops, nbytes(xin, f, b, out), peak=peak)
+            if qp is None:
+                continue
+            qf = qp["f"]
+            qkw = dict(kw, w_scale=qf.scale)
+            label = f"{name} b={batch} int8"
+            kern = checked(kernel, label, sa_conv_implicit, sa_conv_plain,
+                           TOL_CONV, xin, qf.q, qp["b"], **qkw)
+            add_row(rep, kernel, path, label, timed(kern),
+                    timed(lambda: sa_conv_plain(xin, qf.q, qp["b"], **qkw),
+                          runs=plain_runs, warmup=1),
+                    None, flops, nbytes(xin, qf.q, qf.scale, qp["b"], out))
+        for name, h, p, qp, act in fcs:
+            w, b = p["w"], p["b"]
+            flops = 2 * h.shape[0] * w.shape[0] * w.shape[1]
+            label = f"{name} b={h.shape[0]} fp32"
+            kern = checked("sa_fc_matmul", label, sa_fc_matmul, sa_fc_plain,
+                           TOL_FC, h, w, b, act=act)
+            out = kern()
+            add_row(rep, "sa_fc_matmul", path, label, timed(kern),
+                    timed(lambda: sa_fc_plain(h, w, b, act=act),
+                          runs=plain_runs),
+                    timed(lambda: ref.apply_act(torch.addmm(b, h, w), act)),
+                    flops, nbytes(h, w, b, out),
+                    host=host_costs(kern) if host else None)
+            if qp is None:
+                continue
+            qw = qp["w"]
+            label = f"{name} b={h.shape[0]} int8"
+            kern = checked("sa_fc_matmul", label, sa_fc_matmul, sa_fc_plain,
+                           TOL_FC, h, qw.q, qp["b"], act=act,
+                           w_scale=qw.scale)
+            add_row(rep, "sa_fc_matmul", path, label, timed(kern),
+                    timed(lambda: sa_fc_plain(h, qw.q, qp["b"], act=act,
+                                              w_scale=qw.scale),
+                          runs=plain_runs),
+                    None, flops, nbytes(h, qw.q, qw.scale, qp["b"], out),
+                    host=host_costs(kern) if host else None)
+
+
 def pool_map(hw: int, c: int, dtype: str, gen):
     """A sweep map on the card: (POOL_BATCH, hw, hw, c) normal fp32, or
     normal x 32 rounded into int8."""
@@ -1014,73 +1201,17 @@ def measure(rep: Report, shapes: dict, params, images_np) -> None:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.pool_act import maxpool_act
-    from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
-                                                      sa_conv_plain)
-    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
 
-    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, host=None):
-        b_ms, by = bound(flops, nb)
-        rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=by, flops=flops,
-                             bytes=nb, path="CNNServer.run", per_pass=1,
-                             tflops=flops / ms / 1e9,
-                             pct_of_bound=100 * b_ms / ms,
-                             **(host or {})))
-        log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
-            f"({by}, {100 * b_ms / ms:.1f} %, {flops / ms / 1e9:.1f} "
-            f"TFLOP/s)  plain {plain_ms:9.4f}  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'}{host_log(host)}")
-
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for name, xin, p, qp, kw in shapes["conv"]:
-            f, b = p["f"], p["b"]
-            out = sa_conv_implicit(xin, f, b, **kw)
-            batch, h, w, ci = xin.shape
-            kk, _, _, co = f.shape
-            oh = (h - kk) // kw["stride"] + 1
-            ow = (w - kk) // kw["stride"] + 1
-            flops = 2 * batch * oh * ow * co * kk * kk * ci
-            xc = xin.permute(0, 3, 1, 2)          # NCHW view, channels_last
-            fc = f.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            row("sa_conv_implicit", f"{name} b={batch} fp32",
-                timed(lambda: sa_conv_implicit(xin, f, b, **kw)),
-                timed(lambda: sa_conv_plain(xin, f, b, **kw), runs=20),
-                timed(lambda: F.conv2d(xc, fc, b, stride=kw["stride"])),
-                flops, nbytes(xin, f, b, out))
-            qf = qp["f"]
-            qkw = dict(kw, w_scale=qf.scale)
-            row("sa_conv_implicit", f"{name} b={batch} int8",
-                timed(lambda: sa_conv_implicit(xin, qf.q, qp["b"], **qkw)),
-                timed(lambda: sa_conv_plain(xin, qf.q, qp["b"], **qkw),
-                      runs=20),
-                None, flops, nbytes(xin, qf.q, qf.scale, qp["b"], out))
-        for name, h, p, qp, act in shapes["fc"]:
-            w, b = p["w"], p["b"]
-            flops = 2 * h.shape[0] * w.shape[0] * w.shape[1]
-            out = sa_fc_matmul(h, w, b, act=act)
-            fp32 = functools.partial(sa_fc_matmul, h, w, b, act=act)
-            row("sa_fc_matmul", f"{name} b={h.shape[0]} fp32",
-                timed(fp32),
-                timed(lambda: sa_fc_plain(h, w, b, act=act), runs=20),
-                timed(lambda: ref.apply_act(torch.addmm(b, h, w), act)),
-                flops, nbytes(h, w, b, out), host_costs(fp32))
-            qw = qp["w"]
-            int8 = functools.partial(sa_fc_matmul, h, qw.q, qp["b"], act=act,
-                                     w_scale=qw.scale)
-            row("sa_fc_matmul", f"{name} b={h.shape[0]} int8",
-                timed(int8),
-                timed(lambda: sa_fc_plain(h, qw.q, qp["b"], act=act,
-                                          w_scale=qw.scale), runs=20),
-                None, flops, nbytes(h, qw.q, qw.scale, qp["b"], out),
-                host_costs(int8))
-        t = shapes["pool"]
-        out = maxpool_act(t, window=3, stride=2, act="none")
-        tc = t.permute(0, 3, 1, 2)
-        row("maxpool_act", f"conv2 map {tuple(t.shape)} 3/2",
+    cnn_layer_rows(rep, "CNNServer.run", shapes["conv"], shapes["fc"],
+                   host=True)
+    t = shapes["pool"]
+    out = maxpool_act(t, window=3, stride=2, act="none")
+    tc = t.permute(0, 3, 1, 2)
+    add_row(rep, "maxpool_act", "CNNServer.run",
+            f"conv2 map {tuple(t.shape)} 3/2",
             timed(lambda: maxpool_act(t, window=3, stride=2, act="none")),
-            timed(lambda: ref.maxpool_act(t, window=3, stride=2, act="none")),
+            timed(lambda: ref.maxpool_act(t, window=3, stride=2,
+                                          act="none")),
             timed(lambda: F.max_pool2d(tc, 3, 2)),
             out.numel() * 9, nbytes(t, out))
     pool_sweep(rep)
@@ -1532,23 +1663,9 @@ def measure_lm(rep: Report, shapes: dict) -> None:
 
     def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
             phase="prefill", host=None, smi=None):
-        b_ms, by = bound(flops, nb)
-        rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=by, flops=flops,
-                             bytes=nb, path="ServeEngine.run", phase=phase,
-                             per_pass=per_pass, **(host or {}),
-                             **({"smi": smi} if smi else {})))
-        log(f"  {kernel:16s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
-            f"({by}, {flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:9.4f}"
-            f"  library {lib_ms:.4f}{host_log(host)}  x{per_pass} per "
-            f"{phase}")
-        if smi:
-            log(f"    back to back for 1 s: SM clock median "
-                f"{smi['sm_clock_mhz_median']:.0f} MHz (min "
-                f"{smi['sm_clock_mhz_min']:.0f}), power up to "
-                f"{smi['power_w_max']:.1f} W ({smi['samples']} nvidia-smi "
-                "samples)")
+        add_row(rep, kernel, "ServeEngine.run", label, ms, plain_ms, lib_ms,
+                flops, nb, per_pass=per_pass, phase=phase, host=host,
+                smi=smi)
 
     for label, x, w, act, per_pass in shapes["gemm"]:
         m, k = x.shape
@@ -1863,17 +1980,9 @@ def measure_lm_bf16(rep: Report, shapes: dict) -> None:
 
     def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
             phase, host=None):
-        b_ms, by = bound(flops, nb, PEAK_BF16_FLOPS)
-        rep.rows.append(dict(kernel=kernel, shape=label, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=by, flops=flops,
-                             bytes=nb, path="ServeEngine.run bf16",
-                             phase=phase, per_pass=per_pass,
-                             pct_of_bound=100 * b_ms / ms, **(host or {})))
-        log(f"  {kernel:22s} {label:34s} {ms:9.4f} ms  bound {b_ms:8.4f} "
-            f"({by}, {100 * b_ms / ms:.1f} %, {flops / ms / 1e9:.1f} "
-            f"TFLOP/s)  plain {plain_ms:9.4f}  library {lib_ms:.4f}"
-            f"{host_log(host)}  x{per_pass} per {phase}")
+        add_row(rep, kernel, "ServeEngine.run bf16", label, ms, plain_ms,
+                lib_ms, flops, nb, peak=PEAK_BF16_FLOPS, per_pass=per_pass,
+                phase=phase, host=host)
 
     name = BF16_KERNELS["sa_conv_matmul"]
     for m, phase in ((LM_BATCH * LM_PROMPT, "prefill"),
@@ -1916,6 +2025,407 @@ def measure_lm_bf16(rep: Report, shapes: dict) -> None:
             timed(lambda: ref.apply_act(torch.mm(h, w), act)),
             2 * LM_BATCH * n * kk, nbytes(h, w, out), per_pass, "decode",
             host=host_costs(kern))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the model zoo at full width (AlexNet, VGG-16, int8 AlexNet), and
+# bf16 activations through SA-CONV implicit and the pool (C6)
+# ---------------------------------------------------------------------------
+def zoo_launches(decisions) -> dict:
+    """Launches per kernel that the executed waves of ``decisions`` must
+    make, from the decisions alone: ZOO_CONVS SA-CONV launches (every pool
+    fused) and ZOO_FCS SA-FC launches per wave of the variant's net, no
+    pool and no GEMM launch.  Dispatch failures and timed-out waves run no
+    kernel."""
+    from repro_torch.configs.registry import get_zoo_model
+    waves = [get_zoo_model(d.model).net for d in decisions
+             if d.fault not in ("dispatch", "timeout")]
+    return dict(sa_conv_implicit=sum(ZOO_CONVS[net] for net in waves),
+                sa_fc_matmul=ZOO_FCS * len(waves))
+
+
+def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
+    """C6 on the card: SA-CONV implicit in bf16 at AlexNet conv1-conv5 and
+    VGG-16 conv1_2, conv3_3, conv5_3 (b = 64, fp32 and int8 filters, pools
+    fused and unfused), the pool in bf16 at every ``POOL_SWEEP`` map.  Each
+    within TOL_BF16 of its plain version and bitwise the fp32 launch on
+    the widened operands, rounded once; fused == conv -> pool kernel and
+    rows of b = 64 == b = 1, bitwise.  Then the two bf16 paths the kernels
+    line reads: AlexNet's forward with bf16 activations (b = 64; its
+    fc1-fc3 within TOL_BF16 of sa_fc_plain and bitwise the fp32 launch on
+    the widened operands, its logits within TOL_BF16 of the torch
+    backend's bf16 forward) and the declined-fusion dispatch in bf16.
+    Returns their launches and the inputs each kernel sees, for timing."""
+    import torch
+    from repro_torch.core.dataflow import PoolSpec
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+                                                      sa_conv_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+    from repro_torch.models import cnn
+    bf16 = torch.bfloat16
+    conv_name = CNN_BF16_KERNELS["sa_conv_implicit"]
+    pool_name = CNN_BF16_KERNELS["maxpool_act"]
+    out: dict = {"conv": [], "pool": None}
+    for net, layers in BF16_CONV_LAYERS.items():
+        chain, _, _ = layer_chain(net, models[net].params, images[net])
+        for label, xin, p, _, conv_kw in chain:
+            if label not in layers:
+                continue
+            xb = xin.to(bf16)
+            pw, ps = conv_kw["pool_window"], conv_kw["pool_stride"]
+            pool = pw > 0
+            kw = dict(stride=conv_kw["stride"], act=conv_kw["act"])
+            qt = quantize(p["f"])
+            for wdtype, f, scale, wide in (
+                    ("fp32", p["f"], None, p["f"].to(bf16).float()),
+                    ("int8", qt.q, qt.scale, qt.q.float())):
+                unfused = None
+                for k in ([dict(kw, pool_window=pw, pool_stride=ps), kw]
+                          if pool else [kw]):
+                    what = (f"{net} {label} bf16 {wdtype}"
+                            f"{' pool' if k.get('pool_window') else ''}")
+                    got = sa_conv_implicit(xb, f, p["b"], w_scale=scale,
+                                           **k)
+                    if got.dtype != bf16:
+                        raise AssertionError(f"{what}: wrote {got.dtype}")
+                    rep.note_err(conv_name, allclose(
+                        what, got.float(), sa_conv_plain(
+                            xb, f, p["b"], w_scale=scale, **k).float(),
+                        TOL_BF16))
+                    exact(f"{what} == fp32 on the widened operands",
+                          got, sa_conv_implicit(xb.float(), wide, p["b"],
+                                                w_scale=scale, **k).to(bf16))
+                    for lo, hi in ((0, 1), (63, 64)):
+                        exact(f"{what} rows {lo}:{hi} of b=64 == b=1",
+                              got[lo:hi], sa_conv_implicit(
+                                  xb[lo:hi].contiguous(), f, p["b"],
+                                  w_scale=scale, **k))
+                    if k is kw:
+                        unfused = got
+                    else:
+                        fused = got
+                if pool:
+                    exact(f"{net} {label} bf16 {wdtype} fused == conv -> "
+                          "pool", fused, maxpool_act(unfused, window=pw,
+                                                     stride=ps, act="none"))
+                    if net == "alexnet" and label == "conv2" and \
+                            wdtype == "fp32":
+                        out["pool"] = unfused
+            if net == "alexnet":
+                out["conv"].append((label, xb, p, None, conv_kw))
+            log(f"  {net} {label} bf16, in {tuple(xb.shape)}: fp32 and int8 "
+                f"filters{', pool fused and unfused' if pool else ''}: "
+                "within TOL_BF16 of the plain version; == the fp32 launch "
+                "on the widened operands, rows == b=1"
+                f"{', fused == conv -> pool' if pool else ''}, bitwise")
+            del xb
+        del chain
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, hw, c, window, dtype in POOL_SWEEP:
+        if dtype != "fp32":
+            continue
+        x = pool_map(hw, c, "fp32", gen).to(bf16)
+        kw = dict(window=window, stride=2)
+        for act in ("none", "relu", "silu"):
+            got = maxpool_act(x, act=act, **kw)
+            if act == "silu":
+                rep.note_err(pool_name, allclose(
+                    f"maxpool_act {label} bf16 silu", got.float(),
+                    ref.maxpool_act(x, act=act, **kw).float(), TOL_BF16))
+                continue
+            exact(f"maxpool_act {label} bf16 {act}", got,
+                  ref.maxpool_act(x, act=act, **kw))
+            exact(f"maxpool_act {label} bf16 {act} == fp32 widened", got,
+                  maxpool_act(x.float(), act=act, **kw).to(bf16))
+        del x
+    log("  maxpool_act bf16 at the POOL_SWEEP maps (b = 64): none and relu "
+        "bitwise the plain version and the fp32 kernel on the widened map; "
+        "silu within TOL_BF16")
+
+    # the bf16 paths of the kernels line
+    params = models["alexnet"].params
+    x = images["alexnet"].to(bf16)
+    eng = Engine(backend="kernels")
+    reset_counters()
+    logits = cnn.cnn_forward("alexnet", params, x, eng=eng)
+    out["launches"] = counters()
+    expect_counts(out["launches"], "AlexNet forward, bf16 activations",
+                  sa_conv_implicit=5, sa_fc_matmul=3)
+    if logits.dtype != bf16 or tuple(logits.shape) != (64, 1000) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bf16 AlexNet logits {logits.dtype} "
+                             f"{tuple(logits.shape)}")
+    for i in (0, 63):
+        exact(f"bf16 AlexNet logits row {i} of b=64 == b=1",
+              logits[i:i + 1], cnn.cnn_forward(
+                  "alexnet", params, x[i:i + 1].contiguous(), eng=eng))
+    # SA-FC in bf16 at the path's shapes: fc1-fc3 of the same forward
+    _, fcs, chained = layer_chain("alexnet", params, x)
+    exact("bf16 AlexNet: the layer chain == cnn_forward", chained, logits)
+    for label, h, p, _, act in fcs:
+        got = sa_fc_matmul(h, p["w"], p["b"], act=act)
+        rep.note_err(BF16_KERNELS["sa_fc_matmul"], allclose(
+            f"bf16 AlexNet {label} b=64", got.float(),
+            sa_fc_plain(h, p["w"], p["b"], act=act).float(), TOL_BF16))
+        # the fp32 weight is rounded to bf16 first, as the reference does
+        check_widened(f"bf16 AlexNet {label} b=64", got, sa_fc_matmul, h,
+                      p["w"].to(bf16), p["b"], act=act)
+    want = cnn.cnn_forward("alexnet", params, x, eng=Engine(backend="torch"))
+    err = allclose("bf16 AlexNet logits vs the torch backend's bf16",
+                   logits.float(), want.float(), TOL_BF16)
+    fp32 = cnn.cnn_forward("alexnet", params, images["alexnet"], eng=eng)
+    rep.detail["alexnet_bf16_logits_vs_torch"] = err
+    log(f"  AlexNet forward, bf16 activations, b=64: 5 SA-CONV + 3 SA-FC "
+        f"launches, rows 0 and 63 == b=1 bitwise; fc1-fc3 within TOL_BF16 "
+        f"of sa_fc_plain and == the fp32 launch on the widened operands; "
+        f"logits within TOL_BF16 of the torch backend's bf16 forward "
+        f"(max|d| {err:.3g}); max|bf16 - fp32 logits| "
+        f"{(logits.float() - fp32).abs().max().item():.3g} (|logits| max "
+        f"{fp32.abs().max().item():.3g})")
+    del chained, fcs, want
+    conv2_in = out["conv"][1][1]
+    reset_counters()
+    with eng.tracing() as tr:
+        got = eng.conv2d(conv2_in, params[2]["f"], params[2]["b"],
+                         act="silu", pool=PoolSpec(3, 2), name="c")
+    out["declined_launches"] = counters()
+    if tr[0].conv_plan.fuse_pool:
+        raise AssertionError("bf16 declined fusion: the planner fused")
+    expect_counts(out["declined_launches"], "bf16 declined fusion",
+                  sa_conv_implicit=1, maxpool_act=1)
+    want = Engine(backend="torch").conv2d(conv2_in, params[2]["f"],
+                                          params[2]["b"], act="silu",
+                                          pool=PoolSpec(3, 2), name="c")
+    rep.note_err(conv_name, allclose("bf16 silu conv + pool", got.float(),
+                                     want.float(), TOL_BF16))
+    log("  engine conv2d(bf16, act=silu, pool 3/2): fusion declined, "
+        "maxpool_act launched in bf16, within TOL_BF16 of the torch backend")
+    del logits, fp32, x
+    return out
+
+
+def check_zoo_serving(rep: Report, models: dict) -> dict:
+    """The example's three-tenant trace (``launch/zoo.py::make_requests``,
+    ZOO_PER_TENANT requests a tenant) at full width and native resolution
+    under fifo, smf and edf: every request served once, its logits bitwise
+    its model's single-request forward on the kernels, within TOL_LOGITS
+    of the torch backend; every dispatch a schedule hit; launches equal to
+    the stage schedules' ops, no plain call.  Returns the fifo run's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.launch import zoo as zl
+    from repro_torch.models import cnn
+    from repro_torch.serve.zoo import POLICIES, ModelZooServer
+    refs: dict = {}
+    launches = {}
+    for policy in ("fifo", "smf", "edf"):
+        zoo = ModelZooServer(zl.fresh(list(models.values())),
+                             policy=POLICIES[policy]())
+        reqs = zl.make_requests(ZOO_PER_TENANT, ZOO_RES, seed=SEED)
+        for r in reqs:
+            zoo.submit(r)
+        reset_counters()
+        t0 = time.perf_counter()
+        report = zoo.serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counters()
+        expect_counts(c, f"zoo {policy}",
+                      **zoo_launches(report.decisions))
+        launches[policy] = c
+        if report.unaccounted or len(report.served) != len(reqs):
+            raise AssertionError(f"zoo {policy}: {len(report.served)} of "
+                                 f"{len(reqs)} served, unaccounted "
+                                 f"{[r.uid for r in report.unaccounted]}")
+        if report.events:
+            raise AssertionError(f"zoo {policy}: events {report.events}")
+        for m in zoo.models.values():
+            for w in m.server.waves:
+                if w.schedule_hits != len(w.trace):
+                    raise AssertionError(
+                        f"zoo {policy} {m.name} wave {w.wave}: "
+                        f"{w.schedule_hits} hits of {len(w.trace)}")
+        for r in report.requests:
+            m = zoo.models[r.model]
+            if r.uid not in refs:
+                x = torch.from_numpy(r.image[None]).cuda()
+                refs[r.uid] = cnn.cnn_forward(
+                    m.spec.net, m.params, x,
+                    eng=m.server.engine).cpu().numpy()[0]
+            if r.logits is None or not np.array_equal(r.logits,
+                                                      refs[r.uid]):
+                raise AssertionError(f"zoo {policy} uid {r.uid} "
+                                     f"({r.model}): logits != its single-"
+                                     "request forward")
+        waves = {m: sum(d.model == m for d in report.decisions)
+                 for m in models}
+        log(f"  {policy}: {len(reqs)} requests in {len(report.decisions)} "
+            f"waves {waves} ({wall:.2f} s, first serve of the policy); "
+            f"logits == single-request forward, bitwise; every dispatch a "
+            f"schedule hit; launches {c}")
+        rep.detail[f"zoo_{policy}_waves"] = [
+            (d.model, d.batch) for d in report.decisions]
+    errs = []
+    reqs = {r.uid: r for r in zl.make_requests(ZOO_PER_TENANT, ZOO_RES,
+                                               seed=SEED)}
+    for m in models.values():
+        uids = [u for u, r in reqs.items() if r.model == m.name][:4]
+        x = torch.from_numpy(np.stack([reqs[u].image for u in uids])).cuda()
+        plain = cnn.cnn_forward(m.spec.net, m.params, x,
+                                eng=Engine(backend="torch")).cpu()
+        errs.append(allclose(
+            f"zoo {m.name} logits vs torch backend",
+            torch.from_numpy(np.stack([refs[u] for u in uids])), plain,
+            TOL_LOGITS))
+    rep.detail["zoo_logits_max_abs_err"] = max(errs)
+    log(f"  logits vs the torch backend (4 requests a variant): max|d| "
+        f"{max(errs):.3g}")
+    return launches["fifo"]
+
+
+def check_zoo_chaos(rep: Report, models: dict) -> None:
+    """The chaos benchmark's full tier trace (a copy in ``launch/zoo.py``)
+    under edf with admission control and the seeded fault mix, executed:
+    statuses, quarantined uids, degraded serves and events equal to the
+    same server's modeled schedule.  No request may be quarantined by an
+    executor exception or a genuine non-finite row (such quarantines are
+    stamped at -1 s): a guard that caught a failing kernel fails here."""
+    import numpy as np
+    from repro_torch.launch import zoo as zl
+    modeled = zl.chaos_server(zl.fresh(list(models.values())),
+                              protected=True)
+    for r in zl.chaos_trace("full", ZOO_RES):
+        modeled.submit(r)
+    want = modeled.serve(execute=False)
+    zoo = zl.chaos_server(zl.fresh(list(models.values())), protected=True)
+    for r in zl.chaos_trace("full", ZOO_RES):
+        zoo.submit(r)
+    reset_counters()
+    got = zoo.serve()
+    c = counters()
+    caught = [e for e in got.events if e.t_s == -1.0]
+    if caught:
+        raise AssertionError(f"chaos: execution-side quarantines {caught}")
+    if zl.outcome(got) != zl.outcome(want):
+        raise AssertionError("chaos: the executed run differs from its "
+                             "modeled schedule")
+    expect_counts(c, "zoo chaos", **zoo_launches(got.decisions))
+    if not all(np.isfinite(r.logits).all() for r in got.served):
+        raise AssertionError("chaos: a served request has non-finite logits")
+    kinds = sorted({e.kind for e in got.events})
+    rep.detail["zoo_chaos"] = dict(
+        requests=len(got.requests), served=len(got.served),
+        shed=len(got.shed), quarantined=[r.uid for r in got.quarantined],
+        degraded_served=got.degraded_served, retries=got.retry_count,
+        waves=len(got.decisions), event_kinds=kinds)
+    log(f"  chaos (edf, admission control, seed {zl.CHAOS['seed']}): "
+        f"{len(got.requests)} requests, served {len(got.served)}, shed "
+        f"{len(got.shed)}, quarantined {len(got.quarantined)}, degraded "
+        f"{got.degraded_served}, retries {got.retry_count}, "
+        f"{len(got.decisions)} wave attempts, events {kinds}; == its "
+        f"modeled schedule, no execution-side quarantine; launches {c}")
+
+
+def measure_zoo(rep: Report, models: dict, images: dict,
+                bf16_shapes: dict) -> None:
+    """Phase 8's numbers: images/s of each policy's ``serve()`` (host
+    clock, warm schedules), the card time of one b = 64 wave of each
+    variant, every VGG-16 layer (SA-CONV and SA-FC, fp32) held against its
+    plain version, then timed beside its bound, its plain version and its
+    library call, and the bf16 kernels at AlexNet's convs and the
+    declined-fusion pool map."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.launch import zoo as zl
+    from repro_torch.models import cnn
+    from repro_torch.serve.zoo import POLICIES, ModelZooServer
+
+    for policy in ("fifo", "smf", "edf"):
+        zoo = ModelZooServer(zl.fresh(list(models.values())),
+                             policy=POLICIES[policy]())
+        reqs = zl.make_requests(ZOO_PER_TENANT, ZOO_RES, seed=SEED)
+        for r in reqs:
+            zoo.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = zoo.serve()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rep.detail[f"zoo_images_per_s_{policy}"] = len(report.served) / sec
+        log(f"  zoo {policy}: {len(report.served)} images in "
+            f"{sec * 1e3:.1f} ms = {len(report.served) / sec:.1f} images/s "
+            "(host clock)")
+    for m in models.values():
+        x = images[m.spec.net]
+        eng = m.server.engine
+        ms = timed(lambda: cnn.cnn_forward(m.spec.net, m.params, x,
+                                           eng=eng), runs=10)
+        cost = m.wave_cost(64)
+        rep.detail[f"zoo_wave_ms_{m.name}"] = ms
+        log(f"  {m.name} b=64 wave: {ms:.4f} ms card time; modeled TPU "
+            f"wave cost (the reference's cost model, not a card time): "
+            f"conv {cost.conv_s * 1e3:.4f} ms, fc {cost.fc_s * 1e3:.4f} ms")
+
+    convs, fcs, _ = layer_chain("vgg16", models["vgg16"].params,
+                                images["vgg16"])
+    cnn_layer_rows(rep, "ModelZooServer.serve vgg16", convs, fcs,
+                   plain_runs=5)
+    del convs, fcs
+    torch.cuda.empty_cache()
+    cnn_layer_rows(rep, "cnn_forward bf16", bf16_shapes["conv"], [],
+                   plain_runs=10)
+    t = bf16_shapes["pool"]
+    out = maxpool_act(t, window=3, stride=2, act="none")
+    tc = t.permute(0, 3, 1, 2)
+    add_row(rep, CNN_BF16_KERNELS["maxpool_act"],
+            "Engine.conv2d bf16, pool fusion declined",
+            f"conv2 map {tuple(t.shape)} 3/2 bf16",
+            timed(lambda: maxpool_act(t, window=3, stride=2, act="none")),
+            timed(lambda: ref.maxpool_act(t, window=3, stride=2,
+                                          act="none")),
+            timed(lambda: F.max_pool2d(tc, 3, 2)), out.numel() * 9,
+            nbytes(t, out))
+
+
+def zoo_phase(rep: Report) -> dict:
+    """Phase 8: build the zoo, check C6, serve, chaos, numbers.  Returns
+    the launches of the zoo's fifo run and of the two bf16 paths."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.zoo import build_zoo
+    models = {m.name: m for m in build_zoo(ZOO_MODELS, seed=SEED,
+                                           in_res=ZOO_RES, width_mult=1.0,
+                                           max_batch=ZOO_BATCH)}
+    for m in models.values():
+        if m.microbatch != ZOO_BATCH:
+            raise AssertionError(f"{m.name}: micro-batch {m.microbatch}")
+        log(f"  {m.name}: {m.spec.net} {m.spec.weight_dtype} at "
+            f"{m.server.in_res}^2, micro-batch {m.microbatch}")
+    rng = np.random.default_rng(SEED)
+    images = {net: torch.from_numpy(rng.standard_normal(
+        (ZOO_BATCH, res, res, 3)).astype(np.float32)).cuda()
+        for net, res in ZOO_RES.items()}
+    log("  C6: bf16 activations through SA-CONV implicit and the pool")
+    bf16 = check_bf16_cnn(rep, models, images)
+    log("  the three-tenant trace under fifo, smf and edf")
+    zoo_launches_fifo = check_zoo_serving(rep, models)
+    log("  chaos")
+    check_zoo_chaos(rep, models)
+    log("  times (CUDA events, L2 flushed, card held busy; bf16 bound at "
+        "989 TFLOP/s)")
+    measure_zoo(rep, models, images, bf16)
+    return dict(zoo=zoo_launches_fifo, bf16=bf16["launches"],
+                declined_bf16=bf16["declined_launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -1973,7 +2483,7 @@ def geometry_log(q) -> str:
 
 
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
-                 lm_bf16: dict) -> dict:
+                 lm_bf16: dict, zoo: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -1983,7 +2493,11 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     Then one entry per bf16 kernel (``<kernel>[bf16]``), read on the bf16
     ``ServeEngine.run`` (OLMo-1B as published): a full-wave prefill for
     the GEMM and flash, a decode step at b = 4 for SA-FC, bounded by bf16's
-    tensor-core rate.  ``launches_by_path`` gives every path's count;
+    tensor-core rate; and one per CNN kernel with bf16 activations (C6):
+    SA-CONV implicit summed over AlexNet's five convs at b = 64 on AlexNet's
+    forward with bf16 activations, the pool at the bf16 declined-fusion
+    dispatch.  ``launches_by_path`` gives every path's count (the zoo's
+    ``ModelZooServer.serve`` among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -2000,9 +2514,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, path=path,
-            launches_by_path={"CNNServer.run": cnn[kernel],
-                              "ServeEngine.run": lm[kernel],
-                              "ServeEngine.run bf16": lm_bf16[kernel]},
+            launches_by_path={p: c[kernel] for p, c in paths.items()},
             max_abs_err=rep.err[name],
             ms=total("ms"), plain_ms=total("plain_ms"),
             host_ms=None if any(r.get("host_ms") is None for r in rows)
@@ -2012,6 +2524,13 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
             library_ms=None if any(v is None for v in lib) else
             sum(v * r["per_pass"] for v, r in zip(lib, rows)))
 
+    paths = {"CNNServer.run": cnn,
+             "Engine.conv2d, pool fusion declined": declined,
+             "ServeEngine.run": lm, "ServeEngine.run bf16": lm_bf16,
+             "ModelZooServer.serve": zoo["zoo"],
+             "cnn_forward bf16": zoo["bf16"],
+             "Engine.conv2d bf16, pool fusion declined":
+                 zoo["declined_bf16"]}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -2033,6 +2552,13 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                 and r["phase"] == phase]
         out.append(entry(name, kernel, "ServeEngine.run bf16",
                          lm_bf16[kernel], rows, PEAK_BF16_FLOPS))
+    for kernel, name in CNN_BF16_KERNELS.items():
+        path = "cnn_forward bf16" if kernel == "sa_conv_implicit" else \
+            "Engine.conv2d bf16, pool fusion declined"
+        rows = [r for r in rep.rows if r["kernel"] == name
+                and r["path"] == path]
+        out.append(entry(name, kernel, path, paths[path][kernel], rows,
+                         PEAK_BF16_FLOPS))
     return {"kernels": out}
 
 
@@ -2107,9 +2633,15 @@ def main() -> int:
     log("  bf16 times (median of 25, CUDA events, L2 flushed, card held "
         "busy; bound: bf16 operations at 989 TFLOP/s or bytes)")
     measure_lm_bf16(rep, bf16_shapes)
+    del params16, bf16_shapes
+    torch.cuda.empty_cache()
+
+    log("== phase 8: ModelZooServer, full-width AlexNet, VGG-16 and int8 "
+        "AlexNet; bf16 activations in SA-CONV implicit and the pool (C6)")
+    zoo = zoo_phase(rep)
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
-                        lm_served["launches"], bf16_served["launches"])
+                        lm_served["launches"], bf16_served["launches"], zoo)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -4,6 +4,7 @@ package's names.  The configs themselves are copies of the reference's
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig
 
@@ -33,3 +34,42 @@ def get_config(arch: str) -> ModelConfig:
 
 def all_lm_configs() -> dict[str, ModelConfig]:
     return {a: get_config(a) for a in _LM_MODULES}
+
+
+# ---------------------------------------------------------------------------
+# CNN zoo models — the multi-tenant serving registry.  Each entry names one
+# *compiled-model variant* the ModelZooServer can hold: the network spec
+# (repro_torch.models.cnn.NETWORKS key), the weight dtype it serves with, and the
+# native input resolution.  Zoo models resolve by name exactly like the LM
+# configs above resolve by arch id.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ZooModelSpec:
+    """One servable model variant of the zoo: ``net`` is the CNN spec key,
+    ``weight_dtype`` the serving weight format (``"float32"`` or
+    ``"int8"`` — int8 params are per-channel QTensors the kernels consume
+    un-dequantized), ``in_res`` the native input resolution."""
+    name: str
+    net: str
+    weight_dtype: str
+    in_res: int
+
+    @property
+    def weight_bytes(self) -> int:
+        return 1 if self.weight_dtype == "int8" else 4
+
+
+ZOO_MODELS: dict[str, ZooModelSpec] = {
+    "alexnet": ZooModelSpec("alexnet", "alexnet", "float32", 227),
+    "vgg16": ZooModelSpec("vgg16", "vgg16", "float32", 224),
+    "alexnet-int8": ZooModelSpec("alexnet-int8", "alexnet", "int8", 227),
+}
+
+
+def get_zoo_model(name: str) -> ZooModelSpec:
+    """Resolve one zoo model by name (the serving twin of
+    :func:`get_config`)."""
+    if name not in ZOO_MODELS:
+        raise KeyError(f"unknown zoo model {name!r}; "
+                       f"known: {tuple(ZOO_MODELS)}")
+    return ZOO_MODELS[name]

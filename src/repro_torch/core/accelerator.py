@@ -67,7 +67,9 @@ ENERGY_PJ = {
 class TPUChip:
     """The planner's cost model (copied field for field from the JAX
     package).  Only the ratio ``peak_flops_bf16 / hbm_bandwidth`` (the
-    regime threshold) and ``vmem_budget`` (the tile budget) reach a plan."""
+    regime threshold) and ``vmem_budget`` (the tile budget) reach a plan;
+    the wave costs of :mod:`repro_torch.core.perf_model` read the rates
+    too, as the reference's TPU roofline."""
     peak_flops_bf16: float = 197e12
     hbm_bandwidth: float = 819e9
     ici_link_bandwidth: float = 50e9
@@ -80,6 +82,14 @@ class TPUChip:
     def ridge_flops_per_byte(self) -> float:
         """Arithmetic-intensity threshold of the SA-CONV/SA-FC dispatch."""
         return self.peak_flops_bf16 / self.hbm_bandwidth
+
+    @property
+    def ici_broadcast_bandwidth(self) -> float:
+        """One-to-all broadcast rate of the mesh (``2 * ici_links``
+        edge-disjoint trees at the link rate), as the cost model of a
+        cooperative sharded wave
+        (:func:`repro_torch.core.perf_model.sharded_wave_cost`) reads it."""
+        return 2 * self.ici_links * self.ici_link_bandwidth
 
 
 MPNA_PAPER = MPNAConfig()

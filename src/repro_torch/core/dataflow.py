@@ -758,3 +758,32 @@ def compulsory_conv_bytes(batch: int, h: int, w: int, ci: int,
     return (batch * h * w * ci * bytes_in + p * q * ci * co * bw
             + batch * oh * ow * co * bytes_out)
 
+
+def pool_roundtrip_bytes(batch: int, oh: int, ow: int, co: int,
+                         pool: PoolSpec, *, bytes_out: int = 4) -> int:
+    """HBM bytes a *standalone* maxpool pass adds on top of an unfused
+    conv -> HBM -> pool composition: the full OFM re-read plus the pooled
+    write (the conv's own OFM write is already inside its plan's
+    ``hbm_bytes``).  The single source of the fused-vs-unfused byte delta
+    reported by :func:`repro_torch.core.perf_model.pallas_conv_traffic`."""
+    poh, pow_ = pool.out(oh, ow)
+    return (batch * oh * ow * co * bytes_out
+            + batch * poh * pow_ * co * bytes_out)
+
+
+def im2col_bytes(batch: int, h: int, w: int, ci: int,
+                 p: int, q: int, co: int, *,
+                 stride: int = 1,
+                 bytes_in: int = 2, bytes_out: int = 4,
+                 bytes_w: int | None = None) -> int:
+    """HBM bytes the *materialized* im2col path moved: the patch matrix
+    ``(batch*oh*ow, p*q*ci)`` is written once and re-read by the GEMM —
+    the kernel-area-times input blowup the implicit-GEMM kernel deletes."""
+    bw = bytes_w if bytes_w is not None else bytes_in
+    oh = (h - p) // stride + 1
+    ow = (w - q) // stride + 1
+    patch = batch * oh * ow * p * q * ci * bytes_in
+    return (batch * h * w * ci * bytes_in        # read input
+            + 2 * patch                          # write + re-read patches
+            + p * q * ci * co * bw
+            + batch * oh * ow * co * bytes_out)

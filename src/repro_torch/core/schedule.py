@@ -215,9 +215,19 @@ class ScheduleRegistry:
     """Multi-model schedule registry keyed by ``(net, dtype_tag, batch)``:
     each :meth:`register` compiles the (conv-stage, fc-stage) pair and files
     it.  Re-registering a key with the same settings is idempotent; with
-    different settings it raises."""
+    different settings it raises.
 
-    def __init__(self) -> None:
+    ``verify=True`` (the reference's compile-time hook into its static
+    schedule analysis) raises ``NotImplementedError``: the port has no
+    static checks yet (grid coverage, shared-memory residency, write
+    races, byte accounting, the determinism lint)."""
+
+    def __init__(self, *, verify: bool = False) -> None:
+        if verify:
+            raise NotImplementedError(
+                "ScheduleRegistry(verify=True): the static schedule checks "
+                "(grid coverage, shared-memory residency, write races, "
+                "byte accounting, the determinism lint) are not ported yet")
         self._stages: dict[tuple[str, str, int],
                            tuple[LayerSchedule, LayerSchedule]] = {}
         self._settings: dict[tuple[str, str, int], tuple] = {}

@@ -40,7 +40,8 @@ SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
               (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
-                         (_P, _P, _I, _P, _P, _P) + (_I,) * 18 + (_P,)),
+                         (_P, _I, _I, _P, _I, _P, _P, _P) + (_I,) * 18
+                         + (_P,)),
     "pool_act": ("pool_act_launch", (_P, _P) + (_I,) * 10 + (_P,)),
     "sa_conv": ("sa_conv_launch",
                 (_P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 6 + (_P,)),

@@ -1,6 +1,6 @@
 // Pooling-&-activation unit on Hopper: out = act(maxpool(x)), NHWC VALID
-// max pool with a square window and stride, for float32, int8, uint8 and
-// int32 maps.
+// max pool with a square window and stride, for float32, bf16, int8, uint8
+// and int32 maps.
 //
 // Replaces: src/repro/kernels/pool_act.py::maxpool_act (Pallas body
 // _pool_act_kernel), the pool that runs on its own whenever the planner
@@ -14,7 +14,11 @@
 //   or int32, 16 int8 or uint8) where c * itemsize and the base address
 //   allow it, else 8, 4 or one element.  VB is a template parameter of this
 //   kernel, chosen by the wrapper from the shape and the pointer; int8 and
-//   uint8 words are maxed four bytes at a time (__vmaxs4, __vmaxu4).
+//   uint8 words are maxed four bytes at a time (__vmaxs4, __vmaxu4), bf16
+//   words two halves at a time: each half widened to fp32 (exact), the
+//   max taken by pool_max and the half it picked kept, so the max is
+//   exact; the act runs in fp32 and rounds once to bf16 (bitwise the
+//   reference's for none and relu).
 //   Neighbouring lanes read neighbouring vectors of a pixel, so every load
 //   and store is coalesced, and the card's thousands of resident lanes keep
 //   enough bytes in flight.
@@ -60,6 +64,23 @@ struct WordOps<float> {
   }
 };
 template <>
+struct WordOps<__nv_bfloat16> {   // two bf16 a word, the first in the low half
+  static __device__ __forceinline__ float lo(uint32_t w) { return __uint_as_float(w << 16); }
+  static __device__ __forceinline__ float hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+  // pool_max's rule on each half: v's half where it is greater or NaN
+  static __device__ __forceinline__ bool takes(float m, float v) { return v > m || is_nan(v); }
+  static __device__ __forceinline__ uint32_t max(uint32_t m, uint32_t v) {
+    const uint32_t l = takes(lo(m), lo(v)) ? v : m;
+    const uint32_t h = takes(hi(m), hi(v)) ? v : m;
+    return (l & 0xffffu) | (h & 0xffff0000u);
+  }
+  static __device__ __forceinline__ uint32_t act(uint32_t v, int act) {
+    const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(apply_act(lo(v), act)));
+    const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(apply_act(hi(v), act)));
+    return l | (h << 16);
+  }
+};
+template <>
 struct WordOps<int32_t> {   // integer maps take none or relu (the wrapper checks)
   static __device__ __forceinline__ uint32_t max(uint32_t m, uint32_t v) {
     return static_cast<int32_t>(v) > static_cast<int32_t>(m) ? v : m;
@@ -83,8 +104,9 @@ struct WordOps<uint8_t> {
   static __device__ __forceinline__ uint32_t act(uint32_t v, int) { return v; }
 };
 
-// A channel vector of VB bytes as 32-bit words; a one-byte vector sits in
-// the low byte of one word (bytewise maxes leave the others out of it).
+// A channel vector of VB bytes as 32-bit words; a one- or two-byte vector
+// sits in the low bytes of one word (bytewise and halfwise maxes leave the
+// others out of it).
 template <int VB>
 struct Vec {
   static constexpr int kWords = VB >= 4 ? VB / 4 : 1;
@@ -102,6 +124,8 @@ __device__ __forceinline__ Vec<VB> load_vec(const char* p) {
     r.w[0] = u.x, r.w[1] = u.y;
   } else if constexpr (VB == 4) {
     r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (VB == 2) {
+    r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
   } else {
     r.w[0] = __ldg(reinterpret_cast<const unsigned char*>(p));
   }
@@ -116,6 +140,8 @@ __device__ __forceinline__ void store_vec(char* p, const Vec<VB>& v) {
     *reinterpret_cast<uint2*>(p) = make_uint2(v.w[0], v.w[1]);
   } else if constexpr (VB == 4) {
     *reinterpret_cast<unsigned int*>(p) = v.w[0];
+  } else if constexpr (VB == 2) {
+    *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(v.w[0]);
   } else {
     *reinterpret_cast<unsigned char*>(p) = static_cast<unsigned char>(v.w[0]);
   }
@@ -203,6 +229,9 @@ cudaError_t by_vector(const PoolArgs& a, int vec_bytes, int blocks, int n, cudaS
     case 16: return by_window<T, 16>(a, blocks, n, st);
     case 8: return by_window<T, 8>(a, blocks, n, st);
     case 4: return by_window<T, 4>(a, blocks, n, st);
+    case 2:
+      if constexpr (sizeof(T) == 2) return by_window<T, 2>(a, blocks, n, st);
+      return cudaErrorInvalidValue;
     case 1:
       if constexpr (sizeof(T) == 1) return by_window<T, 1>(a, blocks, n, st);
       return cudaErrorInvalidValue;
@@ -212,15 +241,15 @@ cudaError_t by_vector(const PoolArgs& a, int vec_bytes, int blocks, int n, cudaS
 
 }  // namespace
 
-// dtype: 0 float32, 1 int8, 2 uint8, 3 int32.  vec_bytes and blocks are
+// dtype: 0 float32, 1 int8, 2 uint8, 3 int32, 4 bf16.  vec_bytes and blocks are
 // pool_geometry's; a geometry the kernel does not take returns
 // cudaErrorInvalidValue (the host's geometry disagrees) before any launch.
 // Returns cudaGetLastError().
 extern "C" int pool_act_launch(const void* x, void* out, int dtype, int n, int h, int w, int c,
                                int window, int stride, int act, int vec_bytes, int blocks,
                                void* stream) {
-  static const int kItem[] = {4, 1, 1, 4};
-  if (dtype < 0 || dtype > 3 || n < 1 || n > 65535 || window < 1 || stride < 1 || h < window ||
+  static const int kItem[] = {4, 1, 1, 4, 2};
+  if (dtype < 0 || dtype > 4 || n < 1 || n > 65535 || window < 1 || stride < 1 || h < window ||
       w < window || c < 1 || vec_bytes < 1)
     return cudaErrorInvalidValue;
   const int item = kItem[dtype];
@@ -249,6 +278,7 @@ extern "C" int pool_act_launch(const void* x, void* out, int dtype, int n, int h
     case 0: return by_vector<float>(a, vec_bytes, blocks, n, st);
     case 1: return by_vector<int8_t>(a, vec_bytes, blocks, n, st);
     case 2: return by_vector<uint8_t>(a, vec_bytes, blocks, n, st);
-    default: return by_vector<int32_t>(a, vec_bytes, blocks, n, st);
+    case 3: return by_vector<int32_t>(a, vec_bytes, blocks, n, st);
+    default: return by_vector<__nv_bfloat16>(a, vec_bytes, blocks, n, st);
   }
 }

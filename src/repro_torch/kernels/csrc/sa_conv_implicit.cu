@@ -1,7 +1,8 @@
 // SA-CONV on Hopper: a direct NHWC x HWIO VALID convolution with stride on
 // a pre-padded input, out = act(conv(x, f) * scale + bias), and with a fused
-// pool out = act(maxpool(conv(x, f) * scale + bias)).  x fp32, f fp32 or
-// int8 (per-output-channel scale), fp32 accumulation, no TF32.
+// pool out = act(maxpool(conv(x, f) * scale + bias)).  x fp32 or bf16, f
+// fp32 or int8 (per-output-channel scale), fp32 accumulation, no TF32; the
+// output fp32, or bf16 for bf16 x.
 //
 // Replaces: src/repro/kernels/sa_conv_implicit.py::sa_conv_implicit
 // (Pallas body _implicit_conv_kernel), with its fused pool epilogue.
@@ -42,6 +43,20 @@
 //    chunk.  fp32 filters stream in 16-byte pieces of 4 output channels;
 //    int8 filters cross memory as 4-byte pieces and each thread widens the
 //    pieces it copied once they land.
+//  * bf16 x (a template parameter beside the tile; the fp32 instantiations
+//    keep their code): a staged pixel's 4 channels lie as they came, in the
+//    first 8 bytes of its 16-byte slot, so the geometry, the addresses and
+//    the tap offsets are fp32's; one 8-byte shared load per pixel and tap,
+//    widened to fp32 by shifts.  An fp32 filter is first rounded to bf16, as
+//    the reference rounds w_tile.astype(patch.dtype): each thread rounds the
+//    pieces it copied once they land (int8 is exact in bf16).  The sums,
+//    scale, bias, pool and act run in fp32 and the output is rounded once,
+//    so a bf16 launch equals the fp32 launch on the widened operands,
+//    rounded once, bitwise.  Pixels of ci % 4 != 0 (or an unaligned base)
+//    take 2-byte loads, which cp.async has not: plain loads and stores into
+//    the stage that no thread reads until the next barrier.  bf16 x runs
+//    the 8 x 8 and 6 x 16 tiles only: in the 8 x 16 tile the widened
+//    pixels spilled the unrolled 3x3 and 5x5 bodies (24-180 bytes).
 //  * A compile-time tap loop for AlexNet's and VGG-16's filters, (p, q,
 //    stride) = (11, 11, 4), (5, 5, 1), (3, 3, 1): the q loop is unrolled
 //    with constant offsets (p too for 3x3; a rolled p loop keeps 5x5 and
@@ -89,11 +104,11 @@ constexpr int MAX_ROWS = 256;
 enum { SG_IMG, SG_R0, SG_PX0, SG_SLOT0, SG_PR0, SG_NPR, SG_C0, SG_FIELDS };
 
 struct ConvArgs {
-  const float* x;
+  const void* x;                     // fp32 or bf16 (the kernel's XT)
   const void* f;
   const float* scale;                // (co,) or null
   const float* bias;                 // (co,) or null
-  float* out;
+  void* out;                         // fp32, or bf16 where out_bf16
   int n, h, w, ci, p, q, co, stride; // padded input dims and filter
   int oh, ow;                        // conv output
   int pw, ps;                        // pool window and stride (1, 1: none)
@@ -107,7 +122,8 @@ struct ConvArgs {
   int chunks;                        // channel chunks
   int act;
   int f_int8;
-  int xvec;                          // bytes per input copy: 16 or 4
+  int out_bf16;                      // bf16 x only
+  int xvec;                          // bytes per input copy: 16 or 4 (fp32), 8 or 2 (bf16)
   int fvec;                          // bytes per filter copy: 16 or 4, 0: element loads
 };
 
@@ -148,11 +164,32 @@ __device__ __forceinline__ float4 lds128(unsigned addr) {
   return v;
 }
 
+// An 8-byte shared-memory load at a 32-bit shared address.
+__device__ __forceinline__ uint2 lds64(unsigned addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// A staged pixel's 4 channels as fp32: 16 bytes of fp32, or the first 8
+// bytes of its slot as bf16, widened exactly (a bf16 is the high half of
+// its fp32).
+template <typename XT>
+__device__ __forceinline__ float4 load_px(unsigned addr) {
+  if constexpr (sizeof(XT) == 4) {
+    return lds128(addr);
+  } else {
+    const uint2 u = lds64(addr);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+}
+
 // One tap of one staged channel group.  base[]: shared byte addresses of
 // the thread's pixels in the stage; xoff: the tap's byte offset (a
 // constant in the specialised instantiations); fr: shared byte address of
 // the group's filter rows for this thread's TCO output channels.
-template <int TPX, int TCO, int BCO, int CPG>
+template <typename XT, int TPX, int TCO, int BCO, int CPG>
 __device__ __forceinline__ void conv_tap(float (&acc)[TPX][TCO], const unsigned (&base)[TPX],
                                          unsigned xoff, unsigned fr) {
   float wv[CPG][TCO];
@@ -165,7 +202,7 @@ __device__ __forceinline__ void conv_tap(float (&acc)[TPX][TCO], const unsigned 
     }
 #pragma unroll
   for (int j = 0; j < TPX; ++j) {
-    const float4 xv = lds128(base[j] + xoff);
+    const float4 xv = load_px<XT>(base[j] + xoff);
     const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
     for (int c = 0; c < CPG; ++c)
@@ -179,7 +216,7 @@ __device__ __forceinline__ void conv_tap(float (&acc)[TPX][TCO], const unsigned 
 // so that each tap's offset is a constant.  base[] is moved row by row and
 // phase by phase (rowb, phb: bytes per staged row and per stride phase) and
 // left as it was found.
-template <int P_, int Q_, int S_, int TPX, int TCO, int BCO, int CPG>
+template <typename XT, int P_, int Q_, int S_, int TPX, int TCO, int BCO, int CPG>
 __device__ __forceinline__ void conv_chunk(float (&acc)[TPX][TCO], unsigned (&base)[TPX],
                                            unsigned fr, int P, int Q, int rowb, int phb) {
   constexpr int PU = (P_ > 0 && P_ <= 3) ? P_ : 1;
@@ -192,26 +229,40 @@ __device__ __forceinline__ void conv_chunk(float (&acc)[TPX][TCO], unsigned (&ba
       for (int k = 0; k < S_; ++k) {
 #pragma unroll
         for (int qq = k; qq < Q_; qq += S_)
-          conv_tap<TPX, TCO, BCO, CPG>(acc, base, (qq / S_) * 16, frow + qq * FTAP);
+          conv_tap<XT, TPX, TCO, BCO, CPG>(acc, base, (qq / S_) * 16, frow + qq * FTAP);
         shift(base, phb);
       }
       shift(base, rowb - S_ * phb);
     } else if constexpr (Q_ > 0) {
 #pragma unroll
-      for (int qq = 0; qq < Q_; ++qq) conv_tap<TPX, TCO, BCO, CPG>(acc, base, qq * 16, frow + qq * FTAP);
+      for (int qq = 0; qq < Q_; ++qq) conv_tap<XT, TPX, TCO, BCO, CPG>(acc, base, qq * 16, frow + qq * FTAP);
       shift(base, rowb);
     } else {
-      for (int qq = 0; qq < Q; ++qq) conv_tap<TPX, TCO, BCO, CPG>(acc, base, qq * 16, frow + qq * FTAP);
+      for (int qq = 0; qq < Q; ++qq) conv_tap<XT, TPX, TCO, BCO, CPG>(acc, base, qq * 16, frow + qq * FTAP);
       shift(base, rowb);
     }
   }
   shift(base, -P * rowb);
 }
 
-// P_, Q_, S_: the filter and stride, or 0 for runtime values (the generic
-// instantiation).  TPX pixels x TCO channels per thread, G channel groups
-// of TCO per CTA, CPG channels per staged group (4, or 3 when ci == 3).
-template <int P_, int Q_, int S_, int TPX, int TCO, int G, int CPG>
+// One output in the launch's output type: fp32 for fp32 x; for bf16 x,
+// bf16 (rounded once) or fp32 as a.out_bf16 says.
+template <typename XT>
+__device__ __forceinline__ void put(const ConvArgs& a, size_t i, float v) {
+  if constexpr (sizeof(XT) == 2) {
+    if (a.out_bf16) {
+      store_out(static_cast<__nv_bfloat16*>(a.out) + i, v);
+      return;
+    }
+  }
+  static_cast<float*>(a.out)[i] = v;
+}
+
+// XT: the activation type, float or __nv_bfloat16.  P_, Q_, S_: the filter
+// and stride, or 0 for runtime values (the generic instantiation).  TPX
+// pixels x TCO channels per thread, G channel groups of TCO per CTA, CPG
+// channels per staged group (4, or 3 when ci == 3).
+template <typename XT, int P_, int Q_, int S_, int TPX, int TCO, int G, int CPG>
 __global__ void __launch_bounds__(THREADS, 1)
 sa_conv_kernel(const ConvArgs a) {
   constexpr int BCO = TCO * G;       // output channels per CTA
@@ -302,6 +353,7 @@ sa_conv_kernel(const ConvArgs a) {
   const int fwg = taps * CPG * BCO;                    // filter words per group
   const int stage = stage_words(a.rin, a.wst, taps, CPG, BCO, NG);
   const int warp = t >> 5, lane = t & 31;
+  const XT* const xg = static_cast<const XT*>(a.x);
 
   // stage channel chunk g (NG groups of 4 channels) into stage buffer st
   auto load_chunk = [&](int g, int st) {
@@ -310,20 +362,29 @@ sa_conv_kernel(const ConvArgs a) {
     unsigned char* sraw = reinterpret_cast<unsigned char*>(sf + NG * fwg);
     const int c0 = g * GROUP * NG;
     for (int sl = warp; sl < nslots; sl += THREADS / 32) {
-      const float* src = a.x + static_cast<size_t>(s_row[sl]) * a.w * a.ci + c0;
+      const XT* src = xg + static_cast<size_t>(s_row[sl]) * a.w * a.ci + c0;
       float* dst = sx + sl * rowp;
       for (int c = lane; c < a.w; c += 32) {
         const int dc = SPLIT ? (c % S_) * ws + c / S_ : c;
-        const float* sp = src + static_cast<size_t>(c) * a.ci;
+        const XT* sp = src + static_cast<size_t>(c) * a.ci;
         for (int gi = 0; gi < NG; ++gi) {
           const int nci = min(CPG, a.ci - c0 - GROUP * gi);
           float* dp = dst + gi * planew + dc * 4;
-          if (a.xvec == 16) {
-            cp_async<16>(dp, nci > 0 ? sp + GROUP * gi : a.x, nci > 0 ? 16 : 0);
-          } else {
+          if constexpr (sizeof(XT) == 4) {
+            if (a.xvec == 16) {
+              cp_async<16>(dp, nci > 0 ? sp + GROUP * gi : xg, nci > 0 ? 16 : 0);
+            } else {
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-              cp_async<4>(dp + k, k < nci ? sp + GROUP * gi + k : a.x, k < nci ? 4 : 0);
+              for (int k = 0; k < 4; ++k)
+                cp_async<4>(dp + k, k < nci ? sp + GROUP * gi + k : xg, k < nci ? 4 : 0);
+            }
+          } else if (a.xvec == 8) {          // the slot's first 8 bytes
+            cp_async<8>(dp, nci > 0 ? sp + GROUP * gi : xg, nci > 0 ? 8 : 0);
+          } else {                           // element loads, zeros past ci
+            unsigned short* dh = reinterpret_cast<unsigned short*>(dp);
+            const unsigned short* sh = reinterpret_cast<const unsigned short*>(sp + GROUP * gi);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) dh[k] = k < nci ? sh[k] : 0;
           }
         }
       }
@@ -391,13 +452,25 @@ sa_conv_kernel(const ConvArgs a) {
           wide[gi * fwg / 4 + e] = make_float4(v.x, v.y, v.z, v.w);
         }
     }
+    if constexpr (sizeof(XT) == 2) {
+      if (!a.f_int8) {                                 // round the fp32 pieces this thread copied
+        float* fw = const_cast<float*>(sf);
+        const int step = a.fvec == 16 ? 4 : 1;         // floats per copy
+        for (int gi = 0; gi < NG; ++gi)
+          for (int e = t; e < fwg / step; e += THREADS)
+            for (int k = 0; k < step; ++k) {
+              float* v = fw + gi * fwg + e * step + k;
+              *v = round_bf16(*v);
+            }
+      }
+    }
     __syncthreads();
     const int ngr = min(NG, (a.ci - g * GROUP * NG + GROUP - 1) / GROUP);   // groups holding channels
 #pragma unroll 1
     for (int gi = 0; gi < ngr; ++gi) {
       const int off = st * stage + gi * planew;        // this stage's group plane
       shift(base, 4 * off);
-      conv_chunk<P_, Q_, S_, TPX, TCO, BCO, CPG>(acc, base,
+      conv_chunk<XT, P_, Q_, S_, TPX, TCO, BCO, CPG>(acc, base,
                                             sbase + 4 * (st * stage + xw + gi * fwg + cg * TCO), P,
                                             Q, 4 * rowp, 16 * ws);
       shift(base, -4 * off);
@@ -426,7 +499,7 @@ sa_conv_kernel(const ConvArgs a) {
       const int col = idx % BCO, i = idx / BCO;
       const int cog = co0 + col;
       if (cog < a.co)
-        a.out[static_cast<size_t>(p0 + i) * a.co + cog] = apply_act(tile[i * BCOP + col], a.act);
+        put<XT>(a, static_cast<size_t>(p0 + i) * a.co + cog, apply_act(tile[i * BCOP + col], a.act));
     }
     return;
   }
@@ -446,11 +519,11 @@ sa_conv_kernel(const ConvArgs a) {
         m = pool_max(m, tp[(dp * a.ow + dq) * BCOP]);
       }
     const size_t orow = static_cast<size_t>(s_seg[s][SG_IMG]) * a.poh + s_seg[s][SG_PR0] + er;
-    a.out[(orow * a.pow_ + ex) * a.co + cog] = apply_act(m, a.act);
+    put<XT>(a, (orow * a.pow_ + ex) * a.co + cog, apply_act(m, a.act));
   }
 }
 
-template <int P, int Q, int S, int TPX, int TCO, int G, int CPG>
+template <typename XT, int P, int Q, int S, int TPX, int TCO, int G, int CPG>
 cudaError_t launch(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
   constexpr int BCO = TCO * G;
   constexpr int CAP = THREADS / G * TPX;
@@ -459,7 +532,7 @@ cudaError_t launch(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
   const int need =
       4 * max(stages * stage_words(a.rin, a.wst, taps, CPG, BCO, a.ng), CAP * (BCO + 1));
   if (need != smem_bytes) return cudaErrorInvalidValue;   // the host's geometry disagrees
-  auto* kern = sa_conv_kernel<P, Q, S, TPX, TCO, G, CPG>;
+  auto* kern = sa_conv_kernel<XT, P, Q, S, TPX, TCO, G, CPG>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -473,24 +546,38 @@ cudaError_t launch(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
 // The tiles of kernels/sa_conv_implicit.py::TILES.  The 8 x 16 tile is not
 // built for the 11x11 filter: its unrolled filter row needs more than 255
 // registers.
-template <int TPX, int TCO, int G>
+template <typename XT, int TPX, int TCO, int G>
 cudaError_t dispatch(const ConvArgs& a, int smem_bytes, cudaStream_t st) {
   if (a.p == 11 && a.q == 11 && a.stride == 4) {
     if constexpr (TPX * TCO > 64) {
       return cudaErrorInvalidValue;
     } else {
-      return a.ci == 3 ? launch<11, 11, 4, TPX, TCO, G, 3>(a, smem_bytes, st)
-                       : launch<11, 11, 4, TPX, TCO, G, 4>(a, smem_bytes, st);
+      return a.ci == 3 ? launch<XT, 11, 11, 4, TPX, TCO, G, 3>(a, smem_bytes, st)
+                       : launch<XT, 11, 11, 4, TPX, TCO, G, 4>(a, smem_bytes, st);
     }
   }
-  if (a.p == 5 && a.q == 5 && a.stride == 1) return launch<5, 5, 1, TPX, TCO, G, 4>(a, smem_bytes, st);
-  if (a.p == 3 && a.q == 3 && a.stride == 1) return launch<3, 3, 1, TPX, TCO, G, 4>(a, smem_bytes, st);
-  return launch<0, 0, 0, TPX, TCO, G, 4>(a, smem_bytes, st);
+  if (a.p == 5 && a.q == 5 && a.stride == 1)
+    return launch<XT, 5, 5, 1, TPX, TCO, G, 4>(a, smem_bytes, st);
+  if (a.p == 3 && a.q == 3 && a.stride == 1)
+    return launch<XT, 3, 3, 1, TPX, TCO, G, 4>(a, smem_bytes, st);
+  return launch<XT, 0, 0, 0, TPX, TCO, G, 4>(a, smem_bytes, st);
+}
+
+// bf16 x has no 8 x 16 tile (kernels/sa_conv_implicit.py::BF16_TILES): its
+// widened pixels push the unrolled 3x3 and 5x5 bodies past 255 registers.
+template <typename XT>
+cudaError_t by_tile(const ConvArgs& a, int tile, int smem_bytes, cudaStream_t st) {
+  if (tile == 0) return dispatch<XT, 8, 8, 4>(a, smem_bytes, st);
+  if constexpr (sizeof(XT) == 4)
+    if (tile == 1) return dispatch<XT, 8, 16, 4>(a, smem_bytes, st);
+  if (tile == 2) return dispatch<XT, 6, 16, 2>(a, smem_bytes, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// f_kind: 0 fp32, 1 int8.  tile: 0 (8 pixels x 8 channels per thread, 512
+// x_kind and out_kind: 0 fp32, 2 bf16 (fp32 x writes fp32).  f_kind: 0
+// fp32, 1 int8.  tile: 0 (8 pixels x 8 channels per thread, 512
 // x 32 per CTA), 1 (8 x 16, 512 x 64) or 2 (6 x 16, 768 x 32).  pw = ps = 1 for no pool.  bands 0:
 // flat pixel tiles of per_cta pixels; else bands per image, emitted rows
 // per band (rows) and bands per CTA (per_cta).  rin: staged input rows of a
@@ -498,17 +585,21 @@ cudaError_t dispatch(const ConvArgs& a, int smem_bytes, cudaStream_t st) {
 // geometry comes from repro_torch/kernels/sa_conv_implicit.py::
 // conv_geometry; smem_bytes must equal what it implies.  Returns the first
 // CUDA error of the attribute call or the launch.
-extern "C" int sa_conv_implicit_launch(const void* x, const void* f, int f_kind,
-                                       const void* scale, const void* bias, void* out, int n,
+extern "C" int sa_conv_implicit_launch(const void* x, int x_kind, int out_kind, const void* f,
+                                       int f_kind, const void* scale, const void* bias, void* out, int n,
                                        int h, int w, int ci, int p, int q, int co, int stride,
                                        int pw, int ps, int tile, int bands, int rows, int per_cta,
                                        int rin, int ng, int act, int smem_bytes, void* stream) {
   ConvArgs a;
-  a.x = static_cast<const float*>(x);
+  if (!(x_kind == KIND_F32 && out_kind == KIND_F32) &&
+      !(x_kind == KIND_BF16 && (out_kind == KIND_F32 || out_kind == KIND_BF16)))
+    return cudaErrorInvalidValue;
+  a.x = x;
   a.f = f;
   a.scale = static_cast<const float*>(scale);
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
+  a.out = out;
+  a.out_bf16 = out_kind == KIND_BF16;
   a.n = n; a.h = h; a.w = w; a.ci = ci; a.p = p; a.q = q; a.co = co; a.stride = stride;
   a.oh = (h - p) / stride + 1;
   a.ow = (w - q) / stride + 1;
@@ -524,15 +615,16 @@ extern "C" int sa_conv_implicit_launch(const void* x, const void* f, int f_kind,
   if (ng < 1 || cpg3 && ng != 1) return cudaErrorInvalidValue;
   a.f_int8 = f_kind == 1;
   const auto addr = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr); };
-  a.xvec = ci % 4 == 0 && addr(x) % 16 == 0 ? 16 : 4;
+  if (x_kind == KIND_F32)
+    a.xvec = ci % 4 == 0 && addr(x) % 16 == 0 ? 16 : 4;
+  else
+    a.xvec = ci % 4 == 0 && addr(x) % 8 == 0 ? 8 : 2;
   if (a.f_int8)
     a.fvec = co % 4 == 0 && addr(f) % 4 == 0 ? 4 : 0;
   else
     a.fvec = co % 4 == 0 && addr(f) % 16 == 0 ? 16 : 4;
   if (f_kind != 0 && f_kind != 1) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (tile == 0) return dispatch<8, 8, 4>(a, smem_bytes, st);
-  if (tile == 1) return dispatch<8, 16, 4>(a, smem_bytes, st);
-  if (tile == 2) return dispatch<6, 16, 2>(a, smem_bytes, st);
-  return cudaErrorInvalidValue;
+  return x_kind == KIND_BF16 ? by_tile<__nv_bfloat16>(a, tile, smem_bytes, st)
+                             : by_tile<float>(a, tile, smem_bytes, st);
 }

@@ -4,8 +4,9 @@ version (:func:`repro_torch.kernels.ref.maxpool_act`).
 
 For a CPU tensor :func:`maxpool_act` runs the plain version; for a CUDA
 tensor it launches the kernel on the current stream, or raises.  float32,
-int8, uint8 and int32 maps are supported; integer maps take ``none`` or
-``relu``.  :func:`pool_geometry` is the launch's geometry (the channel
+bfloat16, int8, uint8 and int32 maps are supported; integer maps take
+``none`` or ``relu``.  A bf16 max is exact; its act runs in fp32 and is
+rounded once.  :func:`pool_geometry` is the launch's geometry (the channel
 vector a thread owns and the grid), in Python so that the CPU tests can
 check it.
 """
@@ -18,7 +19,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_DTYPES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2, torch.int32: 3}
+_DTYPES = {torch.float32: 0, torch.int8: 1, torch.uint8: 2, torch.int32: 3,
+           torch.bfloat16: 4}
+_FLOATS = (torch.float32, torch.bfloat16)
 
 #: threads of a CTA (csrc/pool_act.cu's THREADS)
 THREADS = 256
@@ -118,7 +121,7 @@ def maxpool_act(x: torch.Tensor, *, window: int = 2, stride: int = 2,
         raise ValueError(f"maxpool_act: expected NHWC, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"maxpool_act: dtype {x.dtype} not supported")
-    if x.dtype != torch.float32 and act not in ("none", "relu"):
+    if x.dtype not in _FLOATS and act not in ("none", "relu"):
         raise ValueError(f"maxpool_act: act {act!r} on an integer map")
     if not x.is_contiguous():
         raise ValueError("maxpool_act: x must be contiguous")

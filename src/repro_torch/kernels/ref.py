@@ -137,8 +137,12 @@ def maxpool2d(x: torch.Tensor, *, window: int = 2,
 def maxpool_act(x: torch.Tensor, *, window: int = 2, stride: int = 2,
                 act: str = "relu") -> torch.Tensor:
     """Pooling-&-activation unit: the activation applied AFTER the max
-    (valid for monotone activations — paper Sec. IV-D)."""
-    return apply_act(maxpool2d(x, window=window, stride=stride), act)
+    (valid for monotone activations — paper Sec. IV-D).  A bf16 max is
+    exact; its act runs in fp32 and is rounded once, as the kernel does."""
+    out = maxpool2d(x, window=window, stride=stride)
+    if x.dtype == torch.bfloat16 and act != "none":
+        return apply_act(out.to(torch.float32), act).to(x.dtype)
+    return apply_act(out, act)
 
 
 def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:

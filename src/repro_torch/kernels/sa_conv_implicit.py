@@ -5,8 +5,11 @@ its plain PyTorch version.
 ``sa_conv_implicit`` computes an NHWC x HWIO VALID convolution with stride on
 an input that already carries its zero padding, then ``* w_scale + bias``
 and the activation; with a pool (``pool_window`` > 0) it emits
-``act(maxpool(conv * w_scale + bias))`` directly.  For a CPU tensor it runs
-:func:`sa_conv_plain`; for a CUDA tensor it launches the kernel on the
+``act(maxpool(conv * w_scale + bias))`` directly.  ``x`` is fp32 or bf16;
+as in the TPU kernel an fp32 filter is rounded to ``x``'s dtype, the sums
+and the epilogue run in fp32, and the output is rounded once to
+``out_dtype`` (``x``'s by default; fp32 x writes fp32).  For a CPU tensor it
+runs :func:`sa_conv_plain`; for a CUDA tensor it launches the kernel on the
 current stream, or raises.
 
 The tiling the kernel runs (:func:`conv_geometry`, :func:`conv_tiles`) is
@@ -25,6 +28,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _F_KINDS = {torch.float32: 0, torch.int8: 1}
+#: activation and output types and their codes (csrc/common.cuh Kind):
+#: fp32 x writes fp32, bf16 x writes bf16 or fp32
+_X_KINDS = {torch.float32: 0, torch.bfloat16: 2}
+_OUT_TYPES = {torch.float32: (torch.float32,),
+              torch.bfloat16: (torch.bfloat16, torch.float32)}
 
 THREADS = 256
 #: the CTA tiles the kernel is instantiated for, as (output pixels per
@@ -32,6 +40,10 @@ THREADS = 256
 #: 512 pixels x 32 channels, 512 x 64 and 768 x 32
 #: (csrc/sa_conv_implicit.cu::dispatch holds the same list)
 TILES = ((8, 8, 4), (8, 16, 4), (6, 16, 2))
+#: the tiles instantiated for bf16 x: not 8 x 16, whose widened pixels push
+#: the unrolled 3x3 and 5x5 bodies past 255 registers (ptxas spilled 24-180
+#: bytes on an H100 build)
+BF16_TILES = ((8, 8, 4), (6, 16, 2))
 #: card time per FMA slot of a tile with 8 output channels per thread
 #: against one with 16: 8-15 % more at AlexNet's conv2-conv5 (measured on
 #: an H100 SXM), where a thread's 16 channels halve the pixel loads per FMA
@@ -146,7 +158,7 @@ def _flat_bounds(pixels: int, oh: int, ow: int, stride: int,
 @functools.lru_cache(maxsize=None)
 def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
                   stride: int = 1, pool_window: int = 0,
-                  pool_stride: int = 0) -> ConvGeometry:
+                  pool_stride: int = 0, x_bytes: int = 4) -> ConvGeometry:
     """Pick the CTA tile and the pixel tiling for a conv on a padded
     (h, w, ci) input, from the layer's shape alone.  Every candidate (a
     tile of :data:`TILES`; flat pixel tiles without a pool, every band
@@ -157,7 +169,8 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
     fewer staged rows.  Each chunk stages as many groups of :data:`GROUP`
     channels as shared memory holds (at most :data:`MAX_GROUPS`).  The
     16-channel tiles are not built for the 11x11 stride-4 filter (its
-    unrolled rows need more than 255 registers)."""
+    unrolled rows need more than 255 registers), and bf16 x (``x_bytes``
+    2) takes only :data:`BF16_TILES`."""
     oh = (h - p) // stride + 1
     ow = (w - q) // stride + 1
     if oh < 1 or ow < 1:
@@ -183,7 +196,7 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
         return 4 * max(stages * stage, cap * (bco + 1))
 
     best = None
-    for tpx, tco, groups in TILES:
+    for tpx, tco, groups in TILES if x_bytes == 4 else BF16_TILES:
         if tpx * tco > 64 and split:
             continue
         bco = tco * groups
@@ -239,8 +252,8 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
 @functools.lru_cache(maxsize=None)
 def column_strips(h: int, w: int, ci: int, p: int, q: int, co: int, *,
                   stride: int = 1, pool_window: int = 0,
-                  pool_stride: int = 0) -> tuple[tuple[int, int, int, int],
-                                                 ...]:
+                  pool_stride: int = 0,
+                  x_bytes: int = 4) -> tuple[tuple[int, int, int, int], ...]:
     """The fewest strips of emitted columns whose inputs each fit
     :func:`conv_geometry`, from the shape alone, as (first and last-plus-one
     emitted column, first and last-plus-one input column).  Emitted columns
@@ -254,7 +267,7 @@ def column_strips(h: int, w: int, ci: int, p: int, q: int, co: int, *,
         else (1, 1)
     n_out = (ow - pw) // ps + 1 if ow >= pw else 0
     kw = dict(stride=stride, pool_window=pool_window,
-              pool_stride=pool_stride)
+              pool_stride=pool_stride, x_bytes=x_bytes)
 
     def in_cols(j0: int, j1: int) -> tuple[int, int]:
         return j0 * ps * stride, ((j1 - 1) * ps + pw - 1) * stride + q
@@ -307,8 +320,11 @@ def sa_conv_plain(x: torch.Tensor, f: torch.Tensor,
                   act: str = "none", pool_window: int = 0,
                   pool_stride: int = 0, w_scale: torch.Tensor | None = None,
                   out_dtype=None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: fp32 conv, then scale, bias,
-    [maxpool,] act — the epilogue's order of operations."""
+    """The kernel's function in plain PyTorch: the filter rounded to x's
+    dtype, an fp32 conv, then scale, bias, [maxpool,] act — the epilogue's
+    order of operations — rounded once to ``out_dtype``."""
+    if f.dtype != x.dtype:
+        f = f.to(x.dtype)
     out = ref.conv2d(x, f, stride=stride, out_dtype=torch.float32)
     if w_scale is not None:
         out = out * w_scale.reshape(-1).to(torch.float32)
@@ -326,8 +342,8 @@ def sa_conv_implicit(x: torch.Tensor, f: torch.Tensor,
                      pool_stride: int = 0,
                      w_scale: torch.Tensor | None = None,
                      out_dtype=None) -> torch.Tensor:
-    """x (batch, h, w, ci) fp32, padded; f (p, q, ci, co) fp32 or int8 ->
-    (batch, oh, ow, co), or the pooled (batch, poh, pow, co)."""
+    """x (batch, h, w, ci) fp32 or bf16, padded; f (p, q, ci, co) fp32 or
+    int8 -> (batch, oh, ow, co), or the pooled (batch, poh, pow, co)."""
     if x.device.type == "cpu":
         return sa_conv_plain(x, f, bias, stride=stride, act=act,
                              pool_window=pool_window,
@@ -338,56 +354,64 @@ def sa_conv_implicit(x: torch.Tensor, f: torch.Tensor,
     if x.dim() != 4 or f.dim() != 4 or x.shape[3] != f.shape[2]:
         raise ValueError(f"sa_conv_implicit: shapes {tuple(x.shape)} * "
                          f"{tuple(f.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"sa_conv_implicit: x must be float32, got {x.dtype}")
+    if x.dtype not in _X_KINDS:
+        raise TypeError(f"sa_conv_implicit: x must be float32 or bfloat16, "
+                        f"got {x.dtype}")
     if f.dtype not in _F_KINDS:
         raise TypeError(f"sa_conv_implicit: f dtype {f.dtype} not supported")
-    if out_dtype not in (None, torch.float32):
-        raise TypeError("sa_conv_implicit: the kernel writes float32")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _OUT_TYPES[x.dtype]:
+        raise TypeError(f"sa_conv_implicit: {x.dtype} x writes "
+                        f"{_OUT_TYPES[x.dtype]}, not {out_dtype}")
     batch, h, w, ci = x.shape
     p, q, _, co = f.shape
     if w_scale is not None:
         w_scale = w_scale.reshape(-1)
     for name, t in (("w_scale", w_scale), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or t.numel() != co):
-            raise ValueError(f"sa_conv_implicit: {name} must be float32 "
-                             f"with {co} elements")
+        if t is not None and (t.dtype not in _X_KINDS or t.numel() != co):
+            raise ValueError(f"sa_conv_implicit: {name} must be float32 or "
+                             f"bfloat16 with {co} elements")
     tensors = [x, f] + [t for t in (w_scale, bias) if t is not None]
     if any(t.device != x.device for t in tensors):
         raise ValueError("sa_conv_implicit: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sa_conv_implicit: operands must be contiguous")
+    # the epilogue runs in fp32: a bf16 scale or bias widens exactly
+    w_scale, bias = (None if t is None else t.to(torch.float32)
+                     for t in (w_scale, bias))
     kw = dict(stride=stride, pool_window=pool_window,
-              pool_stride=pool_stride)
+              pool_stride=pool_stride, x_bytes=x.element_size())
     strips = column_strips(h, w, ci, p, q, co, **kw)
     if len(strips) == 1:
-        return _launch(x, f, w_scale, bias, stride, act,
+        return _launch(x, f, w_scale, bias, stride, act, out_dtype,
                        conv_geometry(h, w, ci, p, q, co, **kw))
     # a pool window wider than a CTA: one launch per strip of whole windows
     # on a copy of its input columns, each output summed in the one order
     g = conv_geometry(h, strips[0][3] - strips[0][2], ci, p, q, co, **kw)
     out = torch.empty((batch, g.out_h, strips[-1][1], co),
-                      dtype=torch.float32, device=x.device)
+                      dtype=out_dtype, device=x.device)
     for j0, j1, x0, x1 in strips:
         part = x[:, :, x0:x1].contiguous()
         out[:, :, j0:j1] = _launch(part, f, w_scale, bias, stride, act,
+                                   out_dtype,
                                    conv_geometry(h, x1 - x0, ci, p, q, co,
                                                  **kw))
     return out
 
 
 def _launch(x: torch.Tensor, f: torch.Tensor, w_scale, bias, stride: int,
-            act: str, g: ConvGeometry) -> torch.Tensor:
+            act: str, out_dtype, g: ConvGeometry) -> torch.Tensor:
     """One launch of the kernel over the whole of ``x`` in geometry ``g``."""
     batch, h, w, ci = x.shape
     p, q, _, co = f.shape
-    out = torch.empty((batch, g.out_h, g.out_w, co), dtype=torch.float32,
+    out = torch.empty((batch, g.out_h, g.out_w, co), dtype=out_dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.load("sa_conv_implicit")
     err = lib.sa_conv_implicit_launch(
-        x.data_ptr(), f.data_ptr(), _F_KINDS[f.dtype],
+        x.data_ptr(), _X_KINDS[x.dtype], _X_KINDS[out_dtype], f.data_ptr(),
+        _F_KINDS[f.dtype],
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         batch, h, w, ci, p, q, co, stride, g.pool_window, g.pool_stride,

@@ -304,4 +304,5 @@ def test_port_imports_neither_jax_nor_the_reference():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks",
+                               "timing"), (path, name)

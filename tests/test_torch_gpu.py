@@ -835,3 +835,193 @@ def test_bf16_wrappers_refuse_unsupported_mixes(cuda):
     q = _t(0, (1, 8, 2, 52), cuda).to(BF16)[..., :48]
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# bf16 activations in SA-CONV implicit and the pool (C6)
+# ---------------------------------------------------------------------------
+def _bf16_conv_operands(dev, ci, p, co, wdtype):
+    """f in ``wdtype``, its scale, a bias, and the fp32 filter the bf16
+    kernel multiplies by (an fp32 f rounded to bf16, widened; int8 as it
+    is)."""
+    f, scale, bias = _conv_operands(dev, ci, p, co, wdtype)
+    wide = f.float() if wdtype == "int8" else f.to(BF16).float()
+    return f, scale, bias, wide
+
+
+#: (h, ci, p, co, stride, window): AlexNet's filters and VGG-16's 3x3 at
+#: reduced widths, each tile, flat and banded, ci = 3 (element loads)
+BF16_CONV_LAYERS = [(67, 3, 11, 40, 4, 3), (31, 12, 5, 24, 1, 3),
+                    (15, 16, 3, 384, 1, 0), (15, 16, 3, 256, 1, 3),
+                    (18, 64, 3, 64, 1, 2), (17, 3, 3, 24, 1, 2),
+                    (13, 5, 3, 24, 1, 0)]
+
+
+@pytest.mark.parametrize("h,ci,p,co,stride,window", BF16_CONV_LAYERS)
+@pytest.mark.parametrize("wdtype", ["fp32", "int8"])
+@pytest.mark.parametrize("out", ["bf16", "fp32"])
+def test_sa_conv_bf16_kernel(cuda, h, ci, p, co, stride, window, wdtype,
+                             out):
+    """bf16 x against the plain version within the reference's bf16
+    tolerance; bitwise the fp32 launch on the widened operands, rounded
+    once; fused == conv -> pool kernel and rows == b = 1, bitwise."""
+    out_dtype = BF16 if out == "bf16" else torch.float32
+    x = _t(0, (5, h, h, ci), cuda).to(BF16)
+    f, scale, bias, wide = _bf16_conv_operands(cuda, ci, p, co, wdtype)
+    kw = dict(stride=stride, act="relu", pool_window=window,
+              pool_stride=2 if window else 0, w_scale=scale)
+    got = sa_conv_implicit(x, f, bias, out_dtype=out_dtype, **kw)
+    assert got.dtype == out_dtype
+    torch.testing.assert_close(
+        got.float(), sa_conv_plain(x, f, bias, out_dtype=out_dtype,
+                                   **kw).float(), **TOL_BF16)
+    fp32 = sa_conv_implicit(x.float(), wide, bias, **kw)
+    assert torch.equal(got, fp32.to(out_dtype))
+    if window:
+        conv = sa_conv_implicit(x, f, bias, stride=stride, act="relu",
+                                w_scale=scale, out_dtype=out_dtype)
+        assert torch.equal(got, maxpool_act(conv, window=window, stride=2,
+                                            act="none"))
+    for i in (0, 4):
+        assert torch.equal(got[i:i + 1], sa_conv_implicit(
+            x[i:i + 1].contiguous(), f, bias, out_dtype=out_dtype, **kw)), i
+
+
+@pytest.mark.parametrize("wdtype", ["fp32", "int8"])
+def test_sa_conv_bf16_every_row_equals_its_b1_result(cuda, wdtype):
+    """Bitwise at every batch a wave gives, flat tiles and bands."""
+    f, scale, bias, _ = _bf16_conv_operands(cuda, 24, 3, 40, wdtype)
+    x = _t(0, (65, 15, 15, 24), cuda).to(BF16)
+    for window in (0, 3):
+        kw = dict(act="relu", pool_window=window,
+                  pool_stride=2 if window else 0, w_scale=scale)
+        alone = torch.cat([sa_conv_implicit(x[i:i + 1].contiguous(), f,
+                                            bias, **kw) for i in range(65)])
+        for b in (1, 2, 13, 64, 65):
+            got = sa_conv_implicit(x[:b].contiguous(), f, bias, **kw)
+            assert torch.equal(got, alone[:b]), (window, b)
+
+
+def test_sa_conv_bf16_operands_off_alignment(cuda):
+    """bf16 x one element into its buffer (2-byte loads, not 8-byte
+    copies) and f one element into its: the aligned launch's bits."""
+    x = _t(0, (2, 15, 15, 16), cuda).to(BF16)
+    f, _, bias = _conv_operands(cuda, 16, 3, 32, "fp32")
+    xo = torch.empty(x.numel() + 1, dtype=BF16, device=cuda)[1:].view(
+        x.shape)
+    fo = torch.empty(f.numel() + 1, device=cuda)[1:].view(f.shape)
+    xo.copy_(x)
+    fo.copy_(f)
+    for window in (0, 3):
+        kw = dict(act="relu", pool_window=window,
+                  pool_stride=2 if window else 0)
+        assert torch.equal(sa_conv_implicit(xo, fo, bias, **kw),
+                           sa_conv_implicit(x, f, bias, **kw))
+
+
+def test_sa_conv_bf16_pooled_rows_wider_than_a_cta(cuda):
+    """Column strips in bf16: fused == conv -> pool kernel, bitwise."""
+    x = _t(0, (2, 259, 259, 16), cuda).to(BF16)
+    f, _, bias = _conv_operands(cuda, 16, 3, 64, "fp32")
+    before = sa_conv_implicit.launches
+    got = sa_conv_implicit(x, f, bias, act="relu", pool_window=3,
+                           pool_stride=2)
+    assert sa_conv_implicit.launches == before + 2 and got.dtype == BF16
+    conv = sa_conv_implicit(x, f, bias, act="relu")
+    assert torch.equal(got, maxpool_act(conv, window=3, stride=2,
+                                        act="none"))
+    assert torch.equal(got, sa_conv_implicit(x.float(), f.to(BF16).float(),
+                                             bias, act="relu", pool_window=3,
+                                             pool_stride=2).to(BF16))
+
+
+def test_sa_conv_bf16_refuses_unsupported_mixes(cuda):
+    x = _t(0, (1, 9, 9, 8), cuda)
+    f = _t(1, (3, 3, 8, 16), cuda)
+    before = (sa_conv_implicit.launches, ref.conv2d.calls)
+    with pytest.raises(TypeError):
+        sa_conv_implicit(x.half(), f)
+    with pytest.raises(TypeError):
+        sa_conv_implicit(x, f, out_dtype=BF16)          # fp32 x writes fp32
+    with pytest.raises(TypeError):
+        sa_conv_implicit(x.to(BF16), f.to(BF16))        # bf16 filters
+    with pytest.raises(TypeError):
+        sa_conv_implicit(x.to(BF16), f, out_dtype=torch.float16)
+    assert (sa_conv_implicit.launches, ref.conv2d.calls) == before
+
+
+BF16_ACTS = ["none", "relu", "leaky_relu", "silu", "gelu"]
+
+
+@pytest.mark.parametrize("hw,c,window", POOL_SWEEP_MAPS)
+def test_pool_kernel_bf16_at_the_sweep_maps(cuda, hw, c, window):
+    """A bf16 max is exact: none and relu equal the plain version and the
+    fp32 kernel on the widened map, bitwise; the other acts run in fp32
+    and round once (within the bf16 tolerance of the plain version)."""
+    x = _pool_map((64, hw, hw, c), torch.float32, cuda).to(BF16)
+    for act in BF16_ACTS:
+        got = maxpool_act(x, window=window, stride=2, act=act)
+        want = ref.maxpool_act(x, window=window, stride=2, act=act)
+        assert got.dtype == BF16
+        if act in ("none", "relu"):
+            assert torch.equal(got, want), act
+            assert torch.equal(got, maxpool_act(
+                x.float(), window=window, stride=2, act=act).to(BF16)), act
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL_BF16)
+
+
+@pytest.mark.parametrize("c,offset", [(3, 0), (251, 0), (256, 1), (256, 2),
+                                      (256, 4), (2, 0)])
+@pytest.mark.parametrize("window,stride", [(2, 2), (3, 2), (3, 1)])
+def test_pool_kernel_bf16_odd_channels_and_bases(cuda, c, offset, window,
+                                                 stride):
+    """bf16 vectors of 2, 4 and 8 bytes: an odd channel count, or a base
+    one, two or four elements off alignment."""
+    x = _pool_map((5, 17, 19, c), torch.float32, cuda)
+    xo = torch.empty(x.numel() + offset, dtype=BF16, device=cuda)[
+        offset:].view(x.shape)
+    xo.copy_(x)
+    g = pool_geometry(5, 17, 19, c, 2, window, stride,
+                      xo.data_ptr() & -xo.data_ptr())
+    assert g.vec_bytes < 16
+    for act in ("none", "relu"):
+        assert torch.equal(maxpool_act(xo, window=window, stride=stride,
+                                       act=act),
+                           ref.maxpool_act(xo, window=window, stride=stride,
+                                           act=act))
+
+
+@pytest.mark.parametrize("window,dp,dq", NAN_POSITIONS)
+def test_pool_kernel_bf16_keeps_nan_at_every_window_position(cuda, window,
+                                                             dp, dq):
+    x = _t(0, (2, 9, 9, 36), cuda).to(BF16)
+    x[1, 2 + dp, 2 + dq, ::3] = float("nan")
+    for act in ("none", "relu"):
+        got = maxpool_act(x, window=window, stride=2, act=act)
+        assert torch.isnan(got).any()
+        _same_bits(got, ref.maxpool_act(x, window=window, stride=2,
+                                        act=act))
+
+
+def test_engine_bf16_conv_and_pool_on_the_kernels(cuda):
+    """bf16 through Engine.conv2d (fused and declined pools) and
+    Engine.pool launches the kernels and stays within the bf16 tolerance
+    of the torch backend."""
+    x = _t(0, (2, 15, 15, 8), cuda).to(BF16)
+    f, bias = _t(1, (3, 3, 8, 32), cuda, 0.2), _t(2, (32,), cuda)
+    kern, plain = Engine(backend="kernels"), Engine(backend="torch")
+    for act in ("relu", "silu"):
+        before = (sa_conv_implicit.launches, maxpool_act.launches)
+        got = kern.conv2d(x, f, bias, act=act, pool=PoolSpec(3, 2))
+        after = (sa_conv_implicit.launches, maxpool_act.launches)
+        assert after == (before[0] + 1, before[1] + (act == "silu"))
+        assert got.dtype == BF16
+        torch.testing.assert_close(
+            got.float(), plain.conv2d(x, f, bias, act=act,
+                                      pool=PoolSpec(3, 2)).float(),
+            **TOL_BF16)
+    got = kern.pool(x, window=3, stride=2, act="relu")
+    assert torch.equal(got, ref.maxpool_act(x, window=3, stride=2,
+                                            act="relu"))
