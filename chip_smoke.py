@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero):
    fused pool over conv rows wider than a CTA holds (column strips);
 4. the CNN slice: ``CNNServer("alexnet", ...)`` at full width and 227x227
    serves 130 requests on the kernels (and one int8 wave), with every
-   dispatch a schedule hit and every kernel of the path launched;
+   dispatch a schedule hit and every kernel of the path launched; then the
+   same 130 through a bf16 ``CNNServer`` (C7): logits delivered widened
+   to fp32, each request's its unbatched bf16 forward bitwise, pipelined
+   == sequential;
 5. times: CUDA events, median of 25 runs, L2 flushed and the card held
    busy before each (the card's time); SA-FC also with the card drained
    before each call (the wrapper's host work included) and as host time
@@ -68,7 +71,17 @@ Phases (any failure raises and exits non-zero):
    edf with admission control and seeded faults, executed, equal to its
    modeled schedule with no execution-side quarantine; images/s per
    policy, a b = 64 wave of each variant, every VGG-16 layer beside its
-   bound and library call, the bf16 kernels' times.
+   bound and library call, the bf16 kernels' times;
+9. the replica fleet, ``launch/fleet.py``'s seven configurations over the
+   same zoo on four replicas sharing the card: the modeled ones (zero
+   unaccounted, one replica == the zoo's decisions, modeled scaling >=
+   1.5x from 1 to 4 replicas, replays bit-identical) and three executed
+   ones (a replica killed and one partitioned; cooperative sharded waves;
+   a replica killed mid-wave), every served row bitwise its model's
+   unbatched forward, launches as the decisions imply; the int8
+   cooperative wave of 256 rows runs as four forwards of 64, every FC on
+   SA-FC, beside one forward over the whole wave as evidence; images/s
+   and the device's busy share over one cooperative wave.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -187,6 +200,8 @@ ZOO_BATCH = 64
 #: zoo wave makes, by net
 ZOO_CONVS = {"alexnet": 5, "vgg16": 13}
 ZOO_FCS = 3
+#: phase 9: the fleet's trace tier (launch/fleet.py)
+FLEET_TIER = "fast"
 #: the convs phase 8 holds in bf16 (C6)
 BF16_CONV_LAYERS = {"alexnet": ("conv1", "conv2", "conv3", "conv4",
                                 "conv5"),
@@ -867,6 +882,54 @@ def serve(rep: Report, params, qparams, images_np) -> dict:
     return dict(launches=c)
 
 
+def serve_bf16(rep: Report, params, images_np) -> dict:
+    """C7 on the card: ``CNNServer(..., dtype=torch.bfloat16)`` serves the
+    N_REQUESTS in waves of 64, 64 and 2, pipelined and sequential: logits
+    delivered as fp32 (the bf16 values widened), every request's bitwise
+    its unbatched bf16 forward, pipelined == sequential bitwise, every
+    dispatch a schedule hit, 5 SA-CONV and 3 SA-FC launches a wave and no
+    plain call.  Returns the pipelined run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn_server import CNNServer
+    n = N_REQUESTS
+    waves = [64, 64, n - 128]
+    out, launches = [], None
+    for pipeline in (True, False):
+        srv = CNNServer("alexnet", params, dtype=torch.bfloat16,
+                        pipeline=pipeline)
+        for r in _requests(images_np, range(n)):
+            srv.submit(r)
+        reset_counters()
+        done = srv.run()
+        c = counters()
+        check_counts(c, len(waves))
+        logits = check_served(srv, done, n, waves)
+        if logits.dtype != np.float32:
+            raise AssertionError(f"bf16 server delivered {logits.dtype}")
+        out.append(logits)
+        launches = launches or c
+    if not np.array_equal(out[0], out[1]):
+        raise AssertionError("bf16 CNNServer: sequential != pipelined")
+    for u in range(n):
+        x = torch.from_numpy(images_np[u:u + 1]).cuda().to(torch.bfloat16)
+        one = cnn.cnn_forward("alexnet", params, x, eng=srv.engine)
+        if one.dtype != torch.bfloat16 or not np.array_equal(
+                one.float().cpu().numpy()[0], out[0][u]):
+            raise AssertionError(f"bf16 CNNServer request {u}: logits != "
+                                 "its unbatched bf16 forward, widened")
+    widened = torch.from_numpy(out[0]).to(torch.bfloat16).float().numpy()
+    if not np.array_equal(widened, out[0]):
+        raise AssertionError("bf16 CNNServer: a delivered value is not a "
+                             "bf16 value")
+    rep.detail["bf16_server_launches"] = launches
+    log(f"  C7: bf16 CNNServer served {n} requests in waves {waves}, "
+        "pipelined == sequential bitwise, every request == its unbatched "
+        f"bf16 forward widened, bitwise; launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
@@ -933,6 +996,9 @@ def smi_sample(fn, seconds: float = 1.0) -> dict:
          "--format=csv,noheader,nounits", "-lms", "100"],
         stdout=subprocess.PIPE, text=True)
     try:
+        # nvidia-smi can take over a second to start: wait for its first
+        # sample (taken before the loop, so left out) and time from there
+        smi.stdout.readline()
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds:
             fn()
@@ -2425,7 +2491,209 @@ def zoo_phase(rep: Report) -> dict:
         "989 TFLOP/s)")
     measure_zoo(rep, models, images, bf16)
     return dict(zoo=zoo_launches_fifo, bf16=bf16["launches"],
-                declined_bf16=bf16["declined_launches"])
+                declined_bf16=bf16["declined_launches"], models=models)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the replica fleet at full width (launch/fleet.py's seven
+# configurations over the zoo, four replicas sharing the card)
+# ---------------------------------------------------------------------------
+def fleet_launches(decisions, models: dict) -> dict:
+    """Launches per kernel that the executed attempts of ``decisions`` must
+    make on one card, from the decisions alone: one forward per
+    per-replica wave, one per ``cooperative_blocks`` piece of a
+    cooperative wave (every participant is on the card), each ZOO_CONVS
+    SA-CONV and ZOO_FCS SA-FC launches; attempts lost to a dead replica
+    or a timeout run nothing; no pool and no GEMM launch."""
+    from repro_torch.serve.fleet import cooperative_blocks
+    convs = fcs = 0
+    for d in decisions:
+        if d.fault in ("replica_dead", "timeout"):
+            continue
+        m = models[d.model]
+        k = len(cooperative_blocks(d.batch, len(d.shards), m.microbatch)) \
+            if d.shards else 1
+        convs += ZOO_CONVS[m.spec.net] * k
+        fcs += ZOO_FCS * k
+    return dict(sa_conv_implicit=convs, sa_fc_matmul=fcs)
+
+
+def check_int8_cooperative_wave(rep: Report, fleet, report, models: dict,
+                                images_np) -> None:
+    """The int8 AlexNet cooperative wave of ``sharded_r4`` (more rows than
+    the int8 FC flip batches, 145-300): its forwards, read from the
+    dispatch traces, hold at most a micro-batch each and keep every FC on
+    SA-FC.  Then, as evidence of why, ONE forward over the whole wave:
+    where the planner puts its FC layers, and how many of its rows differ
+    from the unbatched forward (not part of any served path)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import cnn
+    m = models["alexnet-int8"]
+    d = max((d for d in report.decisions if d.sharded
+             and d.model == "alexnet-int8"
+             and d.fault not in ("replica_dead", "timeout")),
+            key=lambda d: d.batch)
+    if d.batch <= 158:
+        raise AssertionError(f"int8 cooperative wave of {d.batch} rows")
+    traces = [tr for tr in fleet.shard_traces if tr[0].wave == d.index]
+    rows = [tr[0].conv_shape[0] for tr in traces]
+    regimes = {r.regime for tr in traces for r in tr if r.conv_plan is None}
+    if sum(rows) != d.batch or max(rows) > m.microbatch or \
+            regimes != {"sa_fc"}:
+        raise AssertionError(f"int8 cooperative wave: forwards of {rows} "
+                             f"rows, FC regimes {regimes}")
+    eng = m.server.engine
+    x = torch.from_numpy(images_np[:d.batch]).cuda()
+    with eng.tracing() as tr:
+        whole = cnn.cnn_forward("alexnet", m.params, x, eng=eng)
+    fc = [(r.name, r.regime) for r in tr if r.conv_plan is None]
+    differ = 0
+    for i in range(d.batch):
+        one = cnn.cnn_forward("alexnet", m.params, x[i:i + 1], eng=eng)
+        differ += not torch.equal(one, whole[i:i + 1])
+    rep.detail["fleet_int8_wave"] = dict(
+        rows=d.batch, forwards=rows, whole_wave_fc=fc,
+        whole_wave_rows_differing=differ)
+    log(f"  int8 cooperative wave of {d.batch} rows over {len(d.shards)} "
+        f"replicas: forwards of {rows} rows, every FC on SA-FC.  One "
+        f"forward over all {d.batch} rows would plan the FCs as {fc}, and "
+        f"{differ} of its {d.batch} rows differ from the unbatched forward")
+
+
+def fleet_phase(rep: Report, models: dict) -> dict:
+    """Phase 9: ``launch/fleet.py``'s seven configurations over the zoo at
+    full width (four replicas on the one card).  Modeled ones: zero
+    unaccounted, healthy_r1 == the zoo's decisions, modeled scaling >=
+    1.5x from 1 to 4 replicas, replays bit-identical.  Executed ones
+    (chaos_r4, sharded_r4, sharded_chaos_r4): every served row finite and
+    bitwise its model's unbatched forward on the card, no
+    execution-side quarantine, the kill, drain, replan, partition,
+    shard_abort and reshard events, launches as the decisions imply (no
+    GEMM, no pool, no plain call).  Returns the executed runs' launches
+    summed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import fleet as fl
+    ms = list(models.values())
+    streams = fl.traces(ms, FLEET_TIER, ZOO_RES)
+    kill = fl.shard_kill_time(fl.run_config(ms, streams["burst"],
+                                            n_replicas=4, shard_waves=True))
+    log(f"  streams ({FLEET_TIER} tier): {len(streams['dense'])} requests "
+        f"(dense, {fl.density(ms)}x the reference's), "
+        f"{len(streams['reference'])} (the reference's, chaos_r4), bursts "
+        f"{fl.burst_sizes(ms, FLEET_TIER)} (sharded); sharded_chaos_r4 "
+        f"kills r2 at {kill!r} s (modeled), halfway through the first "
+        "cooperative wave")
+    rep.detail["fleet_kill_s"] = kill
+    rep.detail["fleet_bursts"] = fl.burst_sizes(ms, FLEET_TIER)
+    kwargs = fl.config_kwargs(kill)
+    reports, total = {}, {k: 0 for k in _wrappers()}
+    refs = {k: {} for k in streams}
+    for name, kw in kwargs.items():
+        tr = fl.CONFIG_TRACE[name]
+        execute = name in fl.EXECUTED
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        fleet = fl.build_fleet(ms, **kw)
+        for r in fl.requests(streams[tr]):
+            fleet.submit(r)
+        report = fleet.serve(execute=execute)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counters()
+        reports[name] = report
+        if not execute:
+            expect_counts(c, f"fleet {name} (modeled)")
+            log(f"  {name}: {len(report.decisions)} waves, modeled TPU "
+                f"makespan {report.makespan_s * 1e6:.3f} us")
+            continue
+        expect_counts(c, f"fleet {name}",
+                      **fleet_launches(report.decisions, models))
+        for k in total:
+            total[k] += c[k]
+        bad = fl.parity_failures(report, fl.unbatched_logits(ms, report,
+                                                             refs[tr]))
+        if bad:
+            raise AssertionError(f"fleet {name}: uids {bad[:8]} not finite "
+                                 "and bitwise their unbatched forward, or "
+                                 "quarantined by the executor")
+        coop = [(d.model, d.batch, len(d.shards), d.fault)
+                for d in report.decisions if d.sharded]
+        rep.detail[f"fleet_{name}"] = dict(
+            served=len(report.served), waves=len(report.decisions),
+            cooperative=coop, wall_s=wall,
+            images_per_s=len(report.served) / wall,
+            events=sorted({e.kind for e in report.events}), launches=c)
+        log(f"  {name}: {len(report.served)} served in "
+            f"{len(report.decisions)} waves ({len(coop)} cooperative: "
+            f"{coop}), every row bitwise its unbatched forward; "
+            f"{wall:.3f} s = {len(report.served) / wall:.1f} images/s "
+            f"(host clock, first serve); launches {c}")
+        if name == "sharded_r4":
+            rng = np.random.default_rng(SEED)
+            check_int8_cooperative_wave(
+                rep, fleet, report, models, rng.standard_normal(
+                    (4 * models["alexnet-int8"].microbatch, ZOO_RES["alexnet"], ZOO_RES["alexnet"], 3)
+                ).astype(np.float32))
+    replays = {name: fl.run_config(ms, streams[fl.CONFIG_TRACE[name]],
+                                   **kwargs[name])
+               for name in ("chaos_r4", "sharded_r4")}
+    n = {name: len(streams[tr]) for name, tr in fl.CONFIG_TRACE.items()}
+    checks = fl.fleet_checks(reports, fl.zoo_witness(ms, streams["dense"]),
+                             replays, n)
+    failed = [c for c in checks if not c[1]]
+    if failed:
+        raise AssertionError(f"fleet checks failed: {failed}")
+    rep.detail["fleet_checks"] = checks
+    log(f"  {len(checks)} fleet checks passed: " + "; ".join(
+        f"{name}{f' ({detail})' if detail else ''}"
+        for name, _, detail in checks if "unaccounted" not in name))
+    fleet_busy(rep, ms)
+    return total
+
+
+def fleet_busy(rep: Report, ms: list) -> None:
+    """The device's busy share over one full cooperative wave: an int8
+    burst of ``sharded_microbatch(4)`` requests through a fresh
+    four-replica fleet (one cooperative wave), host clock against the
+    profiler's device time; then images/s of the same drain."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import fleet as fl
+    from repro_torch.serve.zoo import ZooRequest
+    m = next(x for x in ms if x.name == "alexnet-int8")
+    rows = m.sharded_microbatch(fl.SHARD_DATA)
+    rng = np.random.default_rng(SEED)
+    images = rng.standard_normal((rows, ZOO_RES["alexnet"], ZOO_RES["alexnet"], 3)).astype(np.float32)
+
+    def drain():
+        fleet = fl.build_fleet(ms, n_replicas=4, shard_waves=True)
+        for u in range(rows):
+            fleet.submit(ZooRequest(uid=u, model=m.name, image=images[u]))
+        report = fleet.serve()
+        if [d.batch for d in report.decisions] != [rows]:
+            raise AssertionError("not one cooperative wave")
+        return report
+    drain()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drain()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    busy = device_busy(drain, wall)
+    rep.detail["fleet_cooperative_wave_busy"] = busy
+    share = "not measured" if busy["device_ms"] is None else \
+        f"{1 - busy['idle_share']:.3f}"
+    log(f"  one int8 cooperative wave of {rows} rows: {wall * 1e3:.2f} ms "
+        f"host clock (median of 3, {rows / wall:.1f} images/s), device "
+        f"busy share {share} (device "
+        f"{busy['device_ms'] if busy['device_ms'] is None else round(busy['device_ms'], 3)} "
+        f"ms; top {busy['top']})")
 
 
 # ---------------------------------------------------------------------------
@@ -2483,7 +2751,8 @@ def geometry_log(q) -> str:
 
 
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
-                 lm_bf16: dict, zoo: dict) -> dict:
+                 lm_bf16: dict, zoo: dict, cnn_bf16: dict,
+                 fleet: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -2497,7 +2766,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     SA-CONV implicit summed over AlexNet's five convs at b = 64 on AlexNet's
     forward with bf16 activations, the pool at the bf16 declined-fusion
     dispatch.  ``launches_by_path`` gives every path's count (the zoo's
-    ``ModelZooServer.serve`` among them);
+    ``ModelZooServer.serve``, the bf16 ``CNNServer.run`` and ``fleet``,
+    the fleet's three executed configurations, among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -2530,7 +2800,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              "ModelZooServer.serve": zoo["zoo"],
              "cnn_forward bf16": zoo["bf16"],
              "Engine.conv2d bf16, pool fusion declined":
-                 zoo["declined_bf16"]}
+                 zoo["declined_bf16"],
+             "CNNServer.run bf16": cnn_bf16, "fleet": fleet}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -2594,6 +2865,7 @@ def main() -> int:
                            torch.from_numpy(images_np[:64]).cuda())
     log("== phase 4: CNNServer, full-width AlexNet at 227x227")
     served = serve(rep, params, qparams, images_np)
+    served_bf16 = serve_bf16(rep, params, images_np)
     log("== phase 5: times (median of 25, CUDA events, L2 flushed, card "
         "held busy)")
     measure(rep, shapes, params, images_np)
@@ -2639,9 +2911,14 @@ def main() -> int:
     log("== phase 8: ModelZooServer, full-width AlexNet, VGG-16 and int8 "
         "AlexNet; bf16 activations in SA-CONV implicit and the pool (C6)")
     zoo = zoo_phase(rep)
+    log("== phase 9: FleetServer, the zoo at full width on four replicas "
+        "(launch/fleet.py's seven configurations)")
+    fleet = fleet_phase(rep, zoo["models"])
+    del zoo["models"]
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
-                        lm_served["launches"], bf16_served["launches"], zoo)
+                        lm_served["launches"], bf16_served["launches"], zoo,
+                        served_bf16, fleet)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -351,7 +351,7 @@ def zoo_wave_cost(net: str, batch: int, *, bytes_w: int | None = None,
 # pipeline makespan — waves split round-robin, ceil(waves/replicas) on
 # the busiest — and throughput scales until the per-replica fill/drain
 # overhead dominates.  These are the analytic twins the fleet scheduler
-# (the fleet, not ported yet) gates against.
+# (:mod:`repro_torch.serve.fleet`) gates against.
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class FleetMakespan:

@@ -15,6 +15,8 @@ the batch-amortized SA-FC dataflow, pipelined across the two stages.
 * Per-request logits are bitwise equal on both paths and to the unbatched
   forward: same kernels, same plans, and kernels whose per-output
   arithmetic does not depend on the batch.
+* Logits are delivered as numpy arrays; bf16 logits come widened to fp32
+  (numpy has no bf16), which is exact, so each value is the bf16 value.
 
 Every wave's :class:`~repro_torch.core.engine.DispatchTrace` is kept on its
 :class:`WaveReport`, each record tagged with its stage and wave.
@@ -184,7 +186,11 @@ class CNNServer:
         with eng.tracing() as tr, eng.tagging(stage="fc", wave=buf.wave):
             logits = cnn.cnn_fc_stage(self.net, self.params, buf.feats,
                                       eng=eng)
-        logits = logits.cpu().numpy()                 # the pipeline barrier
+        logits = logits.cpu()                         # the pipeline barrier
+        if logits.dtype == torch.bfloat16:
+            # numpy has no bf16: deliver it widened to fp32, which is exact
+            logits = logits.float()
+        logits = logits.numpy()
         for i, r in enumerate(buf.requests):
             r.logits = logits[i]
             r.done = True

@@ -34,7 +34,7 @@ Replica-granular chaos (fleet level)
 ------------------------------------
 :class:`ReplicaChaosConfig` / :class:`ReplicaFaultInjector` lift the
 same discipline one level up, to the sharded fleet
-(the fleet server, not ported yet):
+(:class:`~repro_torch.serve.fleet.FleetServer`):
 
 * ``kills`` — a replica dies at a configured modeled instant: its
   queued waves drain to surviving peers and its in-flight wave fails

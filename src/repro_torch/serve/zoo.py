@@ -110,9 +110,9 @@ class ZooRequest:
     budget); ``error`` carries the typed cause for the latter two.
     ``allow_degraded`` opts the request into int8 fallback service;
     ``served_by`` records which variant actually served it; ``replica``
-    records which fleet replica it was last placed on (stamped by the
-    fleet server, not ported yet; always ``None`` in a single-replica
-    zoo)."""
+    records which fleet replica it was last placed on (stamped by
+    :class:`~repro_torch.serve.fleet.FleetServer`; always ``None`` in a
+    single-replica zoo)."""
     uid: int
     model: str
     image: np.ndarray                     # (H, W, C) of the model's server

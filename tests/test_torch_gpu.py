@@ -1025,3 +1025,117 @@ def test_engine_bf16_conv_and_pool_on_the_kernels(cuda):
     got = kern.pool(x, window=3, stride=2, act="relu")
     assert torch.equal(got, ref.maxpool_act(x, window=3, stride=2,
                                             act="relu"))
+
+
+# ---------------------------------------------------------------------------
+# the fleet and the bf16 CNNServer (C7) on the card
+# ---------------------------------------------------------------------------
+def _fleet_zoo(device, names=("alexnet-int8", "alexnet")):
+    from repro_torch.serve.zoo import build_zoo
+    return build_zoo(names, seed=0, in_res={"alexnet": 67},
+                     width_mult=0.125, max_batch=4, device=device)
+
+
+def _fleet_burst(fleet, model, n, uid0):
+    from repro_torch.serve.zoo import ZooRequest
+    rng = np.random.default_rng(uid0)
+    for k in range(n):
+        fleet.submit(ZooRequest(
+            uid=uid0 + k, model=model, tenant="t",
+            image=rng.standard_normal((67, 67, 3)).astype(np.float32)))
+
+
+def _served_bitwise(rep, models):
+    from repro_torch.models import cnn
+    by_name = {m.name: m for m in models}
+    for r in rep.served:
+        m = by_name[r.model]
+        x = torch.from_numpy(r.image[None]).to(m.server.device)
+        one = cnn.cnn_forward(m.spec.net, m.params, x,
+                              eng=m.server.engine).cpu().numpy()[0]
+        assert np.isfinite(r.logits).all()
+        np.testing.assert_array_equal(r.logits, one)
+
+
+def test_fleet_executed_on_the_card(cuda):
+    """Per-replica and cooperative waves (one forward per participant, at
+    most a micro-batch each) on the one card: every served row bitwise its
+    unbatched forward, launches as the decisions imply, no GEMM."""
+    from repro_torch.serve.fleet import FleetServer, cooperative_blocks
+    from repro_torch.serve.zoo import FIFOPolicy
+    models = _fleet_zoo(cuda)
+    fleet = FleetServer(models, n_replicas=4, policy=FIFOPolicy(),
+                        shard_waves=True)
+    _fleet_burst(fleet, "alexnet-int8", 16, 0)
+    _fleet_burst(fleet, "alexnet", 3, 100)
+    assert len(fleet.devices()) == torch.cuda.device_count()
+    before = (sa_conv_implicit.launches, sa_fc_matmul.launches,
+              sa_conv_matmul.launches)
+    rep = fleet.serve()
+    torch.cuda.synchronize()
+    assert rep.unaccounted == () and len(rep.served) == 19
+    assert any(d.sharded and d.batch == 16 for d in rep.decisions)
+    mb = {m.name: m.microbatch for m in models}
+    forwards = sum(len(cooperative_blocks(d.batch, len(d.shards),
+                                          mb[d.model])) if d.shards else 1
+                   for d in rep.decisions)
+    if torch.cuda.device_count() == 1:
+        assert (sa_conv_implicit.launches - before[0],
+                sa_fc_matmul.launches - before[1],
+                sa_conv_matmul.launches - before[2]) == \
+            (5 * forwards, 3 * forwards, 0)
+    assert all(max(r.conv_shape[0] if r.conv_shape else r.m for r in tr)
+               <= 4 for tr in fleet.shard_traces)
+    _served_bitwise(rep, models)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs 2 or more CUDA devices")
+def test_fleet_lane_on_a_second_device(cuda):
+    """Replicas round-robin over the cards: a lane on a card other than
+    its model's gets one copy of the parameters, and its rows stay bitwise
+    the unbatched forward on the model's own card."""
+    from repro_torch.serve.fleet import FleetServer
+    from repro_torch.serve.zoo import FIFOPolicy
+    models = _fleet_zoo(torch.device("cuda", 0))
+    fleet = FleetServer(models, n_replicas=2, policy=FIFOPolicy(),
+                        shard_waves=True)
+    assert fleet.replica_device(1) == torch.device("cuda", 1)
+    assert fleet.mesh().size == 2
+    _fleet_burst(fleet, "alexnet-int8", 8, 0)
+    _fleet_burst(fleet, "alexnet", 2, 100)
+    rep = fleet.serve()
+    assert rep.unaccounted == () and len(rep.served) == 10
+    assert {r.replica for r in rep.served} >= {"r0"}
+    copies = fleet._device_params
+    assert copies and all(k[1] == torch.device("cuda", 1) for k in copies)
+    for (name, dev), params in copies.items():
+        assert params[0]["b"].device == dev
+    _served_bitwise(rep, models)
+
+
+def test_bf16_cnn_server_delivers_logits_on_the_card(cuda):
+    """C7: a bf16 CNNServer serves its logits widened to fp32, each the
+    unbatched bf16 forward bitwise, pipelined == sequential."""
+    from repro_torch.models import cnn
+    from repro_torch.serve.cnn_server import CNNRequest, CNNServer
+    params = cnn.init_cnn("alexnet", 0, in_res=67, width_mult=0.125,
+                          device=cuda)
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((9, 67, 67, 3)).astype(np.float32)
+    out = []
+    for pipeline in (True, False):
+        srv = CNNServer("alexnet", params, in_res=67, width_mult=0.125,
+                        max_batch=4, dtype=BF16, pipeline=pipeline)
+        for k, x in enumerate(images):
+            srv.submit(CNNRequest(uid=k, image=x))
+        done = sorted(srv.run(), key=lambda r: r.uid)
+        assert [w.batch for w in srv.waves] == [4, 4, 1]
+        out.append(np.stack([r.logits for r in done]))
+    assert out[0].dtype == np.float32
+    np.testing.assert_array_equal(out[0], out[1])
+    for k, x in enumerate(images):
+        one = cnn.cnn_forward("alexnet", params,
+                              torch.from_numpy(x[None]).to(cuda, BF16),
+                              eng=srv.engine)
+        np.testing.assert_array_equal(out[0][k], one.float().cpu().numpy()[0])
