@@ -81,7 +81,24 @@ Phases (any failure raises and exits non-zero):
    unbatched forward, launches as the decisions imply; the int8
    cooperative wave of 256 rows runs as four forwards of 64, every FC on
    SA-FC, beside one forward over the whole wave as evidence; images/s
-   and the device's busy share over one cooperative wave.
+   and the device's busy share over one cooperative wave;
+10. training OLMo-1B as published (bf16, full width and depth) through
+   ``trainer.run`` on the kernels backend.  First the autograd Functions
+   against torch autograd through the plain versions (SA-FC at b = 4 rows
+   and the SA-CONV GEMM at m = 2048, OLMo-1B widths, fp32 and bf16, with
+   bias and without, act none and silu, an int8 weight on SA-FC; flash's
+   forward with the plain backward at a 4 x 512 wave) within 3e-4 / 3e-2;
+   the step-0 gradients of three leaves against the torch backend's (bf16
+   within sqrt(2) times that backend's own bf16-vs-fp32 spread in L2, fp32
+   within a relative L2 of 1e-3); then 4 steps of 4 x 512 tokens with remat by
+   block and an async checkpoint at step 2: every loss finite, every
+   matmul a schedule hit, launches per kernel as the train schedule
+   implies (plain attention only in the backward), the checkpoint
+   restored bitwise into a fresh state and the trainer resuming from it;
+   a step's host time (trainer.run's steps 1-3, and 3 steps with no
+   checkpoint write in flight), trained tokens/s, device time and idle
+   share, the GEMM's card time split into forward, dx and dw, peak
+   memory.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -202,6 +219,33 @@ ZOO_CONVS = {"alexnet": 5, "vgg16": 13}
 ZOO_FCS = 3
 #: phase 9: the fleet's trace tier (launch/fleet.py)
 FLEET_TIER = "fast"
+#: phase 10: a train step of TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS
+#: steps through trainer.run with an async checkpoint every TRAIN_CKPT
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT = 4, 512, 4, 2
+#: the leaves whose step-0 gradients are held against the torch backend's:
+#: the tied embedding (embedding and head), layer 0's q projection and
+#: layer 0's MLP down projection
+TRAIN_LEAVES = ("embed", "blocks.0.attn.wq[0]", "blocks.0.mlp.wd[0]")
+#: fp32 step-0 gradients, kernels against the torch backend, per leaf:
+#: |g_kernels - g_torch|_2 / |g_torch|_2.  Both sum in fp32 in other
+#: orders through 16 layers (~1e-6 relative); a wrong gradient (a missed
+#: term, a transposed operand, a lost scale) is off by O(1)
+TRAIN_FP32_REL_L2 = 1e-3
+#: bf16 step-0 gradients, kernels against the torch backend, per leaf:
+#: |g_kernels - g_torch|_2 <= TRAIN_BF16_SPREAD x |g_torch - g_torch,fp32|_2
+#: (the torch backend's own bf16-vs-fp32 spread, on the same weights
+#: widened).  Two bf16 computations of one gradient that sum in other
+#: orders round independently, so they differ by up to sqrt(2) times each
+#: one's distance from the fp32 gradient; the card gave 0.964-1.014 of the
+#: spread at these leaves (PERF.md §6), where a wrong gradient is off
+#: by its own norm, ~50 spreads
+TRAIN_BF16_SPREAD = 2 ** 0.5
+#: matmuls whose activation is not linear (models/mlp.py: the gate of the
+#: gated MLPs), whose backward recomputes the pre-activation
+ACT_MATMULS = ("mlp.gate",)
+#: the kernels of the train path, reported on it under these names
+TRAIN_KERNELS = {k: f"{k}[train]" for k in ("sa_conv_matmul",
+                                             "flash_attention")}
 #: the convs phase 8 holds in bf16 (C6)
 BF16_CONV_LAYERS = {"alexnet": ("conv1", "conv2", "conv3", "conv4",
                                 "conv5"),
@@ -226,7 +270,8 @@ class Report:
 
     def __init__(self) -> None:
         self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values(),
-                                     *CNN_BF16_KERNELS.values()]}
+                                     *CNN_BF16_KERNELS.values(),
+                                     *TRAIN_KERNELS.values()]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
 
@@ -248,6 +293,19 @@ def allclose(name: str, got, want, tol: dict) -> float:
         raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
                              f"{tol}, max |diff| {err:.3g}")
     return err
+
+
+def allclose_rms(name: str, got, want, tol: dict) -> float:
+    """:func:`allclose` on ``got`` and ``want`` divided by the RMS of
+    ``want``: the tolerance is taken relative to the gradient's typical
+    element, as at the reference's test shapes, whose gradients are of
+    order 1.  A gradient summed over m = 2048 rows is ~45 in its typical
+    element, where one bf16 ulp is 0.25, so an absolute 3e-2 would test the
+    scale of the data, not the gradient.  Returns max|d| / RMS."""
+    import torch
+    scale = want.double().pow(2).mean().sqrt().clamp(min=1e-30)
+    return allclose(name, (got.double() / scale).to(torch.float64),
+                    want.double() / scale, tol)
 
 
 def exact(name: str, got, want) -> None:
@@ -1687,7 +1745,7 @@ def lm_throughput(rep: Report, cfg, params, cache_dtype=None,
         f"{d[f'{prefix}_peak_mem_gb']:.1f} GB")
 
 
-def device_busy(fn, wall_s: float) -> dict:
+def device_busy(fn, wall_s: float, top: int = 4) -> dict:
     """Device time of one call of ``fn`` from a ``torch.profiler`` trace
     (the sum of the device-side kernel events), against ``wall_s``, the
     host-clock time of the same work measured without the profiler.
@@ -1715,7 +1773,7 @@ def device_busy(fn, wall_s: float) -> dict:
     return dict(device_ms=dev_ms, wall_ms=wall_s * 1e3,
                 idle_share=None if dev_ms is None else
                 max(0.0, 1 - dev_ms / (wall_s * 1e3)),
-                top=[(k[:40], round(ms, 3), n) for ms, k, n in rows[:4]])
+                top=[(k[:40], round(ms, 3), n) for ms, k, n in rows[:top]])
 
 
 def measure_lm(rep: Report, shapes: dict) -> None:
@@ -2021,14 +2079,12 @@ def serve_lm_bf16(rep: Report, cfg, params) -> dict:
     return dict(launches=c)
 
 
-def widen_tree(tree):
+def widen_tree(params):
     """A copy of a parameter tree with every bf16 leaf widened to fp32."""
     import torch
-    if isinstance(tree, dict):
-        return {k: widen_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [widen_tree(v) for v in tree]
-    return tree.float() if tree.dtype == torch.bfloat16 else tree
+    from repro_torch.core import tree
+    return tree.map_leaves(
+        lambda t: t.float() if t.dtype == torch.bfloat16 else t, params)
 
 
 def measure_lm_bf16(rep: Report, shapes: dict) -> None:
@@ -2697,6 +2753,475 @@ def fleet_busy(rep: Report, ms: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training OLMo-1B as published
+# ---------------------------------------------------------------------------
+def _leaf(tree, path: str):
+    """The tensor at a dotted ``path`` of a parameter tree (list indices as
+    numbers); a trailing ``[i]`` picks layer ``i`` of a stacked leaf."""
+    path, _, layer = path.partition("[")
+    for key in path.split("."):
+        tree = tree[int(key)] if isinstance(tree, list) else tree[key]
+    return tree if not layer else tree[int(layer.rstrip("]"))]
+
+
+def train_launches(cfg, sched, steps: int, remat: bool) -> dict:
+    """Launches per kernel (and plain attention calls) that ``steps`` train
+    steps of ``cfg`` must make under ``sched``: each matmul runs on its
+    regime's kernel once forward, once more in the remat recompute (the
+    blocks', not the head's), once for ``pre`` where its activation is not
+    linear and once for ``dx``; its ``dw`` runs on the SA-CONV GEMM.
+    Attention: flash forward (and recompute), the plain version once in
+    the backward."""
+    kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
+    out = {k: 0 for k in _wrappers()}
+    for key, plan in sched.items():
+        per = 1 if key.name == "lm_head" else cfg.n_layers
+        runs = 1 + (remat and key.name != "lm_head") + \
+            (key.name in ACT_MATMULS) + 1
+        out[kernel[plan.regime]] += per * runs * steps
+        out["sa_conv_matmul"] += per * steps
+    out["flash_attention"] = cfg.n_layers * (1 + remat) * steps
+    out["plain.attention"] = cfg.n_layers * steps
+    return out
+
+
+def expect_train_counts(c: dict, what: str, want: dict) -> None:
+    """``c`` equals ``want`` for every kernel and plain version (those
+    ``want`` does not name: 0)."""
+    full = {k: want.get(k, 0) for k in c}
+    if c != full:
+        raise AssertionError(f"{what}: launch counts {c} != {full}")
+
+
+def check_train_functions(rep: Report, cfg) -> dict:
+    """The kernels backend's autograd Functions on the card against torch
+    autograd through the plain versions (the ``"torch"`` backend), same
+    inputs and cotangent: SA-FC at b = 4 rows and the SA-CONV GEMM at m =
+    TRAIN_BATCH x TRAIN_SEQ, OLMo-1B widths, fp32 and bf16, with bias and
+    without, act none and silu (dx, dw, db), an int8 weight on SA-FC (dx,
+    db), then flash attention's forward with the plain backward at a full
+    wave.  Each gradient is compared relative to its RMS
+    (:func:`allclose_rms`); each Function's launches are counted."""
+    import torch
+    from repro_torch.core.engine import DispatchPolicy, Engine
+    from repro_torch.core.quant import QTensor, quantize
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(dtype)
+
+    def grads(eng, x, w, b, act, cot):
+        """(dx, dw[, db]), or (dx[, db]) for a QTensor ``w``."""
+        frozen = isinstance(w, QTensor)
+        live = [t.detach().requires_grad_() for t in
+                ((x, b) if frozen else (x, w, b)) if t is not None]
+        y = eng.matmul(live[0], w if frozen else live[1],
+                       live[-1] if b is not None else None, act=act)
+        return torch.autograd.grad((y.float() * cot).sum(), live)
+
+    plain = Engine(backend="torch")
+    d, ff = cfg.d_model, cfg.d_ff
+    cases = ((d, d, "none", False), (d, ff, "silu", False),
+             (d, ff, "silu", True), (ff, d, "none", True))
+    errs: dict = {}
+    m_gemm = TRAIN_BATCH * TRAIN_SEQ
+    for regime, m, kern in (("sa_fc", LM_BATCH, "sa_fc_matmul"),
+                            ("sa_conv", m_gemm, "sa_conv_matmul")):
+        eng = Engine(backend="kernels",
+                     policy=DispatchPolicy(force_regime=regime))
+        for dt, tol in ((f32, TOL_FC), (bf, TOL_BF16)):
+            for k, n, act, with_bias in cases:
+                x, w = rand((m, k), dtype=dt), rand((k, n), k ** -0.5, dt)
+                b = rand((n,), dtype=dt) if with_bias else None
+                cot = rand((m, n))
+                reset_counters()
+                got = grads(eng, x, w, b, act, cot)
+                c = counters()
+                want_c = {kern: 2 + (act != "none")}
+                want_c["sa_conv_matmul"] = want_c.get("sa_conv_matmul", 0) + 1
+                expect_train_counts(c, f"{regime} Function", want_c)
+                want = grads(plain, x, w, b, act, cot)
+                label = (f"{kern} Function {dtype_tag(dt)} ({m}x{k})@({k}x"
+                         f"{n}) {act}{' +bias' if with_bias else ''}")
+                for name, g, wv in zip(("dx", "dw", "db"), got, want):
+                    e = allclose_rms(f"{label} {name}", g, wv, tol)
+                    errs[f"{label} {name}"] = e
+        if regime == "sa_fc":
+            x, b = rand((m, d)), rand((ff,))
+            qt = quantize(rand((d, ff), d ** -0.5))
+            cot = rand((m, ff))
+            reset_counters()
+            got = grads(eng, x, qt, b, "silu", cot)
+            expect_train_counts(counters(), "int8 Function",
+                                {"sa_fc_matmul": 3})
+            want = grads(plain, x, qt, b, "silu", cot)
+            for name, g, wv in zip(("dx", "db"), got, want):
+                errs[f"sa_fc_matmul Function int8 ({m}x{d})@({d}x{ff}) "
+                     f"silu +bias {name}"] = allclose_rms(
+                    f"int8 Function {name}", g, wv, TOL_FC)
+    kernels = Engine(backend="kernels")
+    for dt, tol in ((f32, TOL_ATTN), (bf, TOL_BF16)):
+        q, k, v = (rand((TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd),
+                        dtype=dt) for _ in range(3))
+        cot = rand(q.shape)
+        res = []
+        for eng in (kernels, plain):
+            live = [t.detach().requires_grad_() for t in (q, k, v)]
+            reset_counters()
+            out = eng.attention(*live)
+            res.append(torch.autograd.grad((out.float() * cot).sum(), live))
+            if eng is kernels:
+                expect_train_counts(counters(), "flash Function",
+                                    {"flash_attention": 1,
+                                     "plain.attention": 1})
+        for name, g, wv in zip(("dq", "dk", "dv"), *res):
+            errs[f"flash_attention Function {dtype_tag(dt)} "
+                 f"{tuple(q.shape)} {name}"] = allclose_rms(
+                f"flash Function {name}", g, wv, tol)
+    torch.cuda.synchronize()
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    log(f"  {len(errs)} gradients of the autograd Functions within the "
+        f"reference's tolerances (3e-4 fp32, 3e-2 bf16, relative to each "
+        f"gradient's RMS) of torch autograd through the plain versions; "
+        f"largest max|d|/RMS {worst[1]:.3g} ({worst[0]}); launches per "
+        f"Function as the backward implies")
+    rep.detail["train_function_errs"] = errs
+    rep.note_err("sa_conv_matmul[train]", max(
+        e for key, e in errs.items() if key.startswith("sa_conv_matmul")))
+    rep.note_err("flash_attention[train]", max(
+        e for key, e in errs.items() if key.startswith("flash")))
+    return errs
+
+
+def dtype_tag(dt) -> str:
+    import torch
+    return "bf16" if dt == torch.bfloat16 else "fp32"
+
+
+def check_train_grads(rep: Report, cfg, tc, params, batch) -> None:
+    """Step-0 gradients of ``TRAIN_LEAVES``: the kernels backend's bf16
+    ones within ``TRAIN_BF16_SPREAD`` times (L2) the torch backend's own
+    bf16-vs-fp32 spread of the torch backend's bf16 ones, and the kernels
+    backend's fp32 ones within ``TRAIN_FP32_REL_L2`` (relative L2) of the
+    torch backend's fp32 ones.  The torch backend runs without remat: the
+    same gradient, half the plain forwards."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.train import train_step as TS
+
+    def leaves_of(cfg, tc, params, backend):
+        t0 = time.perf_counter()
+        loss, g = TS.make_grad_fn(cfg, tc, engine=Engine(backend=backend))(
+            params, batch)
+        out = {p: _leaf(g, p).float().clone() for p in TRAIN_LEAVES}
+        del g
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if not (torch.isfinite(loss) and all(
+                torch.isfinite(t).all() for t in out.values())):
+            raise AssertionError(f"step-0 {backend} gradients not finite")
+        return float(loss), out, time.perf_counter() - t0
+
+    plain_tc = dataclasses.replace(tc, remat="none")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    runs = {"kernels bf16": leaves_of(cfg, tc, params, "kernels"),
+            "torch bf16": leaves_of(cfg, plain_tc, params, "torch")}
+    params32 = widen_tree(params)
+    runs["torch fp32"] = leaves_of(cfg32, plain_tc, params32, "torch")
+    runs["kernels fp32"] = leaves_of(cfg32, tc, params32, "kernels")
+    del params32
+    torch.cuda.empty_cache()
+    k16, t16, t32, k32 = (runs[k][1] for k in ("kernels bf16", "torch bf16",
+                                               "torch fp32",
+                                               "kernels fp32"))
+    rows = {}
+    for p in TRAIN_LEAVES:
+        d16 = (k16[p] - t16[p]).norm().item()
+        spread = (t16[p] - t32[p]).norm().item()
+        rel32 = ((k32[p] - t32[p]).norm() / t32[p].norm()).item()
+        rows[p] = dict(
+            kernels_vs_torch_bf16_l2=d16, torch_bf16_vs_fp32_l2=spread,
+            kernels_bf16_vs_torch_fp32_l2=(k16[p] - t32[p]).norm().item(),
+            kernels_vs_torch_bf16_max=(k16[p] - t16[p]).abs().max().item(),
+            torch_bf16_vs_fp32_max=(t16[p] - t32[p]).abs().max().item(),
+            fp32_rel_l2=rel32, norm=t32[p].norm().item())
+        log(f"  step-0 gradient {p} (|g| {rows[p]['norm']:.4g}): bf16 "
+            f"kernels vs torch L2 {d16:.4g} = {d16 / spread:.3f} x torch "
+            f"bf16 vs fp32 {spread:.4g} (kernels bf16 vs torch fp32 "
+            f"{rows[p]['kernels_bf16_vs_torch_fp32_l2']:.4g}; max|d| "
+            f"{rows[p]['kernels_vs_torch_bf16_max']:.3g} vs "
+            f"{rows[p]['torch_bf16_vs_fp32_max']:.3g}); fp32 kernels vs "
+            f"torch relative L2 {rel32:.3g}")
+        if not d16 <= TRAIN_BF16_SPREAD * spread:
+            raise AssertionError(
+                f"step-0 gradient {p}: kernels vs torch backend bf16 L2 "
+                f"{d16:.4g} > {TRAIN_BF16_SPREAD:.4f} x the torch backend's "
+                f"bf16 vs fp32 spread {spread:.4g}")
+        if not rel32 <= TRAIN_FP32_REL_L2:
+            raise AssertionError(
+                f"step-0 fp32 gradient {p}: relative L2 {rel32:.3g} > "
+                f"{TRAIN_FP32_REL_L2}")
+    rep.detail["train_step0_grads"] = dict(
+        leaves=rows, losses={k: v[0] for k, v in runs.items()},
+        seconds={k: v[2] for k, v in runs.items()})
+    log("  step-0 losses: " + ", ".join(
+        f"{k} {v[0]:.5f} ({v[2]:.1f} s)" for k, v in runs.items()))
+
+
+def train_rows(rep: Report, cfg, sched, steps_per: dict) -> None:
+    """Card time of one train step's kernel work, per shape and role: the
+    SA-CONV GEMM forward (and recompute, and ``pre``), ``dx`` against
+    ``w.T`` and ``dw = x.T dpre``, each at its shapes in bf16 beside its
+    bound, plain version and ``torch.mm``; flash's forward at the step's
+    wave."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(bf)
+
+    for key, plan in sched.items():
+        if plan.regime != "sa_conv":
+            raise AssertionError(f"{key.name}: not on the SA-CONV GEMM")
+        m, n, k = key.m, key.n, key.k
+        per = 1 if key.name == "lm_head" else cfg.n_layers
+        act = "silu" if key.name in ACT_MATMULS else "none"
+        x, w, dpre = rand(m, k), rand(k, n) * k ** -0.5, rand(m, n)
+        roles = (("forward", x, w, act, per * (
+            1 + (key.name != "lm_head") + (act != "none"))),
+            ("dx", dpre, w.t().contiguous(), "none", per),
+            ("dw", x.t().contiguous(), dpre, "none", per))
+        for role, a, b, ac, count in roles:
+            out = sa_conv_matmul(a, b, act=ac)
+            add_row(rep, "sa_conv_matmul[train]", "trainer.run",
+                    f"{key.name} {role} ({a.shape[0]}x{a.shape[1]})@"
+                    f"({b.shape[0]}x{b.shape[1]})",
+                    timed(lambda: sa_conv_matmul(a, b, act=ac)),
+                    timed(lambda: sa_conv_matmul_plain(a, b, act=ac),
+                          runs=1, warmup=0),
+                    timed(lambda: ref.apply_act(torch.mm(a, b), ac)),
+                    2 * a.shape[0] * a.shape[1] * b.shape[1],
+                    nbytes(a, b, out), peak=PEAK_BF16_FLOPS, per_pass=count,
+                    phase="train step")
+        del x, w, dpre
+    q, k, v = (rand(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+               for _ in range(3))
+    out = flash_attention(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    add_row(rep, "flash_attention[train]", "trainer.run",
+            f"{tuple(q.shape)} causal forward",
+            timed(lambda: flash_attention(q, k, v)),
+            timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
+            timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)),
+            4 * TRAIN_BATCH * cfg.n_heads * pairs * cfg.hd,
+            nbytes(q, k, v, out), peak=PEAK_BF16_FLOPS,
+            per_pass=steps_per["flash_attention"], phase="train step")
+    torch.cuda.synchronize()
+
+
+def train_phase(rep: Report, smi: str, cfg=None) -> dict:
+    """Phase 10: OLMo-1B as published (bf16, full width and depth) trains
+    through ``trainer.run`` on the kernels backend.  The autograd
+    Functions against torch autograd through the plain versions; the
+    step-0 gradients against the torch backend's (bf16 within its own
+    bf16-vs-fp32 spread, fp32 within ``TRAIN_FP32_REL_L2``); then
+    ``TRAIN_STEPS`` steps with an async checkpoint at ``TRAIN_CKPT``:
+    every loss finite, every dispatch a schedule hit, launches as the
+    train schedule implies, the checkpoint restored bitwise into a fresh
+    state and the trainer resuming from it; host and device time of a
+    step, tokens/s, idle share, peak memory.  Returns the 4-step run's
+    launches."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.schedule import LayerSchedule
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train import trainer
+
+    cfg = cfg if cfg is not None else olmo_bf16_config()
+    t_phase = time.perf_counter()
+    check_train_functions(rep, cfg)
+    tc = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     total_steps=TRAIN_STEPS, warmup_steps=1, remat="block")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, tc.seq_len,
+                                  tc.global_batch, seed=tc.seed))
+    pending = [TS.init_train_state(cfg, tc, tc.seed, device=DEVICE)]
+    check_train_grads(rep, cfg, tc, pending[0][0], data.batch_at(0))
+
+    eng = Engine(backend="kernels")
+    step_fn = TS.make_train_step(cfg, tc, engine=eng)
+    snapshot = {}
+
+    def stepping(params, opt, cs, batch):
+        out = step_fn(params, opt, cs, batch)
+        stepping.calls += 1
+        if stepping.calls == TRAIN_CKPT:       # the state saved at CKPT
+            snapshot["state"] = tree.map_leaves(
+                torch.clone, (T.trainable(out[0]), out[1], out[2]))
+        return out
+    stepping.calls = 0
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with eng.tracing() as tr:
+        run = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
+                          ckpt_every=TRAIN_CKPT, train_step_fn=stepping,
+                          state=pending.pop(), data=data, log_every=1,
+                          log=lambda s: log(f"  {s}"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    c = counters()
+    sched = LayerSchedule.compile(cfg, "train", batch=TRAIN_BATCH,
+                                  seq=TRAIN_SEQ, policy=eng.policy)
+    want = train_launches(cfg, sched, TRAIN_STEPS, remat=True)
+    expect_train_counts(c, "trainer.run", want)
+    per_step = train_launches(cfg, sched, 1, remat=True)
+    mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")]
+    per_forward = sum(1 if key.name == "lm_head" else cfg.n_layers
+                      for key in sched)
+    if len(mm) != TRAIN_STEPS * per_forward or \
+            len(tr) != len(mm) + TRAIN_STEPS * cfg.n_layers or \
+            any(r.schedule != "hit" for r in mm):
+        raise AssertionError("trainer.run: a matmul missed its schedule, or "
+                             "the trace holds other records than one "
+                             "forward's a step (remat and the backward "
+                             "record nothing)")
+    if len(run.losses) != TRAIN_STEPS or not all(
+            l == l and abs(l) < float("inf") for l in run.losses):
+        raise AssertionError(f"trainer.run losses {run.losses}")
+    log(f"  trainer.run: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {run_s:.2f} s (schedule compiled, checkpoints written); "
+        f"losses {[round(l, 5) for l in run.losses]}, all finite; "
+        f"{len(mm)} matmul dispatches, all schedule hits; launches {c} == "
+        f"the train schedule's")
+
+    # the async checkpoint at TRAIN_CKPT, restored into a fresh state
+    saved = snapshot.pop("state")
+    fresh = tree.map_leaves(torch.empty_like, saved)
+    t0 = time.perf_counter()
+    restored, step, _ = Checkpointer(str(ckpt_dir)).restore(fresh,
+                                                            step=TRAIN_CKPT)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    leaves = tree.leaves(restored)
+    if step != TRAIN_CKPT or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(leaves, tree.leaves(saved))):
+        raise AssertionError("the step-2 checkpoint restored is not bitwise "
+                             "the state saved")
+    ckpt_bytes = nbytes(*leaves)
+    del saved
+    log(f"  checkpoint at step {TRAIN_CKPT} ({len(leaves)} leaves, "
+        f"{ckpt_bytes / 1e9:.2f} GB) restored into a fresh state in "
+        f"{restore_s:.2f} s: bitwise the state saved")
+
+    # steps from the restored state with no checkpoint in flight (the
+    # trainer's steps 2 and 3 overlap the async write of step 2's): host
+    # clock to the loss on the host, median of 3; peak memory; one
+    # profiled step
+    tp, opt, cs = restored
+    del restored, leaves
+    params = T.with_head_copy(cfg, tp)
+    batch = data.batch_at(TRAIN_CKPT)
+    trainer_s = statistics.median(run.step_seconds[1:])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        float(step_fn(params, opt, cs, batch)[3]["loss"])
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(walls)
+    busy = device_busy(lambda: step_fn(params, opt, cs, batch), step_s,
+                       top=12)
+    del params, tp, opt, cs
+    torch.cuda.empty_cache()
+
+    # the trainer resumes from the async checkpoint
+    shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS:08d}")
+    resumed = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
+                          ckpt_every=TRAIN_CKPT, data=data, log_every=1,
+                          log=lambda s: log(f"  {s}"), device=DEVICE,
+                          engine=eng)
+    if resumed.resumed_from != TRAIN_CKPT or \
+            resumed.steps_run != TRAIN_STEPS - TRAIN_CKPT or not all(
+                abs(l) < float("inf") for l in resumed.losses):
+        raise AssertionError(f"resume: from {resumed.resumed_from}, "
+                             f"{resumed.steps_run} steps, losses "
+                             f"{resumed.losses}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    same = resumed.losses == run.losses[TRAIN_CKPT:]
+    log(f"  trainer.run resumed from step {resumed.resumed_from}: losses "
+        f"{resumed.losses} against the uninterrupted run's "
+        f"{run.losses[TRAIN_CKPT:]}: {'' if same else 'not '}bitwise "
+        "equal (reported, not required)")
+
+    train_rows(rep, cfg, sched, per_step)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    b4 = [r for r in rep.rows if r["kernel"] == "sa_conv_matmul[train]"]
+    by_role = {role: sum(r["ms"] * r["per_pass"] for r in b4
+                         if f" {role} " in r["shape"])
+               for role in ("forward", "dx", "dw")}
+    flash_ms = sum(r["ms"] * r["per_pass"] for r in rep.rows
+                   if r["kernel"] == "flash_attention[train]")
+    detail = dict(
+        card=smi, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        losses=run.losses, resumed_losses=resumed.losses,
+        resumed_bitwise=same,
+        trainer_step_seconds=run.step_seconds,
+        trainer_step_s_median=trainer_s, step_seconds=walls,
+        step_s_median=step_s, tokens_per_s=tokens / step_s, launches=c, launches_per_step=per_step,
+        b4_ms_per_step=by_role, flash_ms_per_step=flash_ms,
+        device=busy, peak_bytes=peak, state_bytes=base,
+        checkpoint_bytes=ckpt_bytes, restore_s=restore_s,
+        phase_s=time.perf_counter() - t_phase)
+    rep.detail["train"] = detail
+    dev = "not measured" if busy["device_ms"] is None else \
+        f"{busy['device_ms']:.2f} ms"
+    idle = "not measured" if busy["idle_share"] is None else \
+        f"{busy['idle_share']:.3f}"
+    log(f"  [{smi}] bf16 train step of {tokens} tokens: {step_s * 1e3:.1f} "
+        f"ms host clock (median of 3 with no checkpoint in flight) = "
+        f"{tokens / step_s:.0f} trained tokens/s; trainer.run's steps "
+        f"1-{TRAIN_STEPS - 1}: median {trainer_s * 1e3:.1f} ms (steps "
+        f"{TRAIN_CKPT}-{TRAIN_STEPS - 1} overlap the async checkpoint's "
+        f"write); device {dev} (torch.profiler), idle share {idle}; top "
+        f"{busy['top']}")
+    log(f"  [{smi}] one step's launches {per_step}; SA-CONV GEMM card ms "
+        f"forward {by_role['forward']:.2f} (with the recompute and pre), dx "
+        f"{by_role['dx']:.2f}, dw {by_role['dw']:.2f}; flash forward "
+        f"{flash_ms:.3f} ms; peak memory {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated over one step, state "
+        f"{base / 1e9:.2f} GB); phase {detail['phase_s']:.1f} s")
+    return c
+
+
+# ---------------------------------------------------------------------------
 # conv2d_im2col: the patch matrix on the SA-CONV GEMM (B4), a benchmark
 # reference beside the implicit-GEMM SA-CONV (B2)
 # ---------------------------------------------------------------------------
@@ -2752,7 +3277,7 @@ def geometry_log(q) -> str:
 
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
-                 fleet: dict) -> dict:
+                 fleet: dict, train: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -2765,9 +3290,14 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     tensor-core rate; and one per CNN kernel with bf16 activations (C6):
     SA-CONV implicit summed over AlexNet's five convs at b = 64 on AlexNet's
     forward with bf16 activations, the pool at the bf16 declined-fusion
-    dispatch.  ``launches_by_path`` gives every path's count (the zoo's
-    ``ModelZooServer.serve``, the bf16 ``CNNServer.run`` and ``fleet``,
-    the fleet's three executed configurations, among them);
+    dispatch.  Then one entry per kernel of the train path
+    (``<kernel>[train]``), read on phase 10's ``trainer.run`` (OLMo-1B as
+    published, 4 steps): one step's work, the GEMM's forward, remat
+    recompute, ``pre``, ``dx`` and ``dw`` launches and flash's forward
+    ones, bounded by bf16's rate.  ``launches_by_path`` gives every path's
+    count (the zoo's ``ModelZooServer.serve``, the bf16 ``CNNServer.run``,
+    ``fleet``, the fleet's three executed configurations, and
+    ``trainer.run`` among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -2801,7 +3331,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              "cnn_forward bf16": zoo["bf16"],
              "Engine.conv2d bf16, pool fusion declined":
                  zoo["declined_bf16"],
-             "CNNServer.run bf16": cnn_bf16, "fleet": fleet}
+             "CNNServer.run bf16": cnn_bf16, "fleet": fleet,
+             "trainer.run": train}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -2829,6 +3360,11 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == path]
         out.append(entry(name, kernel, path, paths[path][kernel], rows,
+                         PEAK_BF16_FLOPS))
+    for kernel, name in TRAIN_KERNELS.items():
+        rows = [r for r in rep.rows if r["kernel"] == name
+                and r["path"] == "trainer.run"]
+        out.append(entry(name, kernel, "trainer.run", train[kernel], rows,
                          PEAK_BF16_FLOPS))
     return {"kernels": out}
 
@@ -2915,10 +3451,16 @@ def main() -> int:
         "(launch/fleet.py's seven configurations)")
     fleet = fleet_phase(rep, zoo["models"])
     del zoo["models"]
+    torch.cuda.empty_cache()
+
+    log("== phase 10: training, full-width OLMo-1B as published (bf16), "
+        "trainer.run on the kernels backend")
+    with torch.enable_grad():
+        train = train_phase(rep, smi)
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
-                        served_bf16, fleet)
+                        served_bf16, fleet, train)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

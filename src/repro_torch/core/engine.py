@@ -22,9 +22,17 @@ un-dequantized; the per-channel scale runs in the kernel epilogue.
 
 A matmul runs on the SA-FC kernel in the ``sa_fc`` regime and on the
 SA-CONV GEMM kernel in the ``sa_conv`` regime; the plan's tiles are the
-planner's (TPU) tiles and the CUDA kernels pick their own.  On the
-``"kernels"`` backend an input that requires grad raises
-``NotImplementedError`` (no backward kernels yet).
+planner's (TPU) tiles and the CUDA kernels pick their own.
+
+On the ``"kernels"`` backend ``matmul`` and ``attention`` are
+differentiable, as the JAX package's Pallas path is: the matmul's backward
+runs the same two kernels (``dx`` on the forward's regime kernel against
+a contiguous ``w.T``, ``dw = x.T @ dpre`` on the SA-CONV GEMM), and
+attention's backward differentiates the plain version from the saved q, k
+and v (the reference's flash kernel has no VJP; it trains on XLA, whose
+attention is that plain version).  Backward launches are not recorded in
+the trace.  ``conv2d`` and ``pool`` refuse inputs that require grad: the
+JAX package has no backward for them.
 """
 from __future__ import annotations
 
@@ -235,8 +243,119 @@ def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the kernels backend has no backward kernels yet; "
+            f"{name}: the kernels backend has no backward for conv2d or "
+            "pool (the JAX package has none either: it trains no CNN); "
             "run under torch.no_grad() or on the 'torch' backend")
+
+
+# ---------------------------------------------------------------------------
+# kernels-backend autodiff: the JAX package's custom VJPs
+# (``_make_pallas_vjp``, ``_quantized_pallas_matmul``) as autograd
+# Functions whose backward runs the forward kernels.  The reference plans
+# the SA-FC ``dx`` stream (``_fc_dx_plan``); the port's SA-FC picks its own
+# tiles from the launch's shape, so there is nothing to plan here.
+# ---------------------------------------------------------------------------
+def _kernel_matmul(regime: str, x2d: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor | None = None, *, act: str = "none",
+                   w_scale: torch.Tensor | None = None,
+                   out_dtype=None) -> torch.Tensor:
+    kernel = sa_fc_matmul if regime == "sa_fc" else sa_conv_matmul
+    return kernel(x2d, w, bias, act=act, w_scale=w_scale,
+                  out_dtype=out_dtype)
+
+
+def _act_grad(pre: torch.Tensor, act: str) -> torch.Tensor:
+    """d act / d pre of :func:`ref.apply_act`, elementwise, in fp32."""
+    _, vjp = torch.func.vjp(lambda t: ref.apply_act(t, act), pre)
+    return vjp(torch.ones_like(pre))[0]
+
+
+def _dpre(g: torch.Tensor, act: str, pre_fn) -> torch.Tensor:
+    """``g * act'(pre)`` in fp32; ``pre_fn`` recomputes the pre-activation
+    through the forward kernel, which ``act == "none"`` does not need
+    (``act'`` is 1 there)."""
+    gf = g.to(torch.float32)
+    if act == "none":
+        return gf
+    return gf * _act_grad(pre_fn().to(torch.float32), act)
+
+
+class _MatmulFn(torch.autograd.Function):
+    """``act(x @ w + bias)`` on the regime's kernel, differentiable in x, w
+    and bias (``bias`` may be None)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, bias, act, regime, out_dtype):
+        ctx.save_for_backward(x2d, w, bias)
+        ctx.act, ctx.regime = act, regime
+        return _kernel_matmul(regime, x2d, w, bias, act=act,
+                              out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w, bias = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dpre = _dpre(g, ctx.act, lambda: _kernel_matmul(
+            ctx.regime, x2d, w, bias)).to(x2d.dtype).contiguous()
+        dx = dw = db = None
+        if need_x:
+            dx = _kernel_matmul(ctx.regime, dpre, w.t().contiguous())
+        if need_w:
+            dw = sa_conv_matmul(x2d.t().contiguous(), dpre).to(w.dtype)
+        if need_b and bias is not None:
+            db = dpre.to(torch.float32).sum(0).to(bias.dtype)
+        return dx, dw, db, None, None, None
+
+
+class _QuantMatmulFn(torch.autograd.Function):
+    """``act((x @ q) * scale + bias)`` with frozen int8 weights:
+    differentiable in x and bias.  ``dx`` folds the per-column scale into
+    the cotangent and streams the raw int8 ``q.T`` (1 byte a weight)."""
+
+    @staticmethod
+    def forward(ctx, x2d, bias, q, w_scale, act, regime, out_dtype):
+        ctx.save_for_backward(x2d, bias, q, w_scale)
+        ctx.act, ctx.regime = act, regime
+        return _kernel_matmul(regime, x2d, q, bias, act=act,
+                              w_scale=w_scale, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, bias, q, w_scale = ctx.saved_tensors
+        dpre = _dpre(g, ctx.act, lambda: _kernel_matmul(
+            ctx.regime, x2d, q, bias, w_scale=w_scale))
+        dx = db = None
+        if ctx.needs_input_grad[0]:
+            scaled = (dpre * w_scale.reshape(1, -1).to(torch.float32)
+                      ).to(x2d.dtype).contiguous()
+            dx = _kernel_matmul(ctx.regime, scaled, q.t().contiguous())
+        if ctx.needs_input_grad[1] and bias is not None:
+            db = dpre.sum(0).to(bias.dtype)
+        return dx, db, None, None, None, None, None
+
+
+class _FlashFn(torch.autograd.Function):
+    """Flash attention forward on the kernel; the backward differentiates
+    the plain :func:`ref.attention` recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = ref.attention(*qkv, **ctx.opts)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in qkv if t.requires_grad], g))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +432,23 @@ class Engine:
         self._trace_tls.trace = tr
         try:
             yield tr
+        finally:
+            if prev is _TRACE_UNSET:
+                del self._trace_tls.trace
+            else:
+                self._trace_tls.trace = prev
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """Run a recomputation (the second forward of activation
+        checkpointing) under this engine, recording nothing.  The backward
+        pass may run it on another thread (autograd's device thread), whose
+        engine stack is empty, so it activates this engine there."""
+        prev = getattr(self._trace_tls, "trace", _TRACE_UNSET)
+        self._trace_tls.trace = None
+        try:
+            with self.activate():
+                yield self
         finally:
             if prev is _TRACE_UNSET:
                 del self._trace_tls.trace
@@ -425,11 +561,12 @@ class Engine:
         x2d = x.reshape(m, k)
         out_dt = out_dtype if out_dtype is not None else x.dtype
         if self.backend == "kernels":
-            _refuse_grad(name, x, wq, bias)
-            kernel = sa_fc_matmul if plan.regime == "sa_fc" \
-                else sa_conv_matmul
-            out = kernel(x2d.contiguous(), wq, bias, act=act,
-                         w_scale=w_scale, out_dtype=out_dt)
+            if w_scale is not None:
+                out = _QuantMatmulFn.apply(x2d.contiguous(), bias, wq,
+                                           w_scale, act, plan.regime, out_dt)
+            else:
+                out = _MatmulFn.apply(x2d.contiguous(), wq, bias, act,
+                                      plan.regime, out_dt)
         else:
             out = ref.matmul_bias_act(x2d, wq, bias, act=act,
                                       out_dtype=out_dt, w_scale=w_scale)
@@ -517,9 +654,7 @@ class Engine:
                     n=k.shape[1], k=q.shape[-1], case=0,
                     backend=self.backend, dtype=dtype_name(q.dtype))
         if self.backend == "kernels":
-            _refuse_grad(name, q, k, v)
-            return flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+            return _FlashFn.apply(q, k, v, causal, window, softcap, scale)
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
 

@@ -6,9 +6,10 @@ an immutable mapping from named ops to plans, compiled once per
 (network, batch, shapes, policy) and memoized.  An engine carrying one
 resolves every named op by lookup (``schedule="hit"``).
 
-Compilation runs the network (or one pipeline stage), or one LM serving
-phase, on ``meta`` tensors under a collecting ``"torch"``-backend engine:
-shapes only, no data, no device work.
+Compilation runs the network (or one pipeline stage), or one LM phase
+(the training loss, prefill or decode), on ``meta`` tensors under a
+collecting ``"torch"``-backend engine: shapes only, no data, no device
+work.
 """
 from __future__ import annotations
 
@@ -19,12 +20,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tree
 from repro_torch.core.dataflow import ConvPlan, FCPlan, MatmulPlan
 from repro_torch.core.engine import DispatchPolicy, Engine, dtype_name
-from repro_torch.core.quant import QTensor
 
-#: LM phases :meth:`LayerSchedule.compile` knows; ``train`` waits for the
-#: training slice (ROADMAP A14)
+#: LM phases :meth:`LayerSchedule.compile` knows
 PHASES = ("train", "prefill", "decode")
 
 #: Pipeline stages :meth:`LayerSchedule.compile_cnn` can compile for: the
@@ -149,15 +149,13 @@ class LayerSchedule(Mapping):
                 policy: DispatchPolicy | None = None,
                 params: Any | None = None) -> LayerSchedule:
         """Compile (and memoize) the schedule of LM ``cfg`` in ``phase``:
-        ``prefill`` ((batch, seq) prompt against a ``max_seq``-deep cache)
-        or ``decode`` (one token per slot against the cache).  ``params``
+        ``train`` (the loss on a (batch, seq) batch), ``prefill`` ((batch,
+        seq) prompt against a ``max_seq``-deep cache) or ``decode`` (one
+        token per slot against the cache).  ``params``
         (optional) supplies the real parameter tree so quantized weight
         dtypes land in the keys; only its shapes and dtypes are read."""
         if phase not in PHASES:
             raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-        if phase == "train":
-            raise NotImplementedError("train schedules come with the "
-                                      "training slice (ROADMAP A14)")
         if policy is None:
             policy = DispatchPolicy()
         key = (cfg, phase, batch, seq, max_seq, dtype_name(cache_dtype),
@@ -292,42 +290,20 @@ def clear_schedule_cache() -> None:
     _CACHE.clear()
 
 
-def _leaves(tree, path: str = "") -> Iterator[tuple[str, torch.Tensor]]:
-    """(path, tensor) of every leaf of a parameter tree (lists, dicts,
-    :class:`QTensor` leaves), in a fixed order."""
-    if isinstance(tree, QTensor):
-        yield f"{path}.q", tree.q
-        yield f"{path}.scale", tree.scale
-    elif isinstance(tree, dict):
-        for name in sorted(tree):
-            yield from _leaves(tree[name], f"{path}.{name}" if path else name)
-    elif isinstance(tree, list):
-        for i, leaf in enumerate(tree):
-            yield from _leaves(leaf, f"{path}.{i}" if path else str(i))
-    else:
-        yield path, tree
-
-
 def _params_fingerprint(params: Any) -> tuple | None:
     if params is None:
         return None
     return tuple((path, tuple(t.shape), dtype_name(t.dtype))
-                 for path, t in _leaves(params))
+                 for path, t in tree.flatten_with_paths(params))
 
 
 def _meta(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
-def _meta_params(tree):
+def _meta_params(params):
     """The same tree with every tensor replaced by a meta tensor."""
-    if isinstance(tree, QTensor):
-        return QTensor(_meta(tree.q), _meta(tree.scale))
-    if isinstance(tree, dict):
-        return {k: _meta_params(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_meta_params(v) for v in tree]
-    return _meta(tree)
+    return tree.map_leaves(_meta, params)
 
 
 def _entries_from_trace(tr) -> tuple[dict[OpKey, MatmulPlan | FCPlan],
@@ -388,8 +364,7 @@ def _collect(cfg, phase: str, batch: int, seq: int, max_seq: int | None,
              cache_dtype, policy: DispatchPolicy, params
              ) -> tuple[dict[OpKey, MatmulPlan | FCPlan],
                         dict[ConvOpKey, ConvPlan]]:
-    """Run one LM serving phase on meta tensors under a collecting
-    engine."""
+    """Run one LM phase on meta tensors under a collecting engine."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import kvcache as KC
     from repro_torch.serve.serve_step import decode_step, prefill_step
@@ -399,7 +374,11 @@ def _collect(cfg, phase: str, batch: int, seq: int, max_seq: int | None,
     ms = max_seq if max_seq is not None else seq + 32
     eng = Engine(backend="torch", policy=policy)
     with eng.tracing() as tr, eng.activate():
-        if phase == "prefill":
+        if phase == "train":
+            tokens = torch.empty((batch, seq), dtype=torch.int64,
+                                 device="meta")
+            T.loss_fn(cfg, params, {"tokens": tokens})
+        elif phase == "prefill":
             tokens = torch.empty((batch, seq), dtype=torch.int64,
                                  device="meta")
             prefill_step(cfg, params, {"tokens": tokens}, ms, cache_dtype)

@@ -63,6 +63,29 @@ def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}")
 
 
+class _RowProduct(torch.autograd.Function):
+    """``xf @ wf`` in fp32, one row at a time, each from its own allocation:
+    a BLAS call's blocking (and so its rounding) may depend on m and on
+    alignment.  The backward is the plain whole-matrix products ``g @ wf.T``
+    and ``xf.T @ g``: the same gradient as differentiating the row loop,
+    without summing ``wf``'s gradient as m outer products."""
+
+    @staticmethod
+    def forward(ctx, xf, wf):
+        ctx.save_for_backward(xf, wf)
+        if not xf.shape[0]:
+            return xf.new_empty((0, wf.shape[1]))
+        return torch.cat([xf[i:i + 1].clone() @ wf
+                          for i in range(xf.shape[0])])
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, wf = ctx.saved_tensors
+        dx = g @ wf.t() if ctx.needs_input_grad[0] else None
+        dw = xf.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 @_counted
 def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
                     b: torch.Tensor | None = None, act: str = "none", *,
@@ -86,11 +109,7 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor,
     if xf.device.type == "meta":            # shapes only (schedule compile)
         acc = xf @ wf
     else:
-        # one row at a time, each from its own allocation: a BLAS call's
-        # blocking (and so its rounding) may depend on m and on alignment
-        acc = torch.cat([xf[i:i + 1].clone() @ wf
-                         for i in range(xf.shape[0])]) if xf.shape[0] else \
-            xf.new_empty((0, wf.shape[1]))
+        acc = _RowProduct.apply(xf, wf)
     if b is None and act == "none" and w_scale is None:
         return acc.to(out_dtype)
     if w_scale is not None:

@@ -122,8 +122,14 @@ def head_weight(cfg, params: dict) -> torch.Tensor:
     """The (d, V) output projection.  Tied models keep ``embed_t``, a
     contiguous copy of ``embed.T`` made once with the parameters: the GEMM
     kernels take row-major (k, n) weights, and a strided read of the
-    transposed view would scatter SA-FC's weight stream."""
-    return params["embed_t"] if cfg.tie_embeddings else params["head"]
+    transposed view would scatter SA-FC's weight stream.  A tree without
+    ``embed_t`` (the trained leaves, as the loss sees them) computes the
+    head from ``embed`` itself, so its gradient flows into ``embed``."""
+    if not cfg.tie_embeddings:
+        return params["head"]
+    if "embed_t" in params:
+        return params["embed_t"]
+    return params["embed"].t().contiguous()
 
 
 def unembed(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -10,28 +10,41 @@ a Python loop over index *r* of the stacked tensors (``a[r]`` of a
 contiguous stacked tensor is a contiguous view, so nothing is copied).
 
 Modes:
-* ``train``   — full-sequence forward, returns logits (forward only: the
-  loss and training come with the training slice, ROADMAP A14).
+* ``train``   — full-sequence forward, returns logits; :func:`loss_fn` is
+  the training loss, differentiable on both backends, with ``remat="block"``
+  recomputing each pattern period in the backward pass.
 * ``prefill`` — forward that also emits per-layer K/V for the decode cache.
 * ``decode``  — one-token step against the cache (:func:`decode_step`).
 
+Tied models train one matrix: :func:`trainable` is the tree of trained
+leaves, without the serving copy ``embed_t``, so the loss computes the head
+from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
+optimizer step.
+
 MoE, Mamba/SSD, shared-attention, encoder-decoder and vision families
-raise ``NotImplementedError`` (ROADMAP A13).
+raise ``NotImplementedError`` (ROADMAP A.2, the rest of the LM stack).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA,
                                       SHARED_ATTN, ModelConfig)
+from repro_torch.core import engine
 from repro_torch.core.accelerator import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_mod
 
 MODES = ("train", "prefill")
+#: ``remat`` policies: none, or each pattern period recomputed in the
+#: backward pass (the reference's ``jax.checkpoint`` of its scan body)
+REMATS = ("none", "block")
+_UNPORTED = "ROADMAP A.2, the rest of the LM stack"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -46,20 +59,20 @@ def check_supported(cfg: ModelConfig) -> None:
         if ak in (MAMBA, SHARED_ATTN):
             raise NotImplementedError(
                 f"{cfg.name}: {ak} blocks (Mamba2/SSD, zamba2 shared "
-                "attention) are not ported yet (ROADMAP A13)")
+                f"attention) are not ported yet ({_UNPORTED})")
         if ak not in (ATTN_GLOBAL, ATTN_LOCAL):
             raise ValueError(f"{cfg.name}: unknown block kind {ak!r}")
         if mk == "moe":
             raise NotImplementedError(
-                f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A13)")
+                f"{cfg.name}: MoE blocks are not ported yet ({_UNPORTED})")
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder stacks are not ported yet "
-            "(ROADMAP A13)")
+            f"({_UNPORTED})")
     if cfg.vision_tokens or cfg.audio_frames or cfg.frontend_dim:
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not ported yet "
-            "(ROADMAP A13)")
+            f"({_UNPORTED})")
 
 
 # ---------------------------------------------------------------------------
@@ -149,21 +162,57 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _period(cfg, kinds, blocks: list, x: torch.Tensor,
+            pos_ids: torch.Tensor, mode: str, caches: list, pos):
+    """One pattern period: every block kind once.  Returns (x, [new
+    cache per kind])."""
+    new = []
+    for i, (ak, _) in enumerate(kinds):
+        x, nc = _apply_block(cfg, blocks[i], x, pos_ids, attn_kind=ak,
+                             mode=mode, pos=pos, cache=caches[i])
+        new.append(nc)
+    return x, new
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under activation checkpointing: only the inputs are
+    kept, and the backward pass reruns ``fn`` whole (early stop off, so
+    every launch of the period repeats) under the engine active now,
+    recording nothing."""
+    eng = engine.current()
+    with set_checkpoint_early_stop(False):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              eng.replaying()))
+
+
 def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
-                mode: str, caches: dict | None = None, pos: int | None = None):
+                mode: str, caches: dict | None = None, pos: int | None = None,
+                remat: str = "none"):
     """Run every block.  caches: ``{'main': [per-position stacked], 'tail':
     [per-position]}`` in decode, where the cache tensors are updated in
-    place and returned.  Returns (x, aux, new_caches); ``aux`` is the MoE
-    auxiliary loss of the reference, always 0 here."""
+    place and returned.  ``remat="block"`` checkpoints each period of the
+    stacked part (the unstacked tail runs plainly, as in the reference).
+    Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss of the
+    reference, always 0 here."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (the reference's checkpoint_dots policy) is not "
+            "ported (ROADMAP A, training's open items)")
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS} or 'dots', got "
+                         f"{remat!r}")
     kinds = cfg.block_kinds()
     reps, rem = cfg.stack_shape()
     collected: list[list] = [[] for _ in kinds]
     for r in range(reps):
-        for i, (ak, _) in enumerate(kinds):
-            x, nc = _apply_block(
-                cfg, _select(params["blocks"][i], r), x, pos_ids,
-                attn_kind=ak, mode=mode, pos=pos,
-                cache=_select(caches["main"][i], r) if caches else None)
+        blocks = [_select(params["blocks"][i], r) for i in range(len(kinds))]
+        cs = [_select(caches["main"][i], r) if caches else None
+              for i in range(len(kinds))]
+        args = (cfg, kinds, blocks, x, pos_ids, mode, cs, pos)
+        x, new = _checkpointed(_period, *args) if remat == "block" \
+            else _period(*args)
+        for i, nc in enumerate(new):
             collected[i].append(nc)
     new_tail = []
     for i in range(rem):
@@ -184,7 +233,7 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
 # public entry points
 # ---------------------------------------------------------------------------
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
-            mode: str = "train"):
+            mode: str = "train", remat: str = "none"):
     """batch: ``{"tokens": (B, S) integer}``.  Returns (logits (B, S, V)
     fp32, aux, caches)."""
     if mode not in MODES:
@@ -195,9 +244,48 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     x = L.embed(params, tokens, scale=cfg.name.startswith("gemma"),
                 d=cfg.d_model, dtype=cd)
     pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux, caches = stack_apply(cfg, params, x, pos_ids, mode=mode)
+    x, aux, caches = stack_apply(cfg, params, x, pos_ids, mode=mode,
+                                 remat=remat)
     x = L.norm(cfg, params["final_norm"], x)
     return L.unembed(cfg, params, x), aux, caches
+
+
+def trainable(params: dict) -> dict:
+    """The trained leaves: the tree without ``embed_t``, the serving copy
+    of a tied ``embed.T`` (no optimizer or checkpoint leaf)."""
+    return {k: v for k, v in params.items() if k != "embed_t"}
+
+
+def with_head_copy(cfg: ModelConfig, params: dict) -> dict:
+    """``params`` with ``embed_t`` derived again from ``embed`` (tied
+    models), as serving reads it after an optimizer step."""
+    if not cfg.tie_embeddings:
+        return params
+    return {**params, "embed_t": params["embed"].detach().t().contiguous()}
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: str = "none"):
+    """Next-token cross entropy + 0.01 x aux, as the reference computes it:
+    CE = logsumexp - target logit in fp32 (a gather picks the same exact
+    term as the reference's one-hot contraction), averaged over
+    ``batch["loss_mask"][:, 1:]`` when given.  The head of a tied model
+    comes from ``embed`` (:func:`trainable`).  Returns (loss, {"ce",
+    "aux"})."""
+    logits, aux, _ = forward(cfg, trainable(params), batch, mode="train",
+                             remat=remat)
+    tokens = batch["tokens"]
+    predf = logits[:, :-1].to(torch.float32)
+    tgt = tokens[:, 1:].to(torch.int64)
+    lse = torch.logsumexp(predf, dim=-1)
+    ll = predf.gather(-1, tgt.unsqueeze(-1)).squeeze(-1) - lse
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(torch.float32)
+        ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        ce = -torch.mean(ll)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: dict,

@@ -8,13 +8,15 @@ stacked over reps], 'tail': [unstacked entries]}``, each entry
 * global attention — full ``(B, max_seq, hkv, hd)`` K/V;
 * local attention  — a **ring** of ``min(window, max_seq)`` slots.
 
-Mamba and cross-attention entries come with their blocks (ROADMAP A13).
+Mamba and cross-attention entries come with their blocks (ROADMAP A.2, the
+rest of the LM stack).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.core import tree
 from repro_torch.core.accelerator import resolve_device
 from repro_torch.models.attention import init_kv_cache
 
@@ -39,19 +41,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return {"main": main, "tail": tail}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def cache_bytes(cache) -> int:
-    return sum(a.numel() * a.element_size() for a in _leaves(cache))
+    return sum(a.numel() * a.element_size() for a in tree.leaves(cache))
 
 
 # ---------------------------------------------------------------------------

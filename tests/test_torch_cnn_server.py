@@ -244,8 +244,9 @@ def test_default_device_entry_points_raise_without_cuda(ref_params, params):
 
 def test_unported_routes_raise(params):
     """The sa_conv route now runs (the SA-CONV GEMM kernel's plain version
-    here) and matches the reference; backward and unknown backends still
-    raise."""
+    here) and matches the reference; the matmul's backward runs too and
+    equals the plain version's; conv2d's backward (the reference has none)
+    and unknown backends still raise."""
     eng = Engine(backend="kernels",
                  policy=DispatchPolicy(force_regime="sa_conv"))
     rng = np.random.default_rng(0)
@@ -260,10 +261,18 @@ def test_unported_routes_raise(params):
     assert tr[0].regime == "sa_conv"
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
                                atol=3e-4)
-    x = torch.zeros(4, 32)
-    w = torch.zeros(32, 16)
-    with pytest.raises(NotImplementedError, match="backward"):
-        Engine(backend="kernels").matmul(x.requires_grad_(), w, name="fc")
+    grads = []
+    for backend in ("kernels", "torch"):
+        x = torch.from_numpy(xn).requires_grad_()
+        w = torch.from_numpy(wn).requires_grad_()
+        y = Engine(backend=backend).matmul(x, w, act="relu", name="fc")
+        grads.append(torch.autograd.grad((y * y).sum(), (x, w)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    with pytest.raises(NotImplementedError, match="no backward for conv2d"):
+        Engine(backend="kernels").conv2d(
+            torch.zeros(1, 5, 5, 2, requires_grad=True),
+            torch.zeros(3, 3, 2, 4), name="conv")
     with pytest.raises(ValueError, match="backend"):
         Engine(backend="pallas")
 
@@ -301,6 +310,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    assert {port / m for m in (
+        "optim/adamw.py", "optim/grad_compress.py", "data/pipeline.py",
+        "train/train_step.py", "train/trainer.py", "checkpoint/checkpoint.py",
+        "launch/train.py", "core/tree.py")} <= set(files)
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.dataflow import PoolSpec
 from repro_torch.core.engine import Engine
-from repro_torch.core.quant import quantize
+from repro_torch.core.quant import QTensor, quantize
 from repro_torch.kernels import ref
 from repro_torch.kernels import attention as tattn
 from repro_torch.kernels.attention import (HEAD_DIMS, flash_attention,
@@ -1139,3 +1139,127 @@ def test_bf16_cnn_server_delivers_logits_on_the_card(cuda):
                               torch.from_numpy(x[None]).to(cuda, BF16),
                               eng=srv.engine)
         np.testing.assert_array_equal(out[0][k], one.float().cpu().numpy()[0])
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels backend's autograd Functions and a train step
+# ---------------------------------------------------------------------------
+def _close_rms(got, want, tol):
+    """Within ``tol`` relative to ``want``'s RMS (a gradient summed over
+    many rows is large in its typical element, where bf16's ulp is)."""
+    scale = want.double().pow(2).mean().sqrt()
+    torch.testing.assert_close(got.double() / scale, want.double() / scale,
+                               **tol)
+
+
+GRAD_TOL = {"fp32": dict(rtol=3e-4, atol=3e-4),
+            "bf16": dict(rtol=3e-2, atol=3e-2)}
+
+
+def _grads(eng, x, w, b, act, cot):
+    """(dx, dw[, db]), or (dx[, db]) for a QTensor ``w``."""
+    frozen = isinstance(w, QTensor)
+    live = [t.detach().requires_grad_()
+            for t in ((x, b) if frozen else (x, w, b)) if t is not None]
+    y = eng.matmul(live[0], w if frozen else live[1],
+                   live[-1] if b is not None else None, act=act)
+    return torch.autograd.grad((y.float() * cot).sum(), live)
+
+
+@pytest.mark.parametrize("regime,m", [("sa_fc", 4), ("sa_conv", 130)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("act,bias", [("none", False), ("silu", True),
+                                      ("relu", False), ("gelu", True)])
+def test_matmul_function_grads_on_the_card(cuda, regime, m, dtype, act,
+                                           bias):
+    """dx on the regime's kernel against a contiguous w.T, dw on the GEMM,
+    db in fp32: the plain versions' autograd gradients, and one launch of
+    each (``pre`` again only for a non-linear act)."""
+    from repro_torch.core.engine import DispatchPolicy
+    dt = BF16 if dtype == "bf16" else torch.float32
+    k, n = 300, 257
+    x, w = _t(0, (m, k), cuda).to(dt), _t(1, (k, n), cuda, k ** -0.5).to(dt)
+    b = _t(2, (n,), cuda).to(dt) if bias else None
+    cot = _t(3, (m, n), cuda)
+    eng = Engine(backend="kernels",
+                 policy=DispatchPolicy(force_regime=regime))
+    wrap = sa_fc_matmul if regime == "sa_fc" else sa_conv_matmul
+    before = (wrap.launches, sa_conv_matmul.launches)
+    got = _grads(eng, x, w, b, act, cot)
+    runs = 2 + (act != "none")
+    if regime == "sa_fc":
+        assert (sa_fc_matmul.launches - before[0],
+                sa_conv_matmul.launches - before[1]) == (runs, 1)
+    else:
+        assert sa_conv_matmul.launches - before[1] == runs + 1
+    want = _grads(Engine(backend="torch"), x, w, b, act, cot)
+    for g, wv in zip(got, want):
+        assert g.dtype == wv.dtype and g.shape == wv.shape
+        _close_rms(g, wv, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("regime,m", [("sa_fc", 4), ("sa_conv", 130)])
+def test_quantized_matmul_function_grads_on_the_card(cuda, regime, m):
+    from repro_torch.core.engine import DispatchPolicy
+    x, b, cot = _t(0, (m, 300), cuda), _t(2, (257,), cuda), \
+        _t(3, (m, 257), cuda)
+    qt = quantize(_t(1, (300, 257), cuda, 0.05))
+    eng = Engine(backend="kernels",
+                 policy=DispatchPolicy(force_regime=regime))
+    got = _grads(eng, x, qt, b, "relu", cot)
+    want = _grads(Engine(backend="torch"), x, qt, b, "relu", cot)
+    for g, wv in zip(got, want):
+        _close_rms(g, wv, GRAD_TOL["fp32"])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,window,softcap", [(4, 4, 0, 0.0),
+                                                   (4, 2, 8, 0.0),
+                                                   (4, 2, 0, 5.0)])
+def test_flash_function_grads_on_the_card(cuda, dtype, hq, hkv, window,
+                                          softcap):
+    """Flash's forward, the plain version's backward: the torch backend's
+    gradients (its backward is the same plain computation)."""
+    dt = BF16 if dtype == "bf16" else torch.float32
+    q = _t(0, (2, 40, hq, 64), cuda).to(dt)
+    k, v = (_t(s, (2, 40, hkv, 64), cuda).to(dt) for s in (1, 2))
+    cot = _t(3, (2, 40, hq, 64), cuda)
+    res = []
+    for backend in ("kernels", "torch"):
+        live = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = (flash_attention.launches, ref.counts()["attention"])
+        out = Engine(backend=backend).attention(*live, window=window,
+                                                softcap=softcap)
+        res.append(torch.autograd.grad((out.float() * cot).sum(), live))
+        if backend == "kernels":
+            assert (flash_attention.launches - before[0],
+                    ref.counts()["attention"] - before[1]) == (1, 1)
+    for g, wv in zip(*res):
+        _close_rms(g, wv, GRAD_TOL[dtype])
+
+
+def test_train_steps_on_the_card(cuda):
+    """Three steps of a reduced OLMo config on the kernels backend (remat
+    by block) follow the torch backend's on the card within 1e-4 of loss;
+    the tied copy follows embed."""
+    from repro_torch.configs.base import TrainConfig, reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import train_step as TS
+    cfg = reduced(get_config("olmo-1b"), param_dtype="float32",
+                  compute_dtype="float32")
+    tc = TrainConfig(global_batch=4, seq_len=64, total_steps=3,
+                     warmup_steps=1, lr=3e-3, remat="block")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1))
+    losses = {}
+    for backend in ("kernels", "torch"):
+        state = TS.init_train_state(cfg, tc, 0, device=cuda)
+        step = TS.make_train_step(cfg, tc, engine=Engine(backend=backend))
+        losses[backend] = []
+        for s in range(3):
+            *state, m = step(*state, data.batch_at(s))
+            losses[backend].append(float(m["loss"]))
+        params = state[0]
+        assert torch.equal(params["embed_t"], params["embed"].t())
+    np.testing.assert_allclose(losses["kernels"], losses["torch"],
+                               rtol=0, atol=1e-4)

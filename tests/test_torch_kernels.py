@@ -749,10 +749,13 @@ def test_engine_attention_records_and_routes():
         assert (tr[0].name, tr[0].regime, tr[0].m, tr[0].n, tr[0].k,
                 tr[0].dtype) == (rtr[0].name, rtr[0].regime, rtr[0].m,
                                  rtr[0].n, rtr[0].k, rtr[0].dtype)
-    with pytest.raises(NotImplementedError, match="backward"):
-        Engine(backend="kernels").attention(
-            torch.from_numpy(q).requires_grad_(), torch.from_numpy(k),
-            torch.from_numpy(v))
+    grads = []
+    for backend in ("kernels", "torch"):
+        qkv = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = Engine(backend=backend).attention(*qkv, window=8)
+        grads.append(torch.autograd.grad((out * out).sum(), qkv))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
 
 
 # ---------------------------------------------------------------------------

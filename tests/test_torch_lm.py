@@ -32,13 +32,16 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.core import schedule as tsched
+from repro_torch.core import tree
 from repro_torch.core.engine import DispatchPolicy, Engine
 from repro_torch.kernels import ref
 from repro_torch.launch import serve as tlaunch
+from repro_torch.launch import train as tlaunch_train
 from repro_torch.models import transformer as T
 from repro_torch.serve import kvcache as KC
 from repro_torch.serve import serve_step as tstep
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train.train_step import init_train_state
 
 TOL = dict(rtol=5e-4, atol=5e-4)
 
@@ -139,7 +142,7 @@ def test_converted_and_initialised_trees_match_reference(name):
     fa = tsched._params_fingerprint(a)
     assert fa == tsched._params_fingerprint(tp)
     assert all(torch.equal(x, y) for (_, x), (_, y) in
-               zip(tsched._leaves(a), tsched._leaves(b)))
+               zip(tree.flatten_with_paths(a), tree.flatten_with_paths(b)))
     wq = a["blocks"][0]["attn"]["wq"]
     assert wq.abs().max() <= 3 * tcfg.d_model ** -0.5 + 1e-6
 
@@ -152,7 +155,7 @@ def test_unported_families_raise(arch, match):
     cfg = tbase.reduced(treg.get_config(arch))
     with pytest.raises(NotImplementedError, match=match):
         T.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
         T.check_supported(cfg)
 
 
@@ -167,6 +170,11 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KC.init_cache(tcfg, 1, 8)
     assert ServeEngine(tcfg, _setup("olmo")[3]).engine.backend == "kernels"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlaunch_train.main(["--arch", "olmo-1b", "--reduced", "--steps",
+                            "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(tcfg, tbase.TrainConfig(), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +187,7 @@ def _entries(sched) -> dict:
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("phase", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("force", [None, "sa_conv"])
 def test_lm_schedules_equal_reference(name, phase, force):
     rcfg, tcfg, _, tp = _setup(name)
@@ -205,12 +213,13 @@ def test_lm_schedules_equal_reference(name, phase, force):
 
 
 @pytest.mark.parametrize("phase,batch,seq,regime", [
-    ("prefill", 4, 512, "sa_conv"), ("prefill", 1, 512, "sa_fc"),
-    ("decode", 4, 1, "sa_fc")])
+    ("train", 4, 512, "sa_conv"), ("prefill", 4, 512, "sa_conv"),
+    ("prefill", 1, 512, "sa_fc"), ("decode", 4, 1, "sa_fc")])
 def test_full_width_olmo_schedules_equal_reference(phase, batch, seq, regime):
-    """OLMo-1B at full width: a full wave's prefill (m = 2048) puts every
-    projection in the SA-CONV regime, a lone request's (m = 512) and
-    decode in SA-FC.  Shapes only: nothing is allocated."""
+    """OLMo-1B at full width: a 4 x 512 train step's loss and a full
+    wave's prefill (m = 2048) put every projection in the SA-CONV regime, a
+    lone request's (m = 512) and decode in SA-FC.  Shapes only: nothing is
+    allocated."""
     kw = dict(param_dtype="float32", compute_dtype="float32")
     rcfg = dataclasses.replace(rreg.get_config("olmo-1b"), **kw)
     tcfg = dataclasses.replace(treg.get_config("olmo-1b"), **kw)
@@ -225,9 +234,13 @@ def test_full_width_olmo_schedules_equal_reference(phase, batch, seq, regime):
 
 
 def test_train_schedules_wait_for_the_training_slice():
-    _, tcfg, _, _ = _setup("olmo")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsched.LayerSchedule.compile(tcfg, "train")
+    """The training slice is here: the train phase compiles, equal to the
+    reference's; an unknown phase still raises."""
+    rcfg, tcfg, _, _ = _setup("olmo")
+    t = tsched.LayerSchedule.compile(tcfg, "train")
+    assert t.phase == "train" and len(t) == 8
+    assert _entries(t) == _entries(rsched.LayerSchedule.compile(rcfg,
+                                                                "train"))
     with pytest.raises(ValueError, match="phase"):
         tsched.LayerSchedule.compile(tcfg, "serve")
 
@@ -264,7 +277,7 @@ def test_prefill_and_decode_match_reference(name):
                                     cache_dtype=torch.float32)
         _close(tl, rl)
         rleaves = jax.tree_util.tree_leaves(rc)
-        tleaves = [t for _, t in tsched._leaves(tc)]
+        tleaves = tree.leaves(tc)
         assert [tuple(t.shape) for t in tleaves] == \
             [tuple(x.shape) for x in rleaves]
         for t, x in zip(tleaves, rleaves):
