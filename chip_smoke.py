@@ -98,15 +98,29 @@ Phases (any failure raises and exits non-zero):
    a step's host time (trainer.run's steps 1-3, and 3 steps with no
    checkpoint write in flight), trained tokens/s, device time and idle
    share, the GEMM's card time split into forward, dx and dw, peak
-   memory.
+   memory;
+11. the static checks against the card: ``python -m repro_torch.analysis
+   --net alexnet --net vgg16 --all-zoo-variants`` in process (exit 0; ops
+   and findings per pass) and the launch pass over every LM config's
+   launches; the card's opt-in shared memory per CTA equal to SA-CONV's
+   ``SMEM_MAX + SMEM_STATIC`` (its SM count against ``SM_COUNT``, a
+   warning where it differs); every instantiation's static shared memory
+   (ptxas) and spills (none) against the launch pass; each kernel's
+   exported shared-memory query against the launch pass for every launch
+   of the zoo variants and the LM configs; then all five kernels at the
+   launch pass's edge geometries (partial tiles, a short last SA-FC
+   segment, flat conv tiles across images and a short last band, every
+   pool vector width, paired flash CTAs over an odd number of query tiles
+   with and without a window), each output's block filled with NaN first,
+   against the plain versions (the pool bitwise) with no NaN left.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
 SA-CONV.
 
-The line before the last is the ``{"kernels": [...]}`` summary, the line
-before that the card's ``nvidia-smi`` name and power limit, and the last
-line ``{"ok": true, "device": {...}}``.  Details go to
+Before the last line come the ``{"analysis": {...}}`` summary of phase
+11, the ``{"kernels": [...]}`` summary, and the card's ``nvidia-smi`` name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``build/chip_smoke.json`` (ignored by git).
 """
 from __future__ import annotations
@@ -3222,6 +3236,258 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the static checks against the card
+# ---------------------------------------------------------------------------
+#: what phase 11 runs of ``python -m repro_torch.analysis``
+ANALYSIS_ARGS = ("--net", "alexnet", "--net", "vgg16", "--all-zoo-variants")
+#: the kernel of each library, as ptxas names its entry functions
+KERNEL_SYMBOLS = {"sa_fc": "sa_fc_kernel",
+                  "sa_conv_implicit": "sa_conv_kernel",
+                  "pool_act": "pool_act_kernel",
+                  "sa_conv": "sa_conv_gemm_kernel",
+                  "attention": "flash_kernel"}
+
+
+def ptxas_static(text: str, symbol: str) -> list[tuple[int, int]]:
+    """(static shared memory bytes, spill bytes) of every instantiation of
+    ``symbol`` in ptxas's -v output."""
+    out = []
+    for block in text.split("Compiling entry function")[1:]:
+        if symbol not in block.split("\n", 1)[0]:
+            continue
+        used = re.search(r"Used \d+ registers[^\n]*", block)
+        if used is None:
+            continue
+        smem = re.search(r"(\d+) bytes smem", used.group(0))
+        out.append((int(smem.group(1)) if smem else 0,
+                    sum(int(v) for v in
+                        re.findall(r"(\d+) bytes spill", block))))
+    return out
+
+
+def analysis_launches() -> list:
+    """Every CUDA launch the zoo variants (as ``ANALYSIS_ARGS`` registers
+    them, and AlexNet and VGG-16 at b = 1) and the LM configs make."""
+    from repro_torch.analysis import launch as L
+    from repro_torch.analysis.__main__ import zoo_variant_pairs
+    from repro_torch.core.schedule import ScheduleRegistry
+    reg = ScheduleRegistry()
+    pairs = [reg.register(net, batch=1) for net in ("alexnet", "vgg16")]
+    pairs += [pair for _, pair in zoo_variant_pairs(8)]
+    out = [lau for pair in pairs for sched in pair
+           for lau in L.schedule_launches(sched)]
+    return out + L.lm_launches()
+
+
+def nan_primed(numel: int, dtype) -> int:
+    """Fill a block of ``numel`` elements with NaN and free it: the caching
+    allocator hands it to the next request of that size.  Its address."""
+    import torch
+    t = torch.full((numel,), float("nan"), dtype=dtype, device="cuda")
+    ptr = t.data_ptr()
+    del t
+    return ptr
+
+
+def edge_call(lau, gen):
+    """(kernel call, plain version's output, tolerance) of one edge launch
+    of ``analysis/launch.py``, on operands drawn from ``gen``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.pool_act import maxpool_act
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_conv_implicit import (sa_conv_implicit,
+                                                      sa_conv_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    types = {0: torch.float32, 1: torch.int8, 2: torch.bfloat16}
+    if lau.kernel in ("sa_fc", "sa_conv"):
+        if lau.kernel == "sa_fc":
+            b, k, n, w_kind, x_kind = lau.shape
+            kern, plain = sa_fc_matmul, sa_fc_plain
+        else:
+            b, n, k, w_kind, x_kind = lau.shape
+            kern, plain = sa_conv_matmul, sa_conv_matmul_plain
+        x = randn(b, k, dtype=types[x_kind])
+        scale = None
+        if w_kind == 1:
+            w = torch.randint(-127, 128, (k, n), generator=gen,
+                              device="cuda").to(torch.int8)
+            scale = randn(n).abs() * k ** -0.5 / 64
+        else:
+            w = (randn(k, n) * k ** -0.5).to(types[w_kind])
+        bias = randn(n)
+        kw = dict(act="relu", w_scale=scale)
+        tol = TOL_FC if x_kind == 0 else TOL_BF16
+        return (lambda: kern(x, w, bias, **kw)), plain(x, w, bias, **kw), tol
+    if lau.kernel == "sa_conv_implicit":
+        batch, h, w, ci, p, q, co, stride, _ = lau.shape
+        x = randn(batch, h, w, ci)
+        f = randn(p, q, ci, co) * (p * q * ci) ** -0.5
+        bias = randn(co)
+        kw = dict(stride=stride, act="relu", pool_window=lau.pool[0],
+                  pool_stride=lau.pool[1])
+        return ((lambda: sa_conv_implicit(x, f, bias, **kw)),
+                sa_conv_plain(x, f, bias, **kw), TOL_CONV)
+    if lau.kernel == "pool_act":
+        n, h, w, c, itemsize, window, stride = lau.shape
+        x = randn(n, h, w, c, dtype=torch.float32 if itemsize == 4
+                  else torch.bfloat16)
+        kw = dict(window=window, stride=stride, act="relu")
+        return (lambda: maxpool_act(x, **kw)), ref.maxpool_act(x, **kw), None
+    b, sq, skv, hq, hkv, d, causal, window, _ = lau.shape
+    q_, k_, v_ = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
+        randn(b, skv, hkv, d)
+    kw = dict(causal=causal, window=window)
+    return ((lambda: flash_attention(q_, k_, v_, **kw)),
+            flash_plain(q_, k_, v_, **kw), TOL_ATTN)
+
+
+def edge_phase(rep: Report) -> list[dict]:
+    """Each edge launch of ``analysis/launch.py`` (after the launch pass
+    holds it): the output's block first filled with NaN through a freed
+    tensor of its size, then the kernel against its plain version (the
+    pool bitwise), no NaN left where the plain version has none."""
+    import torch
+    from repro_torch.analysis import launch as L
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for lau in L.edge_launches():
+        bad = L.check_launch(lau)
+        if bad:
+            raise AssertionError(f"{lau.op}: " + "; ".join(map(str, bad)))
+        call, want, tol = edge_call(lau, gen)
+        torch.cuda.synchronize()
+        ptr = nan_primed(want.numel(), want.dtype)
+        got = call()
+        torch.cuda.synchronize()
+        reused = got.data_ptr() == ptr
+        nan_left = int((torch.isnan(got) & ~torch.isnan(want)).sum())
+        if nan_left:
+            raise AssertionError(f"{lau.op}: {nan_left} outputs left NaN "
+                                 "where the plain version has none")
+        err = 0.0
+        if tol is None:
+            exact(lau.op, got, want)
+        else:
+            err = allclose(lau.op, got, want, tol)
+        rows.append(dict(op=lau.op, kernel=lau.kernel, shape=lau.shape,
+                         geometry=[str(g) for g in lau.geoms],
+                         nan_block_reused=reused, max_abs_err=err))
+        log(f"  {lau.op} {lau.shape}: max|d| {err:.3g}, NaN-filled block "
+            f"{'reused' if reused else 'not reused'}, no NaN left")
+    return rows
+
+
+def analysis_phase(rep: Report, smi: str) -> dict:
+    """Phase 11: ``python -m repro_torch.analysis`` in process (exit 0;
+    ops and findings per pass), the launch pass over the LM configs, the
+    card's SMs and opt-in shared memory against the constants the
+    geometry was derived from, every kernel's static shared memory from
+    ptxas and its dynamic shared memory from its exported query against
+    the launch pass, for every launch of the zoo variants and the LM
+    configs, then the edge launches."""
+    import contextlib
+    import io
+    from repro_torch.analysis import launch as L
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core.accelerator import gpu_card
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sa_conv_implicit as conv
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(list(ANALYSIS_ARGS))
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith("["):
+            log(f"  {line}")
+    if rc != 0:
+        raise AssertionError(f"repro_torch.analysis {' '.join(ANALYSIS_ARGS)}"
+                             f" exited {rc}:\n{text}")
+    ops = int(re.search(r"\[repro_torch\.analysis\] OK: (\d+) op",
+                        text).group(1))
+    per_pass = {p: 0 for p in ("coverage", "residency", "race", "accounting",
+                               "determinism", "launch")}
+    for m in re.finditer(r"^  \[(\w+)\] ", text, re.M):
+        per_pass[m.group(1)] += 1
+    lm = L.lm_launches()
+    lm_rep = L.verify_launches(lm, label="lm launches")
+    log(f"  {lm_rep.summary()}")
+    if not lm_rep.ok:
+        raise AssertionError(lm_rep.summary())
+    per_pass["launch"] += len(lm_rep.findings)
+
+    card = gpu_card()
+    if card.smem_per_block_optin != conv.SMEM_MAX + conv.SMEM_STATIC or \
+            card.smem_per_block_optin != L.SMEM_OPTIN:
+        raise AssertionError(
+            f"opt-in shared memory per CTA: the card {card.smem_per_block_optin}"
+            f" B, the geometry's SMEM_MAX + SMEM_STATIC "
+            f"{conv.SMEM_MAX + conv.SMEM_STATIC} B, the launch pass's "
+            f"{L.SMEM_OPTIN} B")
+    if card.sm_count != conv.SM_COUNT:
+        log(f"  WARNING: {card.sm_count} SMs, the geometry costs "
+            f"{conv.SM_COUNT} (costs change, results do not)")
+
+    static, faults = {}, []
+    for lib, symbol in KERNEL_SYMBOLS.items():
+        insts = ptxas_static(_build.build_log(lib), symbol)
+        want = (L.STATIC_SMEM[lib], 0)
+        found = sorted(set(insts))
+        static[lib] = dict(instantiations=len(insts),
+                           static_bytes=sorted({v[0] for v in insts}),
+                           spill_bytes=sorted({v[1] for v in insts}))
+        log(f"  ptxas {lib}: {len(insts)} instantiations, (static shared "
+            f"memory B, spill B) {found}; the launch pass: {want}")
+        if not insts or found != [want]:
+            faults.append(f"ptxas {lib}: {found} over {len(insts)} "
+                          f"instantiations, the launch pass {want}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+    dynamic: dict[tuple, int] = {}
+    launches = analysis_launches()
+    for lau in launches:
+        for lib, args, derived in L.smem_queries(lau):
+            if (lib, args) in dynamic:
+                continue
+            got = _build.smem_query(lib, *args)
+            if got != derived:
+                raise AssertionError(
+                    f"{lau.op}: {lib}'s query says {got} B of dynamic "
+                    f"shared memory for {args}, the launch pass {derived} B")
+            dynamic[(lib, args)] = got
+    by_lib: dict[str, list[int]] = {}
+    for (lib, _), v in dynamic.items():
+        by_lib.setdefault(lib, []).append(v)
+    for lib, vals in sorted(by_lib.items()):
+        log(f"  {lib}: {len(vals)} distinct launches' dynamic shared memory "
+            f"== the launch pass ({min(vals)}..{max(vals)} B)")
+
+    edges = edge_phase(rep)
+    card_line = dict(name=card.name, smi=smi, sm_count=card.sm_count,
+                     smem_per_block_optin=card.smem_per_block_optin)
+    out = dict(ops=ops, lm_launches=len(lm), findings=per_pass,
+               card=card_line, static_smem=static,
+               dynamic_smem={lib: dict(queries=len(v), min=min(v),
+                                       max=max(v))
+                             for lib, v in sorted(by_lib.items())},
+               launches_checked=len(launches), edges=edges,
+               wall_s=time.perf_counter() - t0)
+    rep.detail["analysis"] = out
+    log(f"  [{smi}] phase 11: {ops} ops and {len(lm)} LM launches checked, "
+        f"findings {per_pass}; {len(dynamic)} shared-memory queries, "
+        f"{len(edges)} edge launches; {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # conv2d_im2col: the patch matrix on the SA-CONV GEMM (B4), a benchmark
 # reference beside the implicit-GEMM SA-CONV (B2)
 # ---------------------------------------------------------------------------
@@ -3457,6 +3723,11 @@ def main() -> int:
         "trainer.run on the kernels backend")
     with torch.enable_grad():
         train = train_phase(rep, smi)
+    torch.cuda.empty_cache()
+
+    log("== phase 11: the static checks against the card "
+        "(python -m repro_torch.analysis, shared memory, edge launches)")
+    analysis = analysis_phase(rep, smi)
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
@@ -3469,6 +3740,11 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(rep.detail,
                                                         indent=1))
     log(f"total {rep.detail['total_s']:.1f}s")
+    print(json.dumps({"analysis": {
+        k: analysis[k] for k in ("ops", "lm_launches", "findings", "card",
+                                 "static_smem", "dynamic_smem",
+                                 "launches_checked", "wall_s")}
+        | {"edges": len(analysis["edges"])}}))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

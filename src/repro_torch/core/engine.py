@@ -157,6 +157,12 @@ class DispatchPolicy:
                 raise ValueError(f"override {name!r} names unknown regime "
                                  f"{reg!r}; must be one of {regimes[1:]}")
 
+    @property
+    def effective_vmem_budget(self) -> int:
+        """The on-chip allowance every plan under this policy honors."""
+        return self.vmem_budget if self.vmem_budget is not None \
+            else self.chip.vmem_budget
+
     def regime_for(self, name: str, m: int, n: int, k: int, *,
                    act_bytes: int, weight_bytes: int | None = None) -> str:
         for pat, reg in self.overrides:
@@ -380,7 +386,8 @@ class Engine:
                  chip: TPUChip | None = None,
                  policy: DispatchPolicy | None = None,
                  schedule: Any | None = None,
-                 trace: DispatchTrace | None = None) -> None:
+                 trace: DispatchTrace | None = None,
+                 verify_schedules: bool = False) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
@@ -392,6 +399,12 @@ class Engine:
         self.policy = policy
         self.backend = backend
         self.schedule = schedule
+        # debug hook: statically verify any schedule at attach time (and
+        # through with_schedule, which carries this flag via with_)
+        self.verify_schedules = verify_schedules
+        if verify_schedules and schedule is not None:
+            from repro_torch.analysis import verify_schedule
+            verify_schedule(schedule).raise_if_failed()
         # constructor-supplied trace is shared across threads (derived
         # engines); tracing() overlays a per-thread trace on top
         self._trace_default = trace
@@ -406,7 +419,8 @@ class Engine:
     def with_(self, **overrides: Any) -> Engine:
         """A derived engine sharing this engine's live trace."""
         kw = dict(backend=self.backend, policy=self.policy,
-                  schedule=self.schedule, trace=self.trace)
+                  schedule=self.schedule, trace=self.trace,
+                  verify_schedules=self.verify_schedules)
         kw.update(overrides)
         return Engine(**kw)
 

@@ -215,20 +215,16 @@ class ScheduleRegistry:
     it.  Re-registering a key with the same settings is idempotent; with
     different settings it raises.
 
-    ``verify=True`` (the reference's compile-time hook into its static
-    schedule analysis) raises ``NotImplementedError``: the port has no
-    static checks yet (grid coverage, shared-memory residency, write
-    races, byte accounting, the determinism lint)."""
+    ``verify=True`` statically verifies each newly compiled pair with
+    :func:`repro_torch.analysis.verify_stage_pair` before filing it
+    (raising :class:`repro_torch.analysis.ScheduleVerificationError` on a
+    violation): the four schedule passes and the CUDA launch pass."""
 
     def __init__(self, *, verify: bool = False) -> None:
-        if verify:
-            raise NotImplementedError(
-                "ScheduleRegistry(verify=True): the static schedule checks "
-                "(grid coverage, shared-memory residency, write races, "
-                "byte accounting, the determinism lint) are not ported yet")
         self._stages: dict[tuple[str, str, int],
                            tuple[LayerSchedule, LayerSchedule]] = {}
         self._settings: dict[tuple[str, str, int], tuple] = {}
+        self._verify = verify
 
     @staticmethod
     def _settings_fingerprint(compile_kw: dict[str, Any]) -> tuple:
@@ -257,6 +253,11 @@ class ScheduleRegistry:
             return hit
         pair = LayerSchedule.compile_cnn_stages(net, batch=batch,
                                                 **compile_kw)
+        if self._verify:
+            from repro_torch.analysis import verify_stage_pair
+            verify_stage_pair(
+                pair, label=f"{key[0]}/{key[1]}@b{key[2]}"
+            ).raise_if_failed()
         self._stages[key] = pair
         self._settings[key] = fingerprint
         return pair

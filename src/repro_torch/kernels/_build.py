@@ -8,7 +8,9 @@ built at first use; :func:`build` starts one ``nvcc`` per source, all at
 once.  A missing ``nvcc`` or a failed build raises: nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch, and
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception.  Each library also
+exports a shared-memory query (:data:`SMEM_SIGNATURES`,
+:func:`smem_query`): the bytes its launch passes for given arguments.
 """
 from __future__ import annotations
 
@@ -48,6 +50,17 @@ SIGNATURES = {
     "attention": ("flash_attention_launch",
                   (_P,) * 4 + (_I,) * 7 + (_L,) * 9
                   + (_I, _I, _F, _F, _I, _I, _P)),
+}
+
+#: each library's shared-memory query: the dynamic shared memory (bytes)
+#: its launch passes for the launch's arguments, -1 where it has no
+#: instantiation (repro_torch/analysis/launch.py derives the same figures)
+SMEM_SIGNATURES = {
+    "sa_fc": ("sa_fc_smem", (_I,) * 3),
+    "sa_conv_implicit": ("sa_conv_implicit_smem", (_I,) * 9),
+    "pool_act": ("pool_act_smem", (_I,) * 2),
+    "sa_conv": ("sa_conv_smem", (_I,) * 2),
+    "attention": ("flash_smem", (_I,) * 3),
 }
 
 _LOCK = threading.Lock()
@@ -121,14 +134,22 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in (SIGNATURES[name],
+                                      SMEM_SIGNATURES[name]):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def smem_query(name: str, *args: int) -> int:
+    """The dynamic shared memory library ``name``'s launch passes for
+    ``args`` (its :data:`SMEM_SIGNATURES` query), built first if missing."""
+    fn_name, _ = SMEM_SIGNATURES[name]
+    return getattr(load(name), fn_name)(*args)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

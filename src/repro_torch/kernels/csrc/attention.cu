@@ -529,3 +529,41 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
 #undef FLASH_CASE
 }
+
+namespace {
+
+template <int D, typename T>
+int smem_rows(int bq) {
+  switch (bq) {
+    case 64: return smem_bytes<D, 4, T>();
+    case 128: return smem_bytes<D, 8, T>();
+    default: return -1;
+  }
+}
+
+template <int D>
+int smem_kind(int kind, int bq) {
+  if (kind == KIND_F32) return smem_rows<D, float>(bq);
+  if (kind == KIND_BF16) return smem_rows<D, __nv_bfloat16>(bq);
+  return -1;
+}
+
+}  // namespace
+
+// The dynamic shared memory flash_attention_launch passes for head dim d,
+// query tiles of bq rows and element type kind (as it takes them), or -1
+// where it has no instantiation: what repro_torch/analysis/launch.py
+// derives, asked of the built kernel.
+extern "C" int flash_smem(int d, int bq, int kind) {
+  switch (d) {
+    case 16: return smem_kind<16>(kind, bq);
+    case 32: return smem_kind<32>(kind, bq);
+    case 48: return smem_kind<48>(kind, bq);
+    case 64: return smem_kind<64>(kind, bq);
+    case 80: return smem_kind<80>(kind, bq);
+    case 96: return smem_kind<96>(kind, bq);
+    case 112: return smem_kind<112>(kind, bq);
+    case 128: return smem_kind<128>(kind, bq);
+    default: return -1;
+  }
+}

@@ -282,3 +282,14 @@ extern "C" int pool_act_launch(const void* x, void* out, int dtype, int n, int h
     default: return by_vector<__nv_bfloat16>(a, vec_bytes, blocks, n, st);
   }
 }
+
+// The dynamic shared memory pool_act_launch passes for a map of type dtype
+// read in vec_bytes vectors (as it takes them): 0, the kernel is a
+// streaming pass; -1 where it has no instantiation.  What
+// repro_torch/analysis/launch.py derives, asked of the built kernel.
+extern "C" int pool_act_smem(int dtype, int vec_bytes) {
+  static const int kItem[] = {4, 1, 1, 4, 2};
+  if (dtype < 0 || dtype > 4) return -1;
+  if (vec_bytes == 16 || vec_bytes == 8 || vec_bytes == 4) return 0;
+  return vec_bytes == kItem[dtype] && vec_bytes < 4 ? 0 : -1;
+}

@@ -526,3 +526,26 @@ extern "C" int sa_conv_launch(const void* x, const void* w, int w_kind, int x_ki
     default: return cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+template <typename WT>
+int smem_types(int x_kind) {
+  if (x_kind == KIND_F32) return Ring<WT, float>::SMEM;
+  if (x_kind == KIND_BF16) return Ring<WT, __nv_bfloat16>::SMEM;
+  return -1;
+}
+
+}  // namespace
+
+// The dynamic shared memory sa_conv_launch passes for these types (w_kind
+// and x_kind as it takes them), or -1 where it has no instantiation: what
+// repro_torch/analysis/launch.py derives, asked of the built kernel.
+extern "C" int sa_conv_smem(int w_kind, int x_kind) {
+  switch (w_kind) {
+    case 0: return smem_types<float>(x_kind);
+    case 1: return smem_types<int8_t>(x_kind);
+    case 2: return smem_types<__nv_bfloat16>(x_kind);
+    default: return -1;
+  }
+}

@@ -149,6 +149,17 @@ __host__ __device__ inline int stage_words(int rin, int wst, int taps, int cpg, 
   return ng * (rin * wst * 4 + taps * cpg * bco + taps * cpg * bco / 4);
 }
 
+// Dynamic shared memory of a launch (bytes): the staging ring (two stages
+// where ci takes more than one chunk) or the epilogue tile of cap pixels x
+// bco + 1 floats, whichever is larger.
+inline int dynamic_smem(int rin, int wst, int taps, int cpg, int bco, int cap, int chunks,
+                        int ng) {
+  const int stages = chunks > 1 ? 2 : 1;
+  const int ring = stages * stage_words(rin, wst, taps, cpg, bco, ng);
+  const int tile = cap * (bco + 1);
+  return 4 * (ring > tile ? ring : tile);
+}
+
 template <int N>
 __device__ __forceinline__ void shift(unsigned (&base)[N], int by) {
 #pragma unroll
@@ -527,10 +538,7 @@ template <typename XT, int P, int Q, int S, int TPX, int TCO, int G, int CPG>
 cudaError_t launch(const ConvArgs& a, int smem_bytes, cudaStream_t stream) {
   constexpr int BCO = TCO * G;
   constexpr int CAP = THREADS / G * TPX;
-  const int taps = a.p * a.q;
-  const int stages = a.chunks > 1 ? 2 : 1;
-  const int need =
-      4 * max(stages * stage_words(a.rin, a.wst, taps, CPG, BCO, a.ng), CAP * (BCO + 1));
+  const int need = dynamic_smem(a.rin, a.wst, a.p * a.q, CPG, BCO, CAP, a.chunks, a.ng);
   if (need != smem_bytes) return cudaErrorInvalidValue;   // the host's geometry disagrees
   auto* kern = sa_conv_kernel<XT, P, Q, S, TPX, TCO, G, CPG>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -627,4 +635,23 @@ extern "C" int sa_conv_implicit_launch(const void* x, int x_kind, int out_kind, 
   auto st = static_cast<cudaStream_t>(stream);
   return x_kind == KIND_BF16 ? by_tile<__nv_bfloat16>(a, tile, smem_bytes, st)
                              : by_tile<float>(a, tile, smem_bytes, st);
+}
+
+// The dynamic shared memory sa_conv_implicit_launch passes for these
+// arguments (tile, x_kind, ci, p, q, stride, rin and ng as it takes them; w
+// the launch's padded input width), or -1 where it has no instantiation:
+// what repro_torch/analysis/launch.py derives, asked of the built kernel.
+extern "C" int sa_conv_implicit_smem(int tile, int x_kind, int w, int ci, int p, int q,
+                                     int stride, int rin, int ng) {
+  static const int kTile[3][3] = {{8, 8, 4}, {8, 16, 4}, {6, 16, 2}};   // TPX, TCO, G
+  if (tile < 0 || tile > 2 || (x_kind != KIND_F32 && x_kind != KIND_BF16) || ng < 1 ||
+      stride < 1 || (tile == 1 && x_kind == KIND_BF16))
+    return -1;
+  const int tpx = kTile[tile][0], tco = kTile[tile][1], g = kTile[tile][2];
+  const bool split = p == 11 && q == 11 && stride == 4;
+  if (split && tpx * tco > 64) return -1;
+  const int wst = split ? stride * ((w + stride - 1) / stride) : w;
+  const int cpg = split && ci == 3 ? 3 : GROUP;
+  return dynamic_smem(rin, wst, p * q, cpg, tco * g, THREADS / g * tpx,
+                      (ci + GROUP * ng - 1) / (GROUP * ng), ng);
 }

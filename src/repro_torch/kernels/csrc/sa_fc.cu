@@ -459,3 +459,41 @@ extern "C" int sa_fc_launch(const void* x, const void* w, int w_kind, int x_kind
     default: return cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+template <typename WT, typename XT>
+int smem_rb(int rb) {
+  switch (rb) {
+    case 1: return Cfg<WT, XT, 1>::SMEM;
+    case 2: return Cfg<WT, XT, 2>::SMEM;
+    case 4: return Cfg<WT, XT, 4>::SMEM;
+    case 8: return Cfg<WT, XT, 8>::SMEM;
+    case 16: return Cfg<WT, XT, 16>::SMEM;
+    case 32: return Cfg<WT, XT, 32>::SMEM;
+    case 64: return Cfg<WT, XT, 64>::SMEM;
+    default: return -1;
+  }
+}
+
+template <typename WT>
+int smem_types(int x_kind, int rb) {
+  if (x_kind == KIND_F32) return smem_rb<WT, float>(rb);
+  if (x_kind == KIND_BF16) return smem_rb<WT, __nv_bfloat16>(rb);
+  return -1;
+}
+
+}  // namespace
+
+// The dynamic shared memory sa_fc_launch passes at row tile rb for these
+// types (w_kind and x_kind as it takes them), or -1 where it has no
+// instantiation: what repro_torch/analysis/launch.py derives, asked of the
+// built kernel.
+extern "C" int sa_fc_smem(int w_kind, int x_kind, int rb) {
+  switch (w_kind) {
+    case 0: return smem_types<float>(x_kind, rb);
+    case 1: return smem_types<int8_t>(x_kind, rb);
+    case 2: return smem_types<__nv_bfloat16>(x_kind, rb);
+    default: return -1;
+  }
+}

@@ -61,8 +61,10 @@ SPECIALIZED = ((11, 11, 4), (5, 5, 1), (3, 3, 1))
 MAX_SEGMENTS = 32
 MAX_ROWS = 256
 #: the kernel's static shared memory (the row and segment tables, with
-#: room for their counts)
-SMEM_STATIC = 4 * (MAX_ROWS + 7 * MAX_SEGMENTS + 3)
+#: room for their counts), as ptxas allots it: up to the 16-byte alignment
+#: of the dynamic buffer that follows (1936 B on an H100 build, not the
+#: tables' 1932; C8)
+SMEM_STATIC = -(-4 * (MAX_ROWS + 7 * MAX_SEGMENTS + 3) // 16) * 16
 #: the most dynamic shared memory a CTA may take: what a Hopper CTA may
 #: opt into, less the static tables
 SMEM_MAX = 232448 - SMEM_STATIC

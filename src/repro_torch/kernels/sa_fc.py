@@ -36,6 +36,8 @@ _COLS = {1: 64, 2: 64, 4: 64, 8: 64, 16: 64, 32: 64, 64: 32}
 _ROW_TILES = tuple(_COLS)
 #: k per chunk of the kernel (csrc/sa_fc.cu's BK); segments are whole chunks
 K_CHUNK = 32
+#: k-lanes per output (csrc/sa_fc.cu's KL): a thread sums one lane's k
+K_LANES = 4
 #: CTAs a launch aims for: two on each of an H100's 132 SMs
 TARGET_CTAS = 2 * 132
 
@@ -130,6 +132,19 @@ class FcLaunch:
     @property
     def ctas(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def fc_smem_bytes(rows: int, w_bytes: int, x_bytes: int = 4) -> int:
+    """Dynamic shared memory of a CTA at row tile ``rows`` (csrc/sa_fc.cu
+    ``Cfg::SMEM``): a ring of 6 stages (4 above 8 rows), each a chunk of x
+    (``rows`` rows of :data:`K_CHUNK`, padded by 4 fp32 or 8 bf16
+    elements) and of w (:data:`K_CHUNK` rows of the tile's columns, in
+    ``w_bytes``), then the k-lanes' sums and the running total in fp32."""
+    cols = _COLS[rows]
+    stages = 6 if rows <= 8 else 4
+    x_row = K_CHUNK + (4 if x_bytes == 4 else 8)
+    stage = rows * x_row * x_bytes + K_CHUNK * cols * w_bytes
+    return stages * stage + (K_LANES + 1) * rows * cols * 4
 
 
 @functools.lru_cache(maxsize=1024)

@@ -1263,3 +1263,29 @@ def test_train_steps_on_the_card(cuda):
         assert torch.equal(params["embed_t"], params["embed"].t())
     np.testing.assert_allclose(losses["kernels"], losses["torch"],
                                rtol=0, atol=1e-4)
+
+
+def test_smem_queries_equal_the_launch_pass(cuda):
+    """Each kernel's exported shared-memory query gives the dynamic shared
+    memory ``analysis/launch.py`` derives, for every launch of the zoo's
+    variants and every edge launch; the card's opt-in shared memory per
+    CTA is the SA-CONV geometry's ``SMEM_MAX + SMEM_STATIC``."""
+    from repro_torch.analysis import launch as tlaunch
+    from repro_torch.analysis.__main__ import zoo_variant_pairs
+    from repro_torch.core.accelerator import gpu_card
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sa_conv_implicit as tconv
+    assert gpu_card().smem_per_block_optin == \
+        tconv.SMEM_MAX + tconv.SMEM_STATIC == tlaunch.SMEM_OPTIN
+    launches = [lau for _, pair in zoo_variant_pairs(8) for sched in pair
+                for lau in tlaunch.schedule_launches(sched)]
+    launches += tlaunch.edge_launches()
+    asked = 0
+    for lau in launches:
+        for lib, args, derived in tlaunch.smem_queries(lau):
+            assert _build.smem_query(lib, *args) == derived, (lau.op, args)
+            asked += 1
+    assert asked >= len(launches)
+    # a tile or type with no instantiation answers -1
+    assert _build.smem_query("sa_fc", 0, 0, 3) == -1
+    assert _build.smem_query("attention", 40, 64, 0) == -1
