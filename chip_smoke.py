@@ -112,7 +112,26 @@ Phases (any failure raises and exits non-zero):
    segment, flat conv tiles across images and a short last band, every
    pool vector width, paired flash CTAs over an odd number of query tiles
    with and without a window), each output's block filled with NaN first,
-   against the plain versions (the pool bitwise) with no NaN left.
+   against the plain versions (the pool bitwise) with no NaN left;
+12. the decoder-only rest of the LM stack: ``ServeEngine`` serves the same
+   9 requests (512 prompt + 16 new tokens, waves of 4, 4 and 1) on
+   zamba2-2.7b as published (54 layers: 45 Mamba2 blocks and 9
+   applications of one shared attention block, bf16 parameters, compute
+   and cache), mixtral-8x7b at full width with its depth cut to 2 layers
+   (fp32; 8 experts, top 2, window 4096) and mamba2-130m as published
+   (bf16, attention-free): every matmul a schedule hit, launches per
+   kernel as the schedules and the config's op counts say (the router on
+   SA-FC with n = E, Mamba's in_proj with n = 2 di + 2 ns + nh, flash at
+   hd = 80), no plain version called.  bf16 models: two requests'
+   teacher-forced logits on the kernels within the torch backend's own
+   bf16-vs-fp32 spread, the first decode step within twice that spread of
+   a prefill of the prompt plus its token.  mixtral: each token's experts
+   under the kernels equal the plain versions' except at near-ties of the
+   k-th and (k+1)-th gate (counted), the logits within TOL_LM before any
+   differing selection, prefill -> decode within TOL_LM with no expert
+   over its capacity.  Prefill tokens/s, decode ms per step and peak
+   memory per model; zamba2's GEMM, SA-FC and flash shapes against their
+   plain versions, then timed.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -285,7 +304,8 @@ class Report:
     def __init__(self) -> None:
         self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values(),
                                      *CNN_BF16_KERNELS.values(),
-                                     *TRAIN_KERNELS.values()]}
+                                     *TRAIN_KERNELS.values(),
+                                     *REST_KERNELS.values()]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
 
@@ -1605,16 +1625,89 @@ def lm_requests(cfg):
             for i, p in enumerate(prompts)]
 
 
-def serve_lm(rep: Report, cfg, params) -> dict:
+def lm_waves() -> list[int]:
+    """The admission waves of LM_REQUESTS requests at LM_BATCH."""
+    return [LM_BATCH] * (LM_REQUESTS // LM_BATCH) + (
+        [LM_REQUESTS % LM_BATCH] if LM_REQUESTS % LM_BATCH else [])
+
+
+def op_counts(cfg) -> dict:
+    """How many times one forward pass calls each named matmul, from the
+    config alone: two projections a Mamba block; four attention
+    projections an attention block (zamba2's shared one too) and its MLP
+    (three gated, two gelu) or its MoE (the router, and the shared
+    expert's MLP where it has one); the head once."""
+    from collections import Counter
+    from repro_torch.configs.base import MAMBA
+    kinds = cfg.block_kinds()
+    reps, rem = cfg.stack_shape()
+    mlp = ("gate", "up", "down") if cfg.mlp in ("swiglu", "geglu") else \
+        ("fc1", "fc2")
+    c = Counter({"lm_head": 1})
+    for ak, mk in list(kinds) * reps + list(kinds[:rem]):
+        if ak == MAMBA:
+            c.update(["ssm.in_proj", "ssm.out_proj"])
+            continue
+        c.update(f"attn.{p}" for p in "qkvo")
+        if mk == "moe":
+            c["moe.router"] += 1
+            if cfg.moe.shared_expert:
+                c.update(f"moe.shared.{p}" for p in mlp)
+        else:
+            c.update(f"mlp.{p}" for p in mlp)
+    return c
+
+
+def lm_schedules(srv, waves: list[int]):
+    """(wave size, phase, schedule, passes) of each schedule that
+    ``ServeEngine.run`` runs for waves of ``waves`` requests of LM_PROMPT
+    tokens and LM_NEW new tokens: one prefill a wave, LM_NEW - 1 decode
+    steps."""
+    for b in waves:
+        yield b, "prefill", srv._schedule("prefill", b, LM_PROMPT), 1
+        yield b, "decode", (srv.decode_schedule if b == srv.batch_size
+                            else srv._schedule("decode", b)), LM_NEW - 1
+
+
+def schedule_launches(srv, cfg, waves: list[int]) -> dict:
+    """Launches per kernel that ``ServeEngine.run`` must make for waves of
+    ``waves`` requests: each named matmul of a schedule on its regime's
+    kernel as often as :func:`op_counts` says a pass calls it, each prefill
+    attention block once on flash."""
+    from repro_torch.configs.base import MAMBA
+    kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
+    per = op_counts(cfg)
+    reps, rem = cfg.stack_shape()
+    kinds = cfg.block_kinds()
+    attn = sum(ak != MAMBA for ak, _ in list(kinds) * reps +
+               list(kinds[:rem]))
+    out = {"sa_conv_matmul": 0, "sa_fc_matmul": 0,
+           "flash_attention": attn * len(waves)}
+    for _, _, sched, passes in lm_schedules(srv, waves):
+        names = {key.name for key in sched}
+        if names != set(per):
+            raise AssertionError(f"schedule ops {sorted(names)} != the "
+                                 f"config's {sorted(per)}")
+        for key in sched:
+            out[kernel[sched[key].regime]] += per[key.name] * passes
+    return out
+
+
+def serve_requests(rep: Report, prefix: str, cfg, params,
+                   cache_dtype=None) -> tuple:
+    """``ServeEngine`` on its default kernels backend serves LM_REQUESTS
+    prompts with a cache of ``cache_dtype`` (fp32 by default): launches as
+    :func:`schedule_launches` derives them, no plain version called, every
+    matmul (the expert einsums aside) a schedule hit in the config's
+    dtypes (the router's rows in fp32), every logit finite and shaped.  Returns (the server, the
+    done requests, the launch counts); the counts also go to
+    ``rep.detail`` as ``<prefix>_launches_per_run``."""
     import numpy as np
     import torch
-    from repro_torch.core.engine import Engine
-    from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeEngine
 
-    n_layers = cfg.n_layers
-    per_pass = 7 * n_layers + 1                 # projections + lm_head
-    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ)
+    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ,
+                      cache_dtype=cache_dtype or torch.float32)
     if srv.engine.backend != "kernels":
         raise AssertionError("ServeEngine's default backend is not kernels")
     for r in lm_requests(cfg):
@@ -1627,25 +1720,42 @@ def serve_lm(rep: Report, cfg, params) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     c = counters()
-    full_waves = LM_REQUESTS // LM_BATCH
-    decode_steps = (LM_NEW - 1) * (full_waves + 1)
-    expect_counts(c, "ServeEngine.run",
-                  sa_conv_matmul=per_pass * full_waves,
-                  flash_attention=n_layers * (full_waves + 1),
-                  sa_fc_matmul=per_pass * (1 + decode_steps))
-    mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")]
-    if not mm or any(x.schedule != "hit" for x in mm):
-        raise AssertionError("ServeEngine.run: a matmul missed its schedule")
+    waves = lm_waves()
+    want = schedule_launches(srv, cfg, waves)
+    expect_counts(c, f"{prefix} ServeEngine.run", **want)
+    mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")
+          and not x.name.endswith(".experts")]
+    if not mm or any(
+            x.schedule != "hit" or x.weight_dtype != cfg.param_dtype or
+            x.dtype != ("float32" if x.name == "moe.router"
+                        else cfg.compute_dtype) for x in mm):
+        raise AssertionError(f"{prefix}: a matmul missed its schedule or "
+                             f"ran in other dtypes than {cfg.compute_dtype} "
+                             f"on {cfg.param_dtype} (the router in fp32)")
     if len(done) != LM_REQUESTS or not all(r.done for r in done):
-        raise AssertionError(f"served {len(done)} of {LM_REQUESTS}")
+        raise AssertionError(f"{prefix}: served {len(done)} of "
+                             f"{LM_REQUESTS}")
     logits = np.stack([r.logits for r in done])
     if logits.shape != (LM_REQUESTS, LM_NEW, cfg.vocab_size) or \
             not np.isfinite(logits).all():
-        raise AssertionError(f"logits {logits.shape} not finite or shaped")
-    log(f"  served {LM_REQUESTS} requests (waves 4, 4, 1) in {first_s:.2f}s "
-        f"(schedules compiled on the way); {len(mm)} matmuls, all schedule "
-        f"hits; launches {c}")
-    rep.detail["lm_launches_per_run"] = c
+        raise AssertionError(f"{prefix}: logits {logits.shape} not finite "
+                             "or shaped")
+    log(f"  {prefix}: served {LM_REQUESTS} requests (waves {waves}) in "
+        f"{first_s:.2f}s (schedules compiled on the way); {len(mm)} "
+        f"matmuls, all {cfg.param_dtype} schedule hits; launches {c} == the "
+        f"schedules' {want}")
+    rep.detail[f"{prefix}_launches_per_run"] = c
+    return srv, done, c
+
+
+def serve_lm(rep: Report, cfg, params) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.models import transformer as T
+
+    srv, done, c = serve_requests(rep, "lm", cfg, params)
+    logits = np.stack([r.logits for r in done])
 
     # against the plain "torch" backend on the card, teacher-forced with the
     # served tokens: a request of a full wave and the lone request
@@ -1741,8 +1851,9 @@ def lm_throughput(rep: Report, cfg, params, cache_dtype=None,
     d[f"{prefix}_run_new_tokens_per_s"] = LM_REQUESTS * LM_NEW / run_s
     d[f"{prefix}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     d[f"{prefix}_device_busy"] = busy
-    log(f"  prefill of a full wave ({LM_BATCH} x {LM_PROMPT} tokens): "
-        f"{prefill_s * 1e3:.1f} ms = {d[f'{prefix}_prefill_tokens_per_s']:.0f} "
+    log(f"  {prefix}: prefill of a full wave ({LM_BATCH} x {LM_PROMPT} "
+        f"tokens): {prefill_s * 1e3:.1f} ms = "
+        f"{d[f'{prefix}_prefill_tokens_per_s']:.0f} "
         f"tokens/s; decode step at b={LM_BATCH}: "
         f"{decode_s * 1e3:.2f} ms = {d[f'{prefix}_decode_tokens_per_s']:.1f} "
         f"tokens/s (host clock, medians)")
@@ -1754,9 +1865,9 @@ def lm_throughput(rep: Report, cfg, params, cache_dtype=None,
         log(f"  {phase}: device busy {b['device_ms']:.2f} ms of "
             f"{b['wall_ms']:.2f} ms (idle share {b['idle_share']:.3f}; "
             f"torch.profiler); top kernels {b['top']}")
-    log(f"  ServeEngine.run, {LM_REQUESTS} requests: {run_s:.2f} s = "
-        f"{d[f'{prefix}_run_new_tokens_per_s']:.1f} new tokens/s; peak memory "
-        f"{d[f'{prefix}_peak_mem_gb']:.1f} GB")
+    log(f"  {prefix}: ServeEngine.run, {LM_REQUESTS} requests: "
+        f"{run_s:.2f} s = {d[f'{prefix}_run_new_tokens_per_s']:.1f} new "
+        f"tokens/s; peak memory {d[f'{prefix}_peak_mem_gb']:.2f} GB")
 
 
 def device_busy(fn, wall_s: float, top: int = 4) -> dict:
@@ -1971,26 +2082,6 @@ def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
     return {"gemm": gemms, "attn": (q, k, v)}
 
 
-def schedule_launches(srv, cfg, waves: list[int]) -> dict:
-    """Launches per kernel that ``ServeEngine.run`` must make for waves of
-    ``waves`` requests of ``LM_PROMPT`` tokens and ``LM_NEW`` new tokens:
-    each matmul of a schedule runs on its regime's kernel once per layer
-    (the head once per pass), each prefill attention on flash once per
-    layer."""
-    kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
-    out = {"sa_conv_matmul": 0, "sa_fc_matmul": 0,
-           "flash_attention": cfg.n_layers * len(waves)}
-    for b in waves:
-        for sched, passes in (
-                (srv._schedule("prefill", b, LM_PROMPT), 1),
-                (srv.decode_schedule if b == srv.batch_size
-                 else srv._schedule("decode", b), LM_NEW - 1)):
-            for key in sched:
-                per = 1 if key.name == "lm_head" else cfg.n_layers
-                out[kernel[sched[key].regime]] += per * passes
-    return out
-
-
 def serve_lm_bf16(rep: Report, cfg, params) -> dict:
     """``ServeEngine`` with bf16 parameters, compute and cache: every
     matmul a schedule hit, launches as the schedules say, no plain version
@@ -2004,43 +2095,10 @@ def serve_lm_bf16(rep: Report, cfg, params) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.engine import Engine
-    from repro_torch.serve.engine import ServeEngine
 
     bf = torch.bfloat16
-    srv = ServeEngine(cfg, params, batch_size=LM_BATCH, max_seq=LM_MAX_SEQ,
-                      cache_dtype=bf)
-    if srv.engine.backend != "kernels":
-        raise AssertionError("ServeEngine's default backend is not kernels")
-    for r in lm_requests(cfg):
-        srv.submit(r)
-    torch.cuda.synchronize()
-    reset_counters()
-    t0 = time.perf_counter()
-    with srv.engine.tracing() as tr:
-        done = srv.run()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    c = counters()
-    full = LM_REQUESTS // LM_BATCH
-    waves = [LM_BATCH] * full + ([LM_REQUESTS % LM_BATCH]
-                                 if LM_REQUESTS % LM_BATCH else [])
-    want = schedule_launches(srv, cfg, waves)
-    expect_counts(c, "ServeEngine.run bf16", **want)
-    mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")]
-    if not mm or any(x.schedule != "hit" or x.dtype != "bfloat16"
-                     or x.weight_dtype != "bfloat16" for x in mm):
-        raise AssertionError("ServeEngine.run bf16: a matmul missed its "
-                             "schedule or ran in another dtype")
-    if len(done) != LM_REQUESTS or not all(r.done for r in done):
-        raise AssertionError(f"served {len(done)} of {LM_REQUESTS}")
+    srv, done, c = serve_requests(rep, "lm_bf16", cfg, params, bf)
     logits = np.stack([r.logits for r in done])
-    if logits.shape != (LM_REQUESTS, LM_NEW, cfg.vocab_size) or \
-            not np.isfinite(logits).all():
-        raise AssertionError(f"logits {logits.shape} not finite or shaped")
-    log(f"  served {LM_REQUESTS} requests (waves {waves}) in {first_s:.2f}s "
-        f"(schedules compiled on the way); {len(mm)} matmuls, all bf16 "
-        f"schedule hits; launches {c} == the schedules' {want}")
-    rep.detail["lm_bf16_launches_per_run"] = c
 
     import dataclasses
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
@@ -3541,9 +3599,407 @@ def geometry_log(q) -> str:
             f"{g.ctas} CTAs")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the decoder-only rest of the LM stack (zamba2, mixtral, mamba2)
+# ---------------------------------------------------------------------------
+#: mixtral-8x7b's depth in phase 12: its full width, 2 of its 32 layers
+MIXTRAL_LAYERS = 2
+#: a token's experts may differ between the kernels and the plain versions
+#: only where its k-th and (k+1)-th plain gates are closer than this
+ROUTE_TIE = 1e-5
+#: the kernels of zamba2's served path, reported on it under these names
+REST_KERNELS = {k: f"{k}[zamba2]" for k in ("sa_conv_matmul",
+                                             "flash_attention",
+                                             "sa_fc_matmul")}
+#: where phase 12 finds a named matmul's weight: in layer 0's Mamba block
+#: (stacked over the periods) or in zamba2's shared block
+REST_WEIGHTS = {"ssm.in_proj": ("mamba", "in_proj"),
+                "ssm.out_proj": ("mamba", "out_proj"),
+                **{f"attn.{p}": ("attn", f"w{p}") for p in "qkvo"},
+                "mlp.gate": ("mlp", "wg"), "mlp.up": ("mlp", "wu"),
+                "mlp.down": ("mlp", "wd"), "mlp.fc1": ("mlp", "w1"),
+                "mlp.fc2": ("mlp", "w2")}
+
+
+def rest_configs() -> dict:
+    """Phase 12's models: zamba2-2.7b and mamba2-130m as published (bf16
+    parameters and compute), mixtral-8x7b at full width in fp32 with its
+    depth cut to MIXTRAL_LAYERS."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    out = {"zamba2-2.7b": get_config("zamba2-2.7b"),
+           "mixtral-8x7b": dataclasses.replace(
+               get_config("mixtral-8x7b"), n_layers=MIXTRAL_LAYERS,
+               param_dtype="float32", compute_dtype="float32"),
+           "mamba2-130m": get_config("mamba2-130m")}
+    for name in ("zamba2-2.7b", "mamba2-130m"):
+        if (out[name].param_dtype, out[name].compute_dtype) != \
+                ("bfloat16", "bfloat16"):
+            raise AssertionError(f"{name} is not published in bf16")
+    return out
+
+
+def prefill_vs_decode(cfg, params, r, eng, cache_dtype):
+    """(the first decode step's logits after a prefill of the prompt, the
+    last logits of a prefill of the prompt plus the first served token),
+    under ``eng``."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.serve_step import prefill_step
+    dec = teacher_forced(cfg, params, r.prompt, r.output[:2], eng,
+                         cache_dtype)[1]
+    seq = np.concatenate([r.prompt, r.output[:1]])
+    tok = torch.as_tensor(seq, dtype=torch.int64, device=DEVICE)[None]
+    with eng.activate():
+        logits, _ = prefill_step(cfg, params, {"tokens": tok}, LM_MAX_SEQ,
+                                 cache_dtype)
+    return dec, logits[0].cpu()
+
+
+def check_rest_bf16(rep: Report, name: str, cfg, params, srv,
+                    done) -> None:
+    """bf16 logits as phase 7 holds OLMo-1B's: two requests teacher-forced
+    on the kernels no farther from the torch backend's bf16 logits than
+    those are from its fp32 logits (same weights, widened); the lone
+    request's served logits within that spread of its teacher-forced ones
+    (the plain ops around the kernels may sum in another order at b = 1).
+    Prefill -> decode on the kernels in fp32, on the widened weights: the
+    first decode step's logits (through the conv tail and SSM state the
+    prefill handed over, and SA-FC) within TOL_LM of a prefill of the
+    prompt plus its token."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import Engine
+
+    bf = torch.bfloat16
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = widen_tree(params)
+    plain = Engine(backend="torch")
+    err = spread = 0.0
+    for r in (done[0], done[-1]):
+        got = teacher_forced(cfg, params, r.prompt, r.output, srv.engine, bf)
+        want16 = teacher_forced(cfg, params, r.prompt, r.output, plain, bf)
+        want32 = teacher_forced(cfg32, params32, r.prompt, r.output, plain)
+        if not (torch.isfinite(got).all() and torch.isfinite(want16).all()):
+            raise AssertionError(f"{name}: teacher-forced logits not finite")
+        err = max(err, (got - want16).abs().max().item())
+        spread = max(spread, (want16 - want32).abs().max().item())
+        if r is done[-1]:
+            served_err = (torch.from_numpy(r.logits) - got).abs().max().item()
+    dec, pre = prefill_vs_decode(cfg32, params32, done[-1],
+                                 Engine(backend="kernels"), torch.float32)
+    pd = allclose(f"{name} fp32 decode step 1 vs a prefill of prompt + "
+                  "token", dec, pre, TOL_LM)
+    del params32
+    torch.cuda.empty_cache()
+    if not err <= spread:
+        raise AssertionError(f"{name}: kernels vs torch backend max|d| "
+                             f"{err:.4g} > the torch backend's bf16 vs fp32 "
+                             f"spread {spread:.4g}")
+    if not served_err <= spread:
+        raise AssertionError(f"{name}: served vs teacher-forced max|d| "
+                             f"{served_err:.4g} > spread {spread:.4g}")
+    rep.detail[f"rest_{name}_logits"] = dict(
+        kernels_vs_torch=err, torch_bf16_vs_fp32=spread,
+        served_vs_teacher_forced=served_err, prefill_vs_decode_fp32=pd)
+    log(f"  {name}: teacher-forced bf16 logits, kernels vs torch backend "
+        f"(requests {done[0].uid} and {done[-1].uid}): max|d| {err:.4g} <= "
+        f"the torch backend's bf16 vs fp32 spread {spread:.4g}; request "
+        f"{done[-1].uid} served vs teacher-forced {served_err:.4g}; fp32 "
+        f"decode step 1 vs a prefill of prompt + token {pd:.4g} (TOL_LM)")
+
+
+class RouteCapture:
+    """Inside ``with``: each MoE routing call's (chosen experts, plain
+    gates) on the host.  The gates are recomputed with the router's plain
+    version, which is what the torch backend's routing used."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models import moe
+        self._orig = orig = moe._route
+
+        def route(cfg, p, xf, name):
+            vals, idx, aux = orig(cfg, p, xf, name)
+            gates = torch.softmax(ref.matmul_bias_act(
+                xf.to(torch.float32), p["router"],
+                out_dtype=torch.float32), dim=-1)
+            self.calls.append((idx.cpu(), gates.cpu()))
+            return vals, idx, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+
+def check_routes(name: str, got: list, want: list, k: int) -> tuple:
+    """(near-ties, first call index where the selections differ or None):
+    each call's experts under the kernels equal the plain versions' except
+    at tokens whose k-th and (k+1)-th plain gates are within ROUTE_TIE."""
+    import torch
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} routing calls != "
+                             f"{len(want)}")
+    ties, first = 0, None
+    for i, ((idx, _), (widx, gates)) in enumerate(zip(got, want)):
+        top = torch.sort(gates, dim=-1, descending=True).values
+        near = (top[:, k - 1] - top[:, k]) < ROUTE_TIE
+        ties += int(near.sum())
+        differ = (torch.sort(idx, -1).values !=
+                  torch.sort(widx, -1).values).any(-1)
+        if (differ & ~near).any():
+            raise AssertionError(f"{name}: routing call {i} picks other "
+                                 f"experts at {int((differ & ~near).sum())} "
+                                 "tokens without a near-tie")
+        if differ.any() and first is None:
+            first = i
+    return ties, first
+
+
+def expert_loads(calls: list, E: int) -> list[int]:
+    """The largest number of (token, choice) pairs any expert received in
+    each routing call."""
+    import torch
+    return [int(torch.bincount(idx.reshape(-1), minlength=E).max())
+            for idx, _ in calls]
+
+
+def check_mixtral(rep: Report, name: str, cfg, params, srv, done) -> None:
+    """Routing and logits of two requests teacher-forced on the kernels
+    and on the plain versions (fp32): every selection equal except at
+    near-ties (counted), the logits within TOL_LM at every step before the
+    first differing selection; the lone request's served logits within
+    TOL_LM of its teacher-forced ones; prefill -> decode within TOL_LM.
+    That last check runs with a capacity factor of E / k, where no expert
+    can overflow: at the published 1.25 a prefill of 512 tokens may drop
+    other (token, choice) pairs than one of 513, as in the reference, and
+    the two are then different functions."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.models.moe import _capacity
+
+    plain = Engine(backend="torch")
+    k, E = cfg.moe.top_k, cfg.moe.n_experts
+    err, ties, compared = 0.0, 0, 0
+    for r in (done[0], done[-1]):
+        with RouteCapture() as kr:
+            got = teacher_forced(cfg, params, r.prompt, r.output,
+                                 srv.engine)
+        with RouteCapture() as pr:
+            want = teacher_forced(cfg, params, r.prompt, r.output, plain)
+        t, first = check_routes(f"{name} request {r.uid}", kr.calls,
+                                pr.calls, k)
+        ties += t
+        steps = len(r.output) if first is None else first // cfg.n_layers
+        if steps:
+            err = max(err, allclose(f"{name} request {r.uid} logits",
+                                    got[:steps], want[:steps], TOL_LM))
+        compared += steps
+        if r is done[-1]:
+            served_err = allclose(f"{name} request {r.uid} served",
+                                  torch.from_numpy(r.logits), got, TOL_LM)
+            loads = expert_loads(kr.calls[:cfg.n_layers], E)
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / k))
+    dec, pre = prefill_vs_decode(roomy, params, done[-1], srv.engine,
+                                 torch.float32)
+    pd = allclose(f"{name} decode step 1 vs prefill of prompt + token", dec,
+                  pre, TOL_LM)
+    caps = _capacity(LM_PROMPT, cfg)
+    rep.detail[f"rest_{name}_logits"] = dict(
+        kernels_vs_torch=err, near_ties=ties, steps_compared=compared,
+        served_vs_teacher_forced=served_err, prefill_vs_decode=pd,
+        prompt_expert_loads=loads, capacity=caps)
+    log(f"  {name}: routing under the kernels == the plain versions' at "
+        f"every token ({ties} near-ties within {ROUTE_TIE:g}); logits max|d| "
+        f"{err:.3g} over {compared} of {2 * LM_NEW} steps (requests "
+        f"{done[0].uid} and {done[-1].uid}, teacher-forced); request "
+        f"{done[-1].uid} served vs teacher-forced {served_err:.3g}; decode "
+        f"step 1 vs a prefill of prompt + token {pd:.3g} (capacity factor "
+        f"E / k); request {done[-1].uid}'s prompt: largest expert load per "
+        f"layer {loads} against capacity {caps}")
+
+
+def rest_weight(cfg, params, name: str):
+    """The weight of the matmul named ``name`` (see REST_WEIGHTS)."""
+    from repro_torch.models.layers import head_weight
+    if name == "lm_head":
+        return head_weight(cfg, params)
+    part, leaf = REST_WEIGHTS[name]
+    if part == "mamba":
+        return params["blocks"][0]["mamba"][leaf][0]
+    return params["shared"][part][leaf]
+
+
+def rest_matmuls(srv, cfg, params) -> list[dict]:
+    """Every distinct matmul launch of the served waves, read from their
+    schedules: its regime, phase, wave size b and (m, k, n), the ops that
+    share it, the first one's weight and act, and how many launches of it
+    one pass of that phase makes."""
+    import torch
+    per = op_counts(cfg)
+    acts = {"mlp.gate": "silu" if cfg.mlp == "swiglu" else "gelu",
+            "mlp.fc1": "gelu"}
+    out: dict = {}
+    for b, phase, sched, _ in lm_schedules(srv, sorted(set(lm_waves()),
+                                                        reverse=True)):
+        for key in sched:
+            act = acts.get(key.name, "none")
+            ident = (sched[key].regime, phase, key.m, key.k, key.n, act)
+            if ident not in out:
+                w = rest_weight(cfg, params, key.name)
+                if tuple(w.shape) != (key.k, key.n):
+                    raise AssertionError(f"{key.name}: weight {tuple(w.shape)}"
+                                         f" != the schedule's {key}")
+                out[ident] = dict(regime=sched[key].regime, phase=phase, b=b,
+                                  m=key.m, w=w, act=act, names=[], per=0,
+                                  dtype=getattr(torch, key.dtype))
+            out[ident]["names"].append(key.name)
+            out[ident]["per"] += per[key.name]
+    return list(out.values())
+
+
+def check_rest_kernels(rep: Report, name: str, mats: list[dict]) -> None:
+    """Each of :func:`rest_matmuls` on its regime's kernel against its
+    plain version (TOL_BF16), on normal rows of the schedule's dtype (kept
+    in ``mats`` as ``x`` for timing)."""
+    import torch
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+    fns = {"sa_conv": ("sa_conv_matmul", sa_conv_matmul,
+                       sa_conv_matmul_plain),
+           "sa_fc": ("sa_fc_matmul", sa_fc_matmul, sa_fc_plain)}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    errs = {}
+    for mt in mats:
+        kernel, kern, plain = fns[mt["regime"]]
+        w, act = mt["w"], mt["act"]
+        mt["x"] = x = torch.randn((mt["m"], w.shape[0]), generator=gen,
+                                  device=DEVICE).to(mt["dtype"])
+        mt["label"] = f"{'/'.join(mt['names'])} {w.shape[0]}x{w.shape[1]}"
+        what = f"{kernel} {mt['label']} {mt['phase']} m={mt['m']}"
+        e = allclose(f"{name} {what}", kern(x, w, act=act),
+                     plain(x, w, act=act), TOL_BF16)
+        if name == "zamba2-2.7b":
+            rep.note_err(REST_KERNELS[kernel], e)
+        errs[what] = e
+    rep.detail[f"rest_{name}_kernel_checks"] = errs
+    log(f"  {name}: {len(errs)} matmul shapes of the served waves on their "
+        f"kernels vs the plain versions (TOL_BF16): max|d| "
+        f"{max(errs.values()):.4g}; {sorted(errs)}")
+
+
+def measure_zamba2(rep: Report, cfg, mats: list[dict]) -> None:
+    """zamba2's kernels at its served shapes, already held against their
+    plain versions, timed beside their bound (bf16 operations or bytes) and
+    the bf16 library call: the GEMM at a full wave's prefill, SA-FC at a
+    decode step (b = LM_BATCH), flash at a full wave's prefill (hd = 80),
+    which is first held against its plain version (TOL_BF16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    path = "ServeEngine.run zamba2-2.7b"
+
+    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
+            phase):
+        add_row(rep, kernel, path, label, ms, plain_ms, lib_ms, flops, nb,
+                peak=PEAK_BF16_FLOPS, per_pass=per_pass, phase=phase)
+
+    timed_at = {("sa_conv", "prefill"): (sa_conv_matmul,
+                                         sa_conv_matmul_plain, 3),
+                ("sa_fc", "decode"): (sa_fc_matmul, sa_fc_plain, 5)}
+    for mt in mats:
+        if (mt["regime"], mt["phase"]) not in timed_at or \
+                mt["b"] != LM_BATCH:
+            continue
+        kern, plain, runs = timed_at[mt["regime"], mt["phase"]]
+        x, w, act = mt["x"], mt["w"], mt["act"]
+        (m, k), n = x.shape, w.shape[1]
+        out = kern(x, w, act=act)
+        kernel = "sa_conv_matmul" if kern is sa_conv_matmul else \
+            "sa_fc_matmul"
+        row(REST_KERNELS[kernel], f"{mt['label']} m={m}",
+            timed(lambda: kern(x, w, act=act)),
+            timed(lambda: plain(x, w, act=act), runs=runs, warmup=1),
+            timed(lambda: ref.apply_act(torch.mm(x, w), act)),
+            2 * m * n * k, nbytes(x, w, out), mt["per"], mt["phase"])
+    name = REST_KERNELS["flash_attention"]
+    q, k, v = (torch.randn((LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.hd),
+                           generator=gen, device=DEVICE).to(torch.bfloat16)
+               for _ in range(3))
+    out = flash_attention(q, k, v)
+    rep.note_err(name, allclose(f"{name} zamba2 prefill", out,
+                                flash_plain(q, k, v), TOL_BF16))
+    b, s, hh, d = q.shape
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row(name, f"{tuple(q.shape)} causal, {geometry_log(q)}",
+        timed(lambda: flash_attention(q, k, v)),
+        timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
+        timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)),
+        4 * b * hh * (s * (s + 1) // 2) * d, nbytes(q, k, v, out),
+        op_counts(cfg)["attn.q"], "prefill")
+
+
+def rest_phase(rep: Report, smi: str) -> dict:
+    """Serve each of phase 12's models, check it, time it; returns the
+    launches of each ``ServeEngine.run`` by model."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.kvcache import cache_bytes
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, cfg in rest_configs().items():
+        t0 = time.perf_counter()
+        cache_dtype = getattr(torch, cfg.compute_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, SEED, device=DEVICE)
+        cut = "" if name != "mixtral-8x7b" else (
+            f"; reduced: depth only, {cfg.n_layers} of 32 layers, full "
+            f"width, fp32")
+        log(f"  [{smi}] {name}: {cfg.n_params() / 1e9:.3f} B parameters, "
+            f"{cache_bytes(params) / 1e9:.2f} GB on the card in "
+            f"{cfg.param_dtype}{cut}")
+        srv, done, out[name] = serve_requests(rep, f"rest_{name}", cfg,
+                                              params, cache_dtype)
+        mats = []
+        if cfg.moe is not None:
+            check_mixtral(rep, name, cfg, params, srv, done)
+        else:
+            check_rest_bf16(rep, name, cfg, params, srv, done)
+            mats = rest_matmuls(srv, cfg, params)
+            check_rest_kernels(rep, name, mats)
+        lm_throughput(rep, cfg, params, cache_dtype, prefix=f"rest_{name}")
+        if name == "zamba2-2.7b":
+            measure_zamba2(rep, cfg, mats)
+        del params, srv, done, mats
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    rep.detail["rest_phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {rep.detail['rest_phase_s']:.1f} s")
+    return out
+
+
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
-                 fleet: dict, train: dict) -> dict:
+                 fleet: dict, train: dict, rest: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -3560,10 +4016,14 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     (``<kernel>[train]``), read on phase 10's ``trainer.run`` (OLMo-1B as
     published, 4 steps): one step's work, the GEMM's forward, remat
     recompute, ``pre``, ``dx`` and ``dw`` launches and flash's forward
-    ones, bounded by bf16's rate.  ``launches_by_path`` gives every path's
-    count (the zoo's ``ModelZooServer.serve``, the bf16 ``CNNServer.run``,
-    ``fleet``, the fleet's three executed configurations, and
-    ``trainer.run`` among them);
+    ones, bounded by bf16's rate.  Then one per kernel of phase 12's
+    zamba2 path (``<kernel>[zamba2]``), read on zamba2-2.7b's
+    ``ServeEngine.run`` (as published, bf16): a full-wave prefill for the
+    GEMM and flash (hd = 80), a decode step at b = 4 for SA-FC, bounded by
+    bf16's rate.  ``launches_by_path`` gives every path's count (the zoo's
+    ``ModelZooServer.serve``, the bf16 ``CNNServer.run``, ``fleet``, the
+    fleet's three executed configurations, ``trainer.run`` and phase 12's
+    three ``ServeEngine.run`` paths among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -3598,7 +4058,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              "Engine.conv2d bf16, pool fusion declined":
                  zoo["declined_bf16"],
              "CNNServer.run bf16": cnn_bf16, "fleet": fleet,
-             "trainer.run": train}
+             "trainer.run": train,
+             **{f"ServeEngine.run {name}": c for name, c in rest.items()}}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -3632,6 +4093,13 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                 and r["path"] == "trainer.run"]
         out.append(entry(name, kernel, "trainer.run", train[kernel], rows,
                          PEAK_BF16_FLOPS))
+    path = "ServeEngine.run zamba2-2.7b"
+    for kernel, name in REST_KERNELS.items():
+        phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
+        rows = [r for r in rep.rows if r["kernel"] == name
+                and r["path"] == path and r["phase"] == phase]
+        out.append(entry(name, kernel, path,
+                         rest["zamba2-2.7b"][kernel], rows, PEAK_BF16_FLOPS))
     return {"kernels": out}
 
 
@@ -3729,9 +4197,14 @@ def main() -> int:
         "(python -m repro_torch.analysis, shared memory, edge launches)")
     analysis = analysis_phase(rep, smi)
 
+    log("== phase 12: the decoder-only rest of the LM stack: ServeEngine "
+        "over zamba2-2.7b and mamba2-130m as published (bf16), "
+        f"mixtral-8x7b at full width cut to {MIXTRAL_LAYERS} layers (fp32)")
+    rest = rest_phase(rep, smi)
+
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
-                        served_bf16, fleet, train)
+                        served_bf16, fleet, train, rest)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -256,11 +256,14 @@ def lm_launches(configs: dict[str, Any] | None = None,
     """The launches of LM serving and training: every matmul of each
     config's compiled schedule at ``shapes`` (SA-FC or the GEMM), and flash
     attention at each prefill and train shape, once per attention kind
-    (global; sliding-window with the config's window).  Each config is
+    (global; sliding-window with the config's window).  Train shapes are
+    skipped for configs the port does not train yet
+    (:func:`repro_torch.models.transformer.can_train`).  Each config is
     compiled one layer pattern deep: every period of the pattern makes the
     same launches."""
-    from repro_torch.configs.base import ATTN_LOCAL
+    from repro_torch.configs.base import ATTN_LOCAL, MAMBA
     from repro_torch.core.schedule import LayerSchedule
+    from repro_torch.models.transformer import can_train
     configs = lm_configs() if configs is None else configs
     out: list[Launch] = []
     for name, cfg in configs.items():
@@ -268,6 +271,8 @@ def lm_launches(configs: dict[str, Any] | None = None,
         itemsize = getattr(torch, cfg.compute_dtype).itemsize
         seen = set()
         for phase, batch, seq in shapes:
+            if phase == "train" and not can_train(cfg):
+                continue
             sched = LayerSchedule.compile(cfg, phase, batch=batch, seq=seq,
                                           max_seq=LM_MAX_SEQ,
                                           cache_dtype=getattr(
@@ -280,7 +285,7 @@ def lm_launches(configs: dict[str, Any] | None = None,
             if phase == "decode":
                 continue                    # decode attention is plain
             windows = sorted({cfg.sliding_window if ak == ATTN_LOCAL else 0
-                              for ak, _ in cfg.block_kinds()})
+                              for ak, _ in cfg.block_kinds() if ak != MAMBA})
             for window in windows:
                 shape = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
                          cfg.hd, True, window, itemsize)

@@ -7,8 +7,10 @@ CNNs: the reference's ``init_cnn`` returns a list of ``{"f", "b"}``, ``{"w",
 every leaf goes through numpy.
 
 LMs: the reference's ``init_params`` tree (``embed``, ``final_norm``,
-``head`` unless tied, ``blocks`` — a list of dicts of stacked leaves — and
-``tail``) is copied leaf for leaf into the same layout.
+``head`` unless tied, ``blocks`` — a list of dicts of stacked leaves —,
+``tail``, and ``shared`` for zamba2's shared attention) is copied leaf for
+leaf into the same layout, int8 ``QTensor`` leaves (the reference's
+``quantize_params``) as the port's.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ def params_from_reference(params: list, *, device=None) -> list:
 
 
 def _tree(tree, dev: torch.device):
+    if hasattr(tree, "q") and hasattr(tree, "scale"):       # int8 QTensor
+        return QTensor(_tensor(tree.q, dev), _tensor(tree.scale, dev))
     if isinstance(tree, dict):
         return {k: _tree(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -203,3 +203,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhqk,bkhd->bqhd", p,
                        repeat_kv(v, g).to(torch.float32))
     return out.to(q.dtype)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, init_state: torch.Tensor | None = None,
+        return_state: bool = False):
+    """Mamba2 SSD as the naive recurrence, in fp32, one step per position:
+    the oracle of :func:`repro_torch.models.ssm.ssd_chunked` and the O(1)
+    decode step of :func:`repro_torch.models.ssm.mamba_forward`.
+
+    x: (batch, seq, heads, head_dim); dt: (batch, seq, heads), softplus'd
+    (> 0); a: (heads,), negative; b, c: (batch, seq, state), shared across
+    heads; state: (batch, heads, head_dim, state).
+    ``h[t] = exp(a dt[t]) h[t-1] + dt[t] x[t] b[t]^T``, ``y[t] = h[t] c[t]``.
+    Not counted: no kernel computes it."""
+    bt, sq, nh, hd = x.shape
+    ns = b.shape[-1]
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    af, bf, cf = (t.to(torch.float32) for t in (a, b, c))
+    h = (torch.zeros((bt, nh, hd, ns), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.to(torch.float32))
+    ys = []
+    for t in range(sq):
+        decay = torch.exp(af[None, :] * dtf[:, t])          # (bt, nh)
+        dx = dtf[:, t, :, None] * xf[:, t]                  # (bt, nh, hd)
+        upd = dx[..., None] * bf[:, t, None, None, :]       # (bt, nh, hd, ns)
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhds,bs->bhd", h, cf[:, t]))
+    y = torch.stack(ys, 1).to(x.dtype)                      # (bt, sq, nh, hd)
+    if return_state:
+        return y, h
+    return y

@@ -319,6 +319,7 @@ def parity_failures(report: FleetReport, refs: dict) -> list[int]:
     return bad
 
 
+@torch.no_grad()
 def main(argv: list[str] | None = None) -> dict[str, FleetReport]:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--tier", choices=sorted(TRACE_TIERS), default="fast")
@@ -332,7 +333,6 @@ def main(argv: list[str] | None = None) -> dict[str, FleetReport]:
     args = ap.parse_args(argv)
     res = REDUCED_RES if args.reduced_res else {"alexnet": 227,
                                                 "vgg16": 224}
-    torch.set_grad_enabled(False)
     models = build_zoo(MODELS, seed=0, in_res=res,
                        width_mult=args.width_mult, max_batch=args.max_batch,
                        device=args.device)

@@ -164,6 +164,7 @@ def fresh(models: list[ZooModel]) -> list[ZooModel]:
                      device=m.server.device) for m in models]
 
 
+@torch.no_grad()
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--per-tenant", type=int, default=4,
@@ -181,8 +182,6 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     res = REDUCED_RES if args.reduced_res else {"alexnet": 227,
                                                 "vgg16": 224}
-    torch.set_grad_enabled(False)
-
     print("== the zoo: three compiled variants, one engine ==")
     models = build_zoo(MODELS, seed=0, in_res=res,
                        width_mult=args.width_mult, max_batch=args.max_batch,

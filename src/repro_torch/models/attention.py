@@ -6,7 +6,7 @@ Train/prefill attention goes through the active
 version).  Decode attends one query token against the cache with an
 explicit validity mask (plain PyTorch, fp32 accumulation): global layers
 keep a full-length cache, ``ATTN_LOCAL`` layers a ring of ``window`` slots.
-Cross-attention (enc-dec; ROADMAP A.2, the rest of the LM stack) and the
+Cross-attention (enc-dec; ROADMAP A.2b, the rest of the LM stack) and the
 reference's head padding and sharding constraints, which do nothing
 without a device mesh (ROADMAP A.3, the XLA and multi-pod tools), are not
 ported.

@@ -1,6 +1,7 @@
-"""LM assembly of the port: decoder-only stacks of global and sliding-window
-attention blocks with dense MLPs — the JAX package's
-``repro.models.transformer`` on tensors.
+"""LM assembly of the port: decoder-only stacks of global and
+sliding-window attention blocks with dense or MoE MLPs, Mamba2 blocks and
+zamba2's shared attention — the JAX package's ``repro.models.transformer``
+on tensors.
 
 Parameters keep the reference's stacked layout: ``params["blocks"][i]``
 holds pattern position *i* of every period, each leaf with a leading
@@ -8,12 +9,16 @@ holds pattern position *i* of every period, each leaf with a leading
 unstacked ``params["tail"]``.  The reference's ``lax.scan`` over periods is
 a Python loop over index *r* of the stacked tensors (``a[r]`` of a
 contiguous stacked tensor is a contiguous view, so nothing is copied).
+A ``SHARED_ATTN`` position holds no weights of its own: every one of them
+applies ``params["shared"]``, one unstacked attention + dense MLP block.
 
 Modes:
-* ``train``   — full-sequence forward, returns logits; :func:`loss_fn` is
-  the training loss, differentiable on both backends, with ``remat="block"``
-  recomputing each pattern period in the backward pass.
-* ``prefill`` — forward that also emits per-layer K/V for the decode cache.
+* ``train``   — full-sequence forward, returns logits and the MoE
+  auxiliary loss; :func:`loss_fn` is the training loss, differentiable on
+  both backends, with ``remat="block"`` recomputing each pattern period in
+  the backward pass.
+* ``prefill`` — forward that also emits per-layer K/V and SSM state for the
+  decode cache.
 * ``decode``  — one-token step against the cache (:func:`decode_step`).
 
 Tied models train one matrix: :func:`trainable` is the tree of trained
@@ -21,8 +26,9 @@ leaves, without the serving copy ``embed_t``, so the loss computes the head
 from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
 optimizer step.
 
-MoE, Mamba/SSD, shared-attention, encoder-decoder and vision families
-raise ``NotImplementedError`` (ROADMAP A.2, the rest of the LM stack).
+Encoder-decoder and frontend families raise ``NotImplementedError``
+(ROADMAP A.2b), and so does training the MoE, Mamba and shared-attention
+families (:func:`loss_fn`).
 """
 from __future__ import annotations
 
@@ -36,15 +42,19 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA,
                                       SHARED_ATTN, ModelConfig)
 from repro_torch.core import engine
 from repro_torch.core.accelerator import resolve_device
+from repro_torch.core.quant import QTensor
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 MODES = ("train", "prefill")
 #: ``remat`` policies: none, or each pattern period recomputed in the
 #: backward pass (the reference's ``jax.checkpoint`` of its scan body)
 REMATS = ("none", "block")
-_UNPORTED = "ROADMAP A.2, the rest of the LM stack"
+_UNPORTED = "ROADMAP A.2b, the rest of the LM stack"
+_UNTRAINED = "ROADMAP A.2b, training the new families"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -56,15 +66,8 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet."""
     for ak, mk in cfg.block_kinds():
-        if ak in (MAMBA, SHARED_ATTN):
-            raise NotImplementedError(
-                f"{cfg.name}: {ak} blocks (Mamba2/SSD, zamba2 shared "
-                f"attention) are not ported yet ({_UNPORTED})")
-        if ak not in (ATTN_GLOBAL, ATTN_LOCAL):
+        if ak not in (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, SHARED_ATTN):
             raise ValueError(f"{cfg.name}: unknown block kind {ak!r}")
-        if mk == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks are not ported yet ({_UNPORTED})")
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder stacks are not ported yet "
@@ -75,17 +78,34 @@ def check_supported(cfg: ModelConfig) -> None:
             f"({_UNPORTED})")
 
 
+def can_train(cfg: ModelConfig) -> bool:
+    """Whether :func:`loss_fn` is ported for every block of ``cfg``: not
+    yet for MoE, Mamba or shared-attention blocks."""
+    return not any(ak in (MAMBA, SHARED_ATTN) or mk == "moe"
+                   for ak, mk in cfg.block_kinds())
+
+
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
 def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
-                lead: tuple[int, ...]) -> dict:
+                lead: tuple[int, ...], attn_kind: str = ATTN_GLOBAL,
+                mlp_kind: str = "dense") -> dict:
     dt = torch_dtype(cfg.param_dtype)
     d, ff = cfg.d_model, cfg.d_ff
-    return {"ln1": L.norm_params(cfg, d, device, lead),
-            "attn": attn_mod.init_attn(cfg, gen, dt, device, lead),
-            "ln2": L.norm_params(cfg, d, device, lead),
-            "mlp": mlp_mod.init_mlp(cfg, gen, d, ff, dt, device, lead)}
+    if attn_kind == MAMBA:
+        return {"ln1": L.norm_params(cfg, d, device, lead),
+                "mamba": ssm_mod.init_mamba(cfg, gen, dt, device, lead)}
+    if attn_kind == SHARED_ATTN:
+        return {}                       # weights live in params["shared"]
+    p = {"ln1": L.norm_params(cfg, d, device, lead),
+         "attn": attn_mod.init_attn(cfg, gen, dt, device, lead),
+         "ln2": L.norm_params(cfg, d, device, lead)}
+    if mlp_kind == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, gen, d, ff, dt, device, lead)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(cfg, gen, d, ff, dt, device, lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
@@ -115,44 +135,69 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
     else:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                       dev)
-    params["blocks"] = [_init_block(cfg, gen, dev, (reps,)) if reps else {}
-                        for _ in kinds]
-    params["tail"] = [_init_block(cfg, gen, dev, ()) for _ in range(rem)]
+    params["blocks"] = [_init_block(cfg, gen, dev, (reps,), ak, mk)
+                        if reps else {} for ak, mk in kinds]
+    params["tail"] = [_init_block(cfg, gen, dev, (), *kinds[i])
+                      for i in range(rem)]
+    if any(ak == SHARED_ATTN for ak, _ in kinds):
+        params["shared"] = _init_block(cfg, gen, dev, ())
     return params
 
 
 # ---------------------------------------------------------------------------
 # one block
 # ---------------------------------------------------------------------------
-def _apply_block(cfg, p: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
-                 attn_kind: str, mode: str, cache: dict | None = None,
+def _apply_block(cfg, p: dict, shared_p: dict | None, x: torch.Tensor,
+                 pos_ids: torch.Tensor, *, attn_kind: str, mlp_kind: str,
+                 mode: str, cache: dict | None = None,
                  pos: int | None = None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux), ``aux`` the MoE block's auxiliary loss
+    or 0.0 (a Python float: a block without MoE launches nothing for it).
+    In decode the cache's tensors are updated in place and returned."""
+    aux = 0.0
+    if attn_kind == MAMBA:
+        h = L.norm(cfg, p["ln1"], x)
+        y, st = ssm_mod.mamba_forward(cfg, p["mamba"], h, cache=cache,
+                                      return_cache=mode == "prefill")
+        if mode == "decode":
+            cache["conv"].copy_(st["conv"])
+            cache["h"].copy_(st["h"])
+            st = cache
+        return x + y, st, aux
+
+    pa = shared_p if attn_kind == SHARED_ATTN else p
     window = cfg.sliding_window if attn_kind == ATTN_LOCAL else 0
-    h = L.norm(cfg, p["ln1"], x)
+    h = L.norm(cfg, pa["ln1"], x)
     new_cache = cache
     if mode == "decode":
-        y, attn_cache = attn_mod.attn_decode(cfg, p["attn"], h, pos,
+        y, attn_cache = attn_mod.attn_decode(cfg, pa["attn"], h, pos,
                                              cache["attn"], window=window)
         new_cache = {**cache, "attn": attn_cache}
     elif mode == "prefill":
-        y, (k, v) = attn_mod.attn_forward(cfg, p["attn"], h, pos_ids,
+        y, (k, v) = attn_mod.attn_forward(cfg, pa["attn"], h, pos_ids,
                                           window=window, return_kv=True)
         new_cache = {"k": k, "v": v}
     else:
-        y = attn_mod.attn_forward(cfg, p["attn"], h, pos_ids, window=window)
+        y = attn_mod.attn_forward(cfg, pa["attn"], h, pos_ids, window=window)
     x = x + y
-    h = L.norm(cfg, p["ln2"], x)
-    return x + mlp_mod.mlp(cfg, p["mlp"], h), new_cache
+    h = L.norm(cfg, pa["ln2"], x)
+    if mlp_kind == "moe":
+        y, aux = moe_mod.moe_block(cfg, p["moe"], h)
+    else:
+        y = mlp_mod.mlp(cfg, pa["mlp"], h)
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
 # the stack
 # ---------------------------------------------------------------------------
 def _select(tree, r: int):
-    """Index ``r`` of every leaf's leading (stacked) axis."""
+    """Index ``r`` of every leaf's leading (stacked) axis (an int8
+    :class:`QTensor` indexes its values and its scales)."""
     if isinstance(tree, dict):
         return {k: _select(v, r) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q[r], tree.scale[r])
     return tree[r]
 
 
@@ -162,16 +207,20 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def _period(cfg, kinds, blocks: list, x: torch.Tensor,
-            pos_ids: torch.Tensor, mode: str, caches: list, pos):
-    """One pattern period: every block kind once.  Returns (x, [new
-    cache per kind])."""
+def _period(cfg, kinds, blocks: list, shared_p: dict | None,
+            x: torch.Tensor, pos_ids: torch.Tensor, mode: str, caches: list,
+            pos):
+    """One pattern period: every block kind once.  Returns (x, aux, [new
+    cache per kind]), ``aux`` summed over the period's blocks."""
     new = []
-    for i, (ak, _) in enumerate(kinds):
-        x, nc = _apply_block(cfg, blocks[i], x, pos_ids, attn_kind=ak,
-                             mode=mode, pos=pos, cache=caches[i])
+    aux = 0.0
+    for i, (ak, mk) in enumerate(kinds):
+        x, nc, a = _apply_block(cfg, blocks[i], shared_p, x, pos_ids,
+                                attn_kind=ak, mlp_kind=mk, mode=mode,
+                                pos=pos, cache=caches[i])
+        aux = aux + a
         new.append(nc)
-    return x, new
+    return x, aux, new
 
 
 def _checkpointed(fn, *args):
@@ -193,8 +242,8 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
     [per-position]}`` in decode, where the cache tensors are updated in
     place and returned.  ``remat="block"`` checkpoints each period of the
     stacked part (the unstacked tail runs plainly, as in the reference).
-    Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss of the
-    reference, always 0 here."""
+    Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss summed
+    over the blocks (0 without MoE blocks)."""
     if remat == "dots":
         raise NotImplementedError(
             "remat='dots' (the reference's checkpoint_dots policy) is not "
@@ -204,23 +253,30 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
                          f"{remat!r}")
     kinds = cfg.block_kinds()
     reps, rem = cfg.stack_shape()
+    shared_p = params.get("shared")
     collected: list[list] = [[] for _ in kinds]
+    aux = 0.0
     for r in range(reps):
         blocks = [_select(params["blocks"][i], r) for i in range(len(kinds))]
         cs = [_select(caches["main"][i], r) if caches else None
               for i in range(len(kinds))]
-        args = (cfg, kinds, blocks, x, pos_ids, mode, cs, pos)
-        x, new = _checkpointed(_period, *args) if remat == "block" \
+        args = (cfg, kinds, blocks, shared_p, x, pos_ids, mode, cs, pos)
+        x, a, new = _checkpointed(_period, *args) if remat == "block" \
             else _period(*args)
+        aux = aux + a
         for i, nc in enumerate(new):
             collected[i].append(nc)
     new_tail = []
     for i in range(rem):
-        x, nc = _apply_block(cfg, params["tail"][i], x, pos_ids,
-                             attn_kind=kinds[i][0], mode=mode, pos=pos,
-                             cache=caches["tail"][i] if caches else None)
+        ak, mk = kinds[i]
+        x, nc, a = _apply_block(cfg, params["tail"][i], shared_p, x, pos_ids,
+                                attn_kind=ak, mlp_kind=mk, mode=mode,
+                                pos=pos,
+                                cache=caches["tail"][i] if caches else None)
+        aux = aux + a
         new_tail.append(nc)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "prefill":
         main = [_stack(c) for c in collected] if reps else []
         return x, aux, {"main": main, "tail": new_tail}
@@ -271,7 +327,14 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     term as the reference's one-hot contraction), averaged over
     ``batch["loss_mask"][:, 1:]`` when given.  The head of a tied model
     comes from ``embed`` (:func:`trainable`).  Returns (loss, {"ce",
-    "aux"})."""
+    "aux"}).  Training the MoE, Mamba and shared-attention families is not
+    ported yet: the reference's SSD backward takes ``where(mask, exp(rel),
+    0)``, whose masked entries can be ``+inf`` in fp32 and then give NaN
+    gradients (``0 * inf``), here as there."""
+    if not can_train(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE, Mamba and shared-attention blocks "
+            f"is not ported yet ({_UNTRAINED})")
     logits, aux, _ = forward(cfg, trainable(params), batch, mode="train",
                              remat=remat)
     tokens = batch["tokens"]

@@ -1,28 +1,41 @@
-"""Decode-cache construction and the prefill -> decode hand-off, for
-attention layers — the JAX package's ``repro.serve.kvcache`` on tensors.
+"""Decode-cache construction and the prefill -> decode hand-off — the JAX
+package's ``repro.serve.kvcache`` on tensors.
 
 Cache layout mirrors the stack: ``{'main': [per-pattern-position entry
-stacked over reps], 'tail': [unstacked entries]}``, each entry
-``{"attn": {"k", "v"}}``:
+stacked over reps], 'tail': [unstacked entries]}``.  Per position kind:
 
-* global attention — full ``(B, max_seq, hkv, hd)`` K/V;
-* local attention  — a **ring** of ``min(window, max_seq)`` slots.
+* global attention — ``{"attn": {"k", "v"}}``, full ``(B, max_seq, hkv,
+  hd)`` K/V (zamba2's shared attention: one such entry per application);
+* local attention  — a **ring** of ``min(window, max_seq)`` slots;
+* mamba            — ``{"conv", "h"}``: the depthwise conv's ``(B, cw-1,
+  ch)`` tail in the cache dtype and the ``(B, H, D, N)`` SSM state in fp32.
 
-Mamba and cross-attention entries come with their blocks (ROADMAP A.2, the
-rest of the LM stack).
+Cross-attention entries come with the encoder-decoder stack (ROADMAP
+A.2b).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN_LOCAL, MAMBA, ModelConfig
 from repro_torch.core import tree
 from repro_torch.core.accelerator import resolve_device
 from repro_torch.models.attention import init_kv_cache
+from repro_torch.models.ssm import init_mamba_cache
 
 
 def _window(cfg: ModelConfig, attn_kind: str) -> int:
     return cfg.sliding_window if attn_kind == ATTN_LOCAL else 0
+
+
+def _position_proto(cfg: ModelConfig, attn_kind: str, batch: int,
+                    max_seq: int, dtype, device,
+                    lead: tuple[int, ...] = ()) -> dict:
+    if attn_kind == MAMBA:
+        return init_mamba_cache(cfg, batch, dtype, device, lead)
+    return {"attn": init_kv_cache(cfg, batch, max_seq,
+                                  _window(cfg, attn_kind), dtype, device,
+                                  lead)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -32,11 +45,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     device = resolve_device(device)
     kinds = cfg.block_kinds()
     reps, rem = cfg.stack_shape()
-    main = [{"attn": init_kv_cache(cfg, batch, max_seq, _window(cfg, ak),
-                                   dtype, device, (reps,))}
+    main = [_position_proto(cfg, ak, batch, max_seq, dtype, device, (reps,))
             for ak, _ in kinds]
-    tail = [{"attn": init_kv_cache(cfg, batch, max_seq,
-                                   _window(cfg, kinds[i][0]), dtype, device)}
+    tail = [_position_proto(cfg, kinds[i][0], batch, max_seq, dtype, device)
             for i in range(rem)]
     return {"main": main, "tail": tail}
 
@@ -63,6 +74,11 @@ def _ring_fill(kv: torch.Tensor, window: int) -> torch.Tensor:
 
 def _convert_position(cfg, attn_kind: str, entry: dict, max_seq: int,
                       dtype) -> dict:
+    if attn_kind == MAMBA:
+        # the decode step writes into these tensors: a fresh conv tail
+        # (``to`` may return the prefill's own) and the fp32 state, which
+        # the prefill made for the cache alone
+        return {"conv": entry["conv"].to(dtype, copy=True), "h": entry["h"]}
     window = _window(cfg, attn_kind)
     k, v = entry["k"].to(dtype), entry["v"].to(dtype)
     S = k.shape[-3]

@@ -566,15 +566,29 @@ def test_launch_pass_clean_on_every_zoo_variant():
 
 
 def test_launch_pass_clean_on_every_lm_config():
+    """Every LM config the port serves, as published: the dense ones, and
+    the MoE (the router on SA-FC with n = E = 8 and 128), Mamba2
+    (zamba2's in_proj with n = 2 di + 2 ns + nh = 10448) and zamba2's
+    shared attention (flash at hd = 80)."""
     configs = tlaunch.lm_configs()
     assert set(configs) == {"gemma2-27b", "gemma3-27b", "llama3-405b",
-                            "olmo-1b", "olmo-1b@fp32"}
+                            "llama4-maverick-400b-a17b", "mamba2-130m",
+                            "mixtral-8x7b", "olmo-1b", "olmo-1b@fp32",
+                            "zamba2-2.7b"}
     launches = tlaunch.lm_launches(configs)
     kernels = {lau.kernel for lau in launches}
     assert kernels == {"sa_fc", "sa_conv", "attention"}
     windows = {lau.shape[7] for lau in launches
                if lau.kernel == "attention"}
-    assert windows == {0, 1024, 4096}          # gemma3's and gemma2's
+    assert windows == {0, 1024, 4096}          # gemma3's, gemma2's, mixtral's
+    routers = {lau.shape[2] for lau in launches if "moe.router" in lau.op}
+    assert routers == {8, 128}
+    assert any("zamba2" in lau.op and "ssm.in_proj" in lau.op
+               and lau.shape[1] == 10448 for lau in launches)
+    assert any("zamba2" in lau.op and lau.kernel == "attention"
+               and lau.shape[5] == 80 for lau in launches)
+    assert not any("mamba2-130m" in lau.op and lau.kernel == "attention"
+                   for lau in launches)
     report = tlaunch.verify_launches(launches)
     assert report.ok and report.findings == [], report.summary()
 

@@ -148,15 +148,30 @@ def test_converted_and_initialised_trees_match_reference(name):
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("mixtral-8x7b", "MoE"), ("mamba2-130m", "mamba"),
-    ("zamba2-2.7b", "mamba"), ("seamless-m4t-large-v2", "encoder"),
-    ("llava-next-34b", "frontends")])
+    ("seamless-m4t-large-v2", "encoder"), ("llava-next-34b", "frontends")])
 def test_unported_families_raise(arch, match):
     cfg = tbase.reduced(treg.get_config(arch))
     with pytest.raises(NotImplementedError, match=match):
         T.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
         T.check_supported(cfg)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "mamba2-130m", "zamba2-2.7b"])
+def test_loss_fn_refuses_the_untrained_families(arch):
+    """MoE, Mamba and shared-attention configs serve but do not train yet:
+    the loss raises, and so does compiling their train schedule."""
+    cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
+                        compute_dtype="float32")
+    T.check_supported(cfg)
+    assert not T.can_train(cfg)
+    params = T.init_params(cfg, 0, device="cpu")
+    tokens = _t(_tokens(cfg, (1, 8)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
+        T.loss_fn(cfg, params, {"tokens": tokens})
+    with pytest.raises(NotImplementedError, match="training"):
+        tsched.LayerSchedule.compile(cfg, "train", batch=1, seq=8)
 
 
 def test_entry_points_default_to_the_card():
