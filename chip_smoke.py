@@ -131,7 +131,28 @@ Phases (any failure raises and exits non-zero):
    differing selection, prefill -> decode within TOL_LM with no expert
    over its capacity.  Prefill tokens/s, decode ms per step and peak
    memory per model; zamba2's GEMM, SA-FC and flash shapes against their
-   plain versions, then timed.
+   plain versions, then timed;
+13. the encoder-decoder and vision-prefix families through
+   ``serve_step.greedy_generate(..., extra=...)`` on the kernels engine:
+   seamless-m4t-large-v2 as published (bf16, 24 encoder and 24 decoder
+   layers, d 1024, vocab 256206; 4 requests of 16 tokens, 1024 audio
+   frames each, 16 new tokens) and llava-next-34b at full width cut to 4
+   of its 60 layers (bf16, d 7168, 56 heads over 8 KV heads of 128; 2
+   requests of 32 tokens behind 576 vision embeddings, 8 new tokens),
+   inputs from the seed: launches per kernel equal to the engine's records
+   and to the config's op counts, no plain version called; the wave's
+   prefill logits (and seamless's encoder output) within sqrt(2) x the
+   torch backend's own bf16-vs-fp32 spread; every distinct matmul launch
+   on its kernel within TOL_BF16 of the plain version; every kind of flash
+   launch (encoder and cross-attention non-causal, the causal decoder,
+   llava's GQA group of 7 at hd 128) against flash_plain in fp32 and bf16;
+   an fp32 copy at the same width whose decode step 1 matches a prefill of
+   the prompt plus its token within 5e-4; prefill text and frontend
+   tokens/s, the encoder's ms, decode ms a step, idle shares, peak memory
+   and each kernel's shapes timed; then the non-causal flash sweep of
+   ``analysis/launch.py`` (fewer, as many and more queries than keys, odd
+   query tiles paired and unpaired, hd 64 and 128, fp32 and bf16) in
+   NaN-filled blocks.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -305,7 +326,9 @@ class Report:
         self.err = {k: 0.0 for k in [*SOURCES, *BF16_KERNELS.values(),
                                      *CNN_BF16_KERNELS.values(),
                                      *TRAIN_KERNELS.values(),
-                                     *REST_KERNELS.values()]}
+                                     *REST_KERNELS.values(),
+                                     *(n for d in FRONTEND_KERNELS.values()
+                                       for n in d.values())]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
 
@@ -3398,24 +3421,27 @@ def edge_call(lau, gen):
                   else torch.bfloat16)
         kw = dict(window=window, stride=stride, act="relu")
         return (lambda: maxpool_act(x, **kw)), ref.maxpool_act(x, **kw), None
-    b, sq, skv, hq, hkv, d, causal, window, _ = lau.shape
-    q_, k_, v_ = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
-        randn(b, skv, hkv, d)
+    b, sq, skv, hq, hkv, d, causal, window, itemsize = lau.shape
+    dt = torch.float32 if itemsize == 4 else torch.bfloat16
+    q_, k_, v_ = randn(b, sq, hq, d, dtype=dt), \
+        randn(b, skv, hkv, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt)
     kw = dict(causal=causal, window=window)
     return ((lambda: flash_attention(q_, k_, v_, **kw)),
-            flash_plain(q_, k_, v_, **kw), TOL_ATTN)
+            flash_plain(q_, k_, v_, **kw),
+            TOL_ATTN if itemsize == 4 else TOL_BF16)
 
 
-def edge_phase(rep: Report) -> list[dict]:
-    """Each edge launch of ``analysis/launch.py`` (after the launch pass
-    holds it): the output's block first filled with NaN through a freed
-    tensor of its size, then the kernel against its plain version (the
-    pool bitwise), no NaN left where the plain version has none."""
+def edge_phase(rep: Report, launches: list) -> list[dict]:
+    """Each of ``launches``, edge launches of ``analysis/launch.py`` (after
+    the launch pass holds it): the output's block first filled with NaN
+    through a freed tensor of its size, then the kernel against its plain
+    version (the pool bitwise), no NaN left where the plain version has
+    none."""
     import torch
     from repro_torch.analysis import launch as L
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for lau in L.edge_launches():
+    for lau in launches:
         bad = L.check_launch(lau)
         if bad:
             raise AssertionError(f"{lau.op}: " + "; ".join(map(str, bad)))
@@ -3528,7 +3554,9 @@ def analysis_phase(rep: Report, smi: str) -> dict:
         log(f"  {lib}: {len(vals)} distinct launches' dynamic shared memory "
             f"== the launch pass ({min(vals)}..{max(vals)} B)")
 
-    edges = edge_phase(rep)
+    sweep = {lau.op for lau in L.noncausal_edge_launches()}   # phase 13's
+    edges = edge_phase(rep, [lau for lau in L.edge_launches()
+                             if lau.op not in sweep])
     card_line = dict(name=card.name, smi=smi, sm_count=card.sm_count,
                      smem_per_block_optin=card.smem_per_block_optin)
     out = dict(ops=ops, lm_launches=len(lm), findings=per_pass,
@@ -3868,10 +3896,12 @@ def rest_matmuls(srv, cfg, params) -> list[dict]:
     return list(out.values())
 
 
-def check_rest_kernels(rep: Report, name: str, mats: list[dict]) -> None:
-    """Each of :func:`rest_matmuls` on its regime's kernel against its
-    plain version (TOL_BF16), on normal rows of the schedule's dtype (kept
-    in ``mats`` as ``x`` for timing)."""
+def check_rest_kernels(rep: Report, name: str, mats: list[dict],
+                       names: dict | None = None) -> None:
+    """Each of :func:`rest_matmuls` (or :func:`frontend_matmuls`) on its
+    regime's kernel against its plain version (TOL_BF16), on normal rows
+    of the served dtype (kept in ``mats`` as ``x`` for timing); each error
+    noted under ``names[kernel]`` where ``names`` is given."""
     import torch
     from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                              sa_conv_matmul_plain)
@@ -3890,8 +3920,8 @@ def check_rest_kernels(rep: Report, name: str, mats: list[dict]) -> None:
         what = f"{kernel} {mt['label']} {mt['phase']} m={mt['m']}"
         e = allclose(f"{name} {what}", kern(x, w, act=act),
                      plain(x, w, act=act), TOL_BF16)
-        if name == "zamba2-2.7b":
-            rep.note_err(REST_KERNELS[kernel], e)
+        if names is not None:
+            rep.note_err(names[kernel], e)
         errs[what] = e
     rep.detail[f"rest_{name}_kernel_checks"] = errs
     log(f"  {name}: {len(errs)} matmul shapes of the served waves on their "
@@ -3985,7 +4015,8 @@ def rest_phase(rep: Report, smi: str) -> dict:
         else:
             check_rest_bf16(rep, name, cfg, params, srv, done)
             mats = rest_matmuls(srv, cfg, params)
-            check_rest_kernels(rep, name, mats)
+            check_rest_kernels(rep, name, mats, REST_KERNELS
+                               if name == "zamba2-2.7b" else None)
         lm_throughput(rep, cfg, params, cache_dtype, prefix=f"rest_{name}")
         if name == "zamba2-2.7b":
             measure_zamba2(rep, cfg, mats)
@@ -3997,9 +4028,554 @@ def rest_phase(rep: Report, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder and vision-prefix families
+# ---------------------------------------------------------------------------
+#: llava-next-34b's depth in phase 13: its full width, 4 of its 60 layers
+LLAVA_LAYERS = 4
+#: each phase 13 model's requests, one wave through greedy_generate:
+#: (requests, prompt tokens, new tokens)
+FRONTEND_REQUESTS = {"seamless-m4t-large-v2": (4, 16, 16),
+                     "llava-next-34b": (2, 32, 8)}
+#: the kernels of each phase 13 path, reported on it under these names
+FRONTEND_KERNELS = {
+    name: {k: f"{k}[{tag}]" for k in LM_KERNELS}
+    for name, tag in (("seamless-m4t-large-v2", "seamless"),
+                      ("llava-next-34b", "llava"))}
+#: a bf16 result on the kernels may differ from the torch backend's bf16
+#: result by this factor times that backend's own bf16-vs-fp32 spread: two
+#: bf16 computations that sum in other orders round independently
+SPREAD_FACTOR = 2 ** 0.5
+#: fp32 decode step 1 against a prefill of the prompt plus its token: the
+#: reference's own bound (tests/test_archs.py::test_decode_matches_forward)
+TOL_DECODE = dict(rtol=5e-4, atol=5e-4)
+#: where phase 13 finds a named matmul's weight: in decoder block 0's self-
+#: or cross-attention, its MLP, or encoder block 0 (stacked leaves)
+FRONTEND_WEIGHTS = {**{f"attn.{p}": ("attn", f"w{p}") for p in "qkvo"},
+                    "mlp.gate": ("mlp", "wg"), "mlp.up": ("mlp", "wu"),
+                    "mlp.down": ("mlp", "wd")}
+
+
+def frontend_configs() -> dict:
+    """Phase 13's models: seamless-m4t-large-v2 as published (bf16
+    parameters and compute, 24 + 24 layers), llava-next-34b at full width
+    in bf16 with its depth cut to LLAVA_LAYERS."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    out = {"seamless-m4t-large-v2": get_config("seamless-m4t-large-v2"),
+           "llava-next-34b": dataclasses.replace(
+               get_config("llava-next-34b"), n_layers=LLAVA_LAYERS)}
+    for name, cfg in out.items():
+        if (cfg.param_dtype, cfg.compute_dtype) != ("bfloat16", "bfloat16"):
+            raise AssertionError(f"{name} is not published in bf16")
+    return out
+
+
+def frontend_batch(cfg, name: str, dtype=None) -> dict:
+    """The wave of ``name``: random prompt tokens and the stubbed
+    frontend's embeddings (standard normal) from SEED with numpy, on the
+    card in ``dtype`` (the config's compute dtype by default)."""
+    import numpy as np
+    import torch
+    b, s, _ = FRONTEND_REQUESTS[name]
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s))
+    n = cfg.audio_frames if cfg.enc_dec else cfg.vision_tokens
+    emb = rng.standard_normal((b, n, cfg.frontend_dim), dtype=np.float32)
+    return {"tokens": torch.as_tensor(tokens, dtype=torch.int64,
+                                      device=DEVICE),
+            "audio_embeds" if cfg.enc_dec else "vision_embeds":
+                torch.from_numpy(emb).to(
+                    DEVICE, dtype or getattr(torch, cfg.compute_dtype))}
+
+
+def frontend_ops(cfg) -> dict:
+    """Engine matmuls and flash launches one prefill and one decode step
+    make, from the config alone: per encoder block four attention
+    projections, the MLP and one (non-causal) flash; per decoder block four
+    self-attention projections, the MLP and one causal flash, and with
+    cross-attention four projections in prefill (q, o and k, v over the
+    frames) and one flash, two in decode (q, o: k and v are cached); the
+    head once."""
+    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    cross = 1 if cfg.enc_dec else 0
+    enc = cfg.n_enc_layers if cfg.enc_dec else 0
+    return dict(
+        prefill_matmuls=enc * (4 + mlp) + cfg.n_layers * (4 + mlp
+                                                          + 4 * cross) + 1,
+        decode_matmuls=cfg.n_layers * (4 + mlp + 2 * cross) + 1,
+        prefill_flash=enc + cfg.n_layers * (1 + cross))
+
+
+class EncoderCapture:
+    """Inside ``with``: the output of each call of
+    :func:`repro_torch.models.transformer.encode`, as ``forward`` makes
+    it."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self._orig = orig = T.encode
+        self.outs: list = []
+
+        def encode(*args, **kw):
+            out = orig(*args, **kw)
+            self.outs.append(out)
+            return out
+
+        T.encode = encode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        T.encode = self._orig
+
+
+def generate_launches(name: str, cfg, n_new: int, trace, c: dict) -> dict:
+    """The launches ``greedy_generate`` must have made: per kernel as many
+    as the engine recorded dispatches of its regime, in all as many
+    matmuls and flash launches as :func:`frontend_ops` counts for a
+    prefill and ``n_new - 1`` decode steps."""
+    ops = frontend_ops(cfg)
+    regimes = [x.regime for x in trace]
+    want = {"sa_conv_matmul": regimes.count("sa_conv"),
+            "sa_fc_matmul": regimes.count("sa_fc"),
+            "flash_attention": regimes.count("attention")}
+    matmuls = ops["prefill_matmuls"] + (n_new - 1) * ops["decode_matmuls"]
+    if want["sa_conv_matmul"] + want["sa_fc_matmul"] != matmuls or \
+            want["flash_attention"] != ops["prefill_flash"] or \
+            len(regimes) != matmuls + ops["prefill_flash"]:
+        raise AssertionError(f"{name}: the engine recorded {want} "
+                             f"({len(regimes)} dispatches); the config says "
+                             f"{matmuls} matmuls and {ops['prefill_flash']} "
+                             "flash launches")
+    expect_counts(c, f"{name} greedy_generate", **want)
+    if min(want.values()) < 1:
+        raise AssertionError(f"{name}: a kernel of the path never ran: {c}")
+    return want
+
+
+def frontend_weight(cfg, params, name: str, k: int, n: int):
+    """A weight of the matmul ``name`` with shape (k, n): the head, or
+    decoder block 0's self- or cross-attention or MLP, or encoder block
+    0's (their projections share names)."""
+    from repro_torch.models.layers import head_weight
+    if name == "lm_head":
+        return head_weight(cfg, params)
+    part, leaf = FRONTEND_WEIGHTS[name]
+    blocks = [params["blocks"][0]]
+    if cfg.enc_dec:
+        blocks += [{"attn": params["blocks"][0]["xattn"]},
+                   params["encoder"]["blocks"]]
+    for blk in blocks:
+        if part in blk and tuple(blk[part][leaf].shape[1:]) == (k, n):
+            return blk[part][leaf][0]
+    raise AssertionError(f"{name}: no weight of shape ({k}, {n})")
+
+
+def frontend_matmuls(name: str, cfg, params, trace) -> list[dict]:
+    """Every distinct matmul launch ``greedy_generate`` made, from the
+    engine's records: its regime, phase (decode: one row a request), rows
+    m, (k, n), act, the ops that share it, a weight of that shape and its
+    launches in one prefill or one decode step."""
+    import torch
+    acts = {"mlp.gate": "silu" if cfg.mlp == "swiglu" else "gelu"}
+    reqs, _, n_new = FRONTEND_REQUESTS[name]
+    decode_steps = n_new - 1
+    out: dict = {}
+    for x in trace:
+        if x.regime not in ("sa_conv", "sa_fc"):
+            continue
+        phase = "decode" if x.m == reqs else "prefill"
+        act = acts.get(x.name, "none")
+        ident = (x.regime, phase, x.m, x.k, x.n, act)
+        if ident not in out:
+            out[ident] = dict(regime=x.regime, phase=phase, m=x.m, act=act,
+                              w=frontend_weight(cfg, params, x.name, x.k,
+                                                x.n),
+                              names=[], launches=0,
+                              dtype=getattr(torch, x.dtype))
+        if x.name not in out[ident]["names"]:
+            out[ident]["names"].append(x.name)
+        out[ident]["launches"] += 1
+    for mt in out.values():
+        if mt["phase"] == "decode":
+            if mt["launches"] % decode_steps:
+                raise AssertionError(f"{mt}: launches not a multiple of the "
+                                     f"{decode_steps} decode steps")
+            mt["per"] = mt["launches"] // decode_steps
+        else:
+            mt["per"] = mt["launches"]
+    return list(out.values())
+
+
+def check_wide_head(rep: Report, name: str, cfg, params) -> None:
+    """A head whose width is not a whole number of the GEMM's 128-column
+    tiles (seamless: 256206) on the GEMM too, at the prefill of 4 x 512
+    tokens the launch pass sends there, against the plain version
+    (TOL_BF16)."""
+    import torch
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.models.layers import head_weight
+    w = head_weight(cfg, params)
+    if w.shape[1] % 128 == 0:
+        return
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    x = torch.randn((2048, w.shape[0]), generator=gen,
+                    device=DEVICE).to(w.dtype)
+    what = f"sa_conv_matmul lm_head {tuple(w.shape)} m=2048"
+    e = allclose(f"{name} {what}", sa_conv_matmul(x, w),
+                 sa_conv_matmul_plain(x, w), TOL_BF16)
+    rep.note_err(FRONTEND_KERNELS[name]["sa_conv_matmul"], e)
+    rep.detail[f"frontend_{name}_wide_head"] = e
+    log(f"  {name}: {what} (a partial last column tile) vs the plain "
+        f"version (TOL_BF16): max|d| {e:.4g}")
+
+
+def frontend_flash_shapes(cfg, name: str) -> list[tuple]:
+    """(label, (b, sq, skv, hq, hkv, d), causal, launches a prefill) of
+    each kind of flash launch the served wave's prefill makes."""
+    b, s, _ = FRONTEND_REQUESTS[name]
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    sv = s + cfg.vision_tokens
+    out = [("decoder, causal", (b, sv, sv, *heads), True, cfg.n_layers)]
+    if cfg.enc_dec:
+        f = cfg.audio_frames
+        out += [("encoder, non-causal", (b, f, f, *heads), False,
+                 cfg.n_enc_layers),
+                ("cross, non-causal", (b, s, f, *heads), False,
+                 cfg.n_layers)]
+    return out
+
+
+def check_frontend_flash(rep: Report, name: str, cfg) -> list[dict]:
+    """Every kind of flash launch of the wave on random q, k, v against
+    ``flash_plain``: fp32 within TOL_ATTN, bf16 within TOL_BF16; returns
+    the bf16 operands for timing."""
+    import torch
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    out = []
+    for label, (b, sq, skv, hq, hkv, d), causal, per in \
+            frontend_flash_shapes(cfg, name):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                 (b, skv, hkv, d)))
+        e32 = allclose(f"{name} flash {label} fp32",
+                       flash_attention(q, k, v, causal=causal),
+                       flash_plain(q, k, v, causal=causal), TOL_ATTN)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        e16 = allclose(f"{name} flash {label} bf16",
+                       flash_attention(q, k, v, causal=causal),
+                       flash_plain(q, k, v, causal=causal), TOL_BF16)
+        rep.note_err(FRONTEND_KERNELS[name]["flash_attention"], e16)
+        out.append(dict(label=label, q=q, k=k, v=v, causal=causal, per=per))
+        log(f"  {name}: flash {label} {tuple(q.shape)} x {tuple(k.shape)} "
+            f"vs flash_plain: fp32 max|d| {e32:.3g} (TOL_ATTN), bf16 "
+            f"{e16:.3g} (TOL_BF16)")
+        rep.detail.setdefault(f"frontend_{name}_flash", {})[label] = dict(
+            fp32=e32, bf16=e16, shape=[b, sq, skv, hq, hkv, d])
+    return out
+
+
+def check_frontend_logits(rep: Report, name: str, cfg, params, batch,
+                          eng) -> dict:
+    """The wave's prefill logits on the kernels (bf16) against request
+    0's on the torch backend: within SPREAD_FACTOR x that backend's own
+    bf16-vs-fp32 spread (same weights, widened), and so the encoder's
+    output (seamless).  Then on the widened fp32 copy, on the kernels:
+    decode step 1 after a prefill of request 0 within TOL_DECODE of a
+    prefill of its prompt plus the token.  Returns the fp32 copy's
+    numbers."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+
+    plain = Engine(backend="torch")
+    with eng.activate(), EncoderCapture() as ek:
+        got, _, _ = T.forward(cfg, params, batch, mode="prefill")
+    one = {k: v[:1] for k, v in batch.items()}
+    with plain.activate(), EncoderCapture() as e16:
+        want16, _, _ = T.forward(cfg, params, one, mode="prefill")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = widen_tree(params)
+    one32 = {k: v.float() if v.is_floating_point() else v
+             for k, v in one.items()}
+    with plain.activate(), EncoderCapture() as e32:
+        want32, _, _ = T.forward(cfg32, params32, one32, mode="prefill")
+    out = {}
+    pairs = [("prefill logits", got[:1], want16, want32)]
+    if cfg.enc_dec:
+        pairs.append(("encoder output", ek.outs[0][:1], e16.outs[0],
+                      e32.outs[0]))
+    for what, g, w16, w32 in pairs:
+        for t in (g, w16, w32):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{name} {what}: not finite")
+        err = (g.float() - w16.float()).abs().max().item()
+        spread = (w16.float() - w32.float()).abs().max().item()
+        if not err <= SPREAD_FACTOR * spread:
+            raise AssertionError(
+                f"{name} {what}: kernels vs torch backend (bf16) max|d| "
+                f"{err:.4g} > {SPREAD_FACTOR:.4g} x the torch backend's "
+                f"bf16 vs fp32 spread {spread:.4g}")
+        out[what] = dict(kernels_vs_torch=err, torch_bf16_vs_fp32=spread)
+        log(f"  {name}: {what} {tuple(g.shape)}, kernels vs the torch "
+            f"backend in bf16 (request 0): max|d| {err:.4g} <= "
+            f"{SPREAD_FACTOR:.4g} x its bf16 vs fp32 spread {spread:.4g}")
+    del want16, want32, e16, e32, ek
+
+    # prefill -> decode in fp32 on the kernels, request 0
+    kern = Engine(backend="kernels")
+    vt = cfg.vision_tokens
+    s = one["tokens"].shape[1]
+    ms = vt + s + 2
+    with kern.activate():
+        logits, cache = prefill_step(cfg32, params32, one32, ms,
+                                     torch.float32)
+        tok = logits.argmax(-1)[:, None]
+        dec, _ = decode_step(cfg32, params32, cache, tok, vt + s)
+        longer = {**one32, "tokens": torch.cat([one32["tokens"], tok], 1)}
+        pre, _ = prefill_step(cfg32, params32, longer, ms, torch.float32)
+    pd = allclose(f"{name} fp32 decode step 1 vs a prefill of prompt + "
+                  "token", dec, pre, TOL_DECODE)
+    out["prefill_vs_decode_fp32"] = pd
+    log(f"  {name}: fp32 copy ({cfg32.n_params() / 1e9:.3f} B parameters) "
+        f"on the kernels: decode step 1 vs a prefill of prompt + token "
+        f"max|d| {pd:.4g} (TOL_DECODE, the reference's 5e-4)")
+    del params32, cache
+    torch.cuda.empty_cache()
+    rep.detail[f"frontend_{name}_logits"] = out
+    return out
+
+
+def frontend_throughput(rep: Report, smi: str, name: str, cfg, params,
+                        batch, eng) -> dict:
+    """Host clock around drained work after warm-up: the wave's prefill
+    (text tokens and frames or vision tokens per second, apart), the
+    encoder alone (seamless), a decode step; each step's device busy time
+    (``torch.profiler``) and idle share; peak memory."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+
+    b, s, n_new = FRONTEND_REQUESTS[name]
+    vt = cfg.vision_tokens
+    ms = s + vt + n_new
+    bf = torch.bfloat16
+
+    def host(fn, runs=3):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:])
+
+    def prefill():
+        with eng.activate():
+            return prefill_step(cfg, params, batch, ms, bf)
+
+    prefill_s = host(prefill)
+    enc_s = None
+    if cfg.enc_dec:
+        def encode():
+            with eng.activate():
+                T.encode(cfg, params, batch["audio_embeds"])
+        enc_s = host(encode)
+    logits, cache = prefill()
+    tok = logits.argmax(-1)[:, None]
+
+    def decode():
+        with eng.activate():
+            decode_step(cfg, params, cache, tok, s + vt)[0].argmax(-1).cpu()
+
+    decode_s = host(decode, runs=6)
+    busy = {"prefill": device_busy(prefill, prefill_s),
+            "decode": device_busy(decode, decode_s)}
+    n_front = cfg.audio_frames if cfg.enc_dec else vt
+    d = dict(prefill_ms=prefill_s * 1e3,
+             prefill_text_tokens_per_s=b * s / prefill_s,
+             prefill_frontend_tokens_per_s=b * n_front / prefill_s,
+             encoder_ms=None if enc_s is None else enc_s * 1e3,
+             decode_step_ms=decode_s * 1e3,
+             decode_tokens_per_s=b / decode_s,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             device_busy=busy)
+    rep.detail[f"frontend_{name}_throughput"] = d
+    kind = "frames" if cfg.enc_dec else "vision tokens"
+    log(f"  [{smi}] {name}: prefill of the wave ({b} x {s} text tokens "
+        f"+ {b} x {n_front} {kind}): {d['prefill_ms']:.1f} ms = "
+        f"{d['prefill_text_tokens_per_s']:.0f} text tokens/s and "
+        f"{d['prefill_frontend_tokens_per_s']:.0f} {kind}/s (host clock, "
+        "median)")
+    if enc_s is not None:
+        log(f"  [{smi}] {name}: the encoder ({b} x {n_front} frames, "
+            f"{cfg.n_enc_layers} layers): {d['encoder_ms']:.1f} ms")
+    log(f"  [{smi}] {name}: decode step at b={b}: {d['decode_step_ms']:.2f} "
+        f"ms = {d['decode_tokens_per_s']:.1f} tokens/s; peak memory "
+        f"{d['peak_mem_gb']:.2f} GB")
+    for phase, bz in busy.items():
+        if bz["device_ms"] is None:
+            log(f"  [{smi}] {name} {phase}: device busy time not measured "
+                "(the profiler recorded no device event)")
+            continue
+        log(f"  [{smi}] {name} {phase}: device busy {bz['device_ms']:.2f} ms "
+            f"of {bz['wall_ms']:.2f} ms (idle share {bz['idle_share']:.3f}; "
+            f"torch.profiler); top kernels {bz['top']}")
+    return d
+
+
+def tiling_log(q, k, causal: bool) -> str:
+    """The tiling flash_geometry picks for q against k."""
+    from repro_torch.kernels.attention import flash_geometry
+    b, sq, hq, d = q.shape
+    g = flash_geometry(b, sq, k.shape[1], hq, k.shape[2], d, causal, 0,
+                       q.element_size())
+    return (f"{g.bq}-row tiles{', paired' if g.paired else ''}, "
+            f"{g.ctas} CTAs")
+
+
+def measure_frontend(rep: Report, name: str, cfg, mats: list[dict],
+                     flash: list[dict]) -> None:
+    """The wave's kernels at its shapes, already held against their plain
+    versions, timed beside their bound (bf16 operations or bytes) and the
+    bf16 library call: every GEMM shape of the prefill, every SA-FC shape
+    of a decode step, every kind of flash launch (SDPA, GQA enabled, as
+    the library call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    from repro_torch.kernels.sa_conv import (sa_conv_matmul,
+                                             sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
+
+    names = FRONTEND_KERNELS[name]
+    path = f"greedy_generate {name}"
+
+    def row(kernel, label, ms, plain_ms, lib_ms, flops, nb, per_pass,
+            phase):
+        add_row(rep, kernel, path, label, ms, plain_ms, lib_ms, flops, nb,
+                peak=PEAK_BF16_FLOPS, per_pass=per_pass, phase=phase)
+
+    timed_at = {("sa_conv", "prefill"): (sa_conv_matmul, sa_conv_matmul_plain,
+                                         "sa_conv_matmul"),
+                ("sa_fc", "decode"): (sa_fc_matmul, sa_fc_plain,
+                                      "sa_fc_matmul")}
+    for mt in mats:
+        if (mt["regime"], mt["phase"]) not in timed_at:
+            continue
+        kern, plain, kernel = timed_at[mt["regime"], mt["phase"]]
+        x, w, act = mt["x"], mt["w"], mt["act"]
+        (m, k), n = x.shape, w.shape[1]
+        out = kern(x, w, act=act)
+        heavy = mt["regime"] == "sa_conv" and m * k * n > 2e10
+        row(names[kernel], f"{mt['label']} m={m}",
+            timed(lambda: kern(x, w, act=act)),
+            timed(lambda: plain(x, w, act=act), runs=1 if heavy else 3,
+                  warmup=0 if heavy else 1),
+            timed(lambda: ref.apply_act(torch.mm(x, w), act)),
+            2 * m * n * k, nbytes(x, w, out), mt["per"], mt["phase"])
+    for fl in flash:
+        q, k, v, causal = fl["q"], fl["k"], fl["v"], fl["causal"]
+        b, sq, hq, d = q.shape
+        skv = k.shape[1]
+        pairs = sum(min(skv, i + skv - sq + 1) for i in range(sq)) \
+            if causal else sq * skv
+        out = flash_attention(q, k, v, causal=causal)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row(names["flash_attention"],
+            f"{fl['label']} {tuple(q.shape)} x {skv}, "
+            f"{tiling_log(q, k, causal)}",
+            timed(lambda: flash_attention(q, k, v, causal=causal)),
+            timed(lambda: flash_plain(q, k, v, causal=causal), runs=5,
+                  warmup=1),
+            timed(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=hq != k.shape[2])),
+            4 * b * hq * pairs * d, nbytes(q, k, v, out), fl["per"],
+            "prefill")
+
+
+def frontend_phase(rep: Report, smi: str) -> dict:
+    """Phase 13: serve each model's wave through ``greedy_generate``
+    under the kernels engine, check it, time it; returns the launches of
+    each ``greedy_generate`` by model."""
+    import torch
+    from repro_torch.analysis import launch as L
+    from repro_torch.core.engine import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.kvcache import cache_bytes
+    from repro_torch.serve.serve_step import greedy_generate
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, cfg in frontend_configs().items():
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, SEED, device=DEVICE)
+        cut = "" if name != "llava-next-34b" else (
+            f"; reduced: depth only, {cfg.n_layers} of 60 layers, full "
+            "width")
+        log(f"  [{smi}] {name}: {cfg.n_params() / 1e9:.3f} B parameters, "
+            f"{cache_bytes(params) / 1e9:.2f} GB on the card in "
+            f"{cfg.param_dtype}{cut}")
+        b, s, n_new = FRONTEND_REQUESTS[name]
+        batch = frontend_batch(cfg, name)
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        eng = Engine(backend="kernels")
+        torch.cuda.synchronize()
+        reset_counters()
+        t1 = time.perf_counter()
+        with eng.tracing() as tr:
+            toks = greedy_generate(cfg, params, batch["tokens"], n_new,
+                                   extra=extra, cache_dtype=torch.bfloat16,
+                                   engine=eng)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t1
+        c = counters()
+        if tuple(toks.shape) != (b, n_new) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)} out "
+                                 "of shape or vocabulary")
+        want = generate_launches(name, cfg, n_new, list(tr), c)
+        out[name] = c
+        rep.detail[f"frontend_{name}_launches"] = c
+        rep.detail[f"frontend_{name}_tokens"] = toks.tolist()
+        log(f"  [{smi}] {name}: greedy_generate served {b} requests of {s} "
+            f"tokens (+ {cfg.audio_frames or cfg.vision_tokens} "
+            f"{'frames' if cfg.enc_dec else 'vision tokens'} each) and "
+            f"{n_new} new tokens in {gen_s:.2f} s (first call); launches "
+            f"{c} == the engine's records {want}, as the config's op "
+            "counts say")
+        check_frontend_logits(rep, name, cfg, params, batch, eng)
+        mats = frontend_matmuls(name, cfg, params, list(tr))
+        check_rest_kernels(rep, name, mats, FRONTEND_KERNELS[name])
+        check_wide_head(rep, name, cfg, params)
+        flash = check_frontend_flash(rep, name, cfg)
+        frontend_throughput(rep, smi, name, cfg, params, batch, eng)
+        measure_frontend(rep, name, cfg, mats, flash)
+        del params, mats, flash, batch, extra
+        torch.cuda.empty_cache()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    log(f"  the non-causal flash sweep (analysis/launch.py "
+        "noncausal_edge_launches), NaN-filled output blocks:")
+    rep.detail["frontend_edges"] = edge_phase(rep, L.noncausal_edge_launches())
+    rep.detail["frontend_phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {rep.detail['frontend_phase_s']:.1f} s")
+    return out
+
+
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
-                 fleet: dict, train: dict, rest: dict) -> dict:
+                 fleet: dict, train: dict, rest: dict,
+                 frontend: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -4020,10 +4596,15 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     zamba2 path (``<kernel>[zamba2]``), read on zamba2-2.7b's
     ``ServeEngine.run`` (as published, bf16): a full-wave prefill for the
     GEMM and flash (hd = 80), a decode step at b = 4 for SA-FC, bounded by
-    bf16's rate.  ``launches_by_path`` gives every path's count (the zoo's
-    ``ModelZooServer.serve``, the bf16 ``CNNServer.run``, ``fleet``, the
-    fleet's three executed configurations, ``trainer.run`` and phase 12's
-    three ``ServeEngine.run`` paths among them);
+    bf16's rate.  Then one per kernel of each of phase 13's paths
+    (``<kernel>[seamless]``, ``<kernel>[llava]``), read on that model's
+    ``greedy_generate`` (bf16): the wave's prefill for the GEMM and flash
+    (every kind: encoder, cross, decoder), a decode step for SA-FC, bounded
+    by bf16's rate.  ``launches_by_path`` gives every path's count (the
+    zoo's ``ModelZooServer.serve``, the bf16 ``CNNServer.run``, ``fleet``,
+    the fleet's three executed configurations, ``trainer.run``, phase 12's
+    three ``ServeEngine.run`` paths and phase 13's two ``greedy_generate``
+    paths among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -4059,7 +4640,9 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  zoo["declined_bf16"],
              "CNNServer.run bf16": cnn_bf16, "fleet": fleet,
              "trainer.run": train,
-             **{f"ServeEngine.run {name}": c for name, c in rest.items()}}
+             **{f"ServeEngine.run {name}": c for name, c in rest.items()},
+             **{f"greedy_generate {name}": c
+                for name, c in frontend.items()}}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -4100,6 +4683,14 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                 and r["path"] == path and r["phase"] == phase]
         out.append(entry(name, kernel, path,
                          rest["zamba2-2.7b"][kernel], rows, PEAK_BF16_FLOPS))
+    for model, names in FRONTEND_KERNELS.items():
+        path = f"greedy_generate {model}"
+        for kernel, name in names.items():
+            phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
+            rows = [r for r in rep.rows if r["kernel"] == name
+                    and r["path"] == path and r["phase"] == phase]
+            out.append(entry(name, kernel, path, frontend[model][kernel],
+                             rows, PEAK_BF16_FLOPS))
     return {"kernels": out}
 
 
@@ -4202,9 +4793,15 @@ def main() -> int:
         f"mixtral-8x7b at full width cut to {MIXTRAL_LAYERS} layers (fp32)")
     rest = rest_phase(rep, smi)
 
+    log("== phase 13: the encoder-decoder and vision-prefix families: "
+        "greedy_generate over seamless-m4t-large-v2 as published and "
+        f"llava-next-34b at full width cut to {LLAVA_LAYERS} layers (bf16); "
+        "the non-causal flash sweep")
+    frontend = frontend_phase(rep, smi)
+
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
-                        served_bf16, fleet, train, rest)
+                        served_bf16, fleet, train, rest, frontend)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -40,7 +40,8 @@ invariants of it, all under the pass name ``launch``:
   unfused pool rest on this.
 
 Flash attention is never scheduled: :func:`lm_launches` checks it at the
-attention shapes of every LM config the port runs.  Nothing here launches
+attention shapes of every LM config the port runs, causal or not (an
+encoder's self-attention and cross-attention to it are not).  Nothing here launches
 a kernel or touches a device: the launches are built with the wrappers' own
 Python geometry functions, called through their modules (so a test can
 replace one with a faulty version and see the pass catch it).
@@ -108,6 +109,12 @@ LM_SHAPES = (("prefill", 4, 512), ("prefill", 1, 512), ("decode", 4, 512),
              ("train", 4, 512), ("prefill", 4, 8))
 #: the KV cache depth of chip_smoke.py's ServeEngine
 LM_MAX_SEQ = 640
+#: the serving shapes of the encoder-decoder and vision configs, served by
+#: ``greedy_generate`` in chip_smoke.py phase 13 (seamless: 4 requests of
+#: 16 tokens; llava: 2 of 32 behind its vision tokens), checked with
+#: LM_SHAPES' serving shapes; the audio frames are the config's own
+FRONTEND_SHAPES = (("prefill", 4, 16), ("decode", 4, 16),
+                   ("prefill", 2, 32), ("decode", 2, 32))
 
 
 @dataclass(frozen=True)
@@ -234,8 +241,8 @@ def schedule_launches(schedule) -> list[Launch]:
 
 def lm_configs() -> dict[str, Any]:
     """The LM configs the port runs (those ``check_supported`` accepts), as
-    published, and OLMo-1B in fp32 (chip_smoke.py phase 6) as
-    ``"olmo-1b@fp32"``."""
+    published, and OLMo-1B (chip_smoke.py phase 6), seamless-m4t and
+    llava-next (phase 13's fp32 copies) in fp32 as ``"<name>@fp32"``."""
     from repro_torch.configs.registry import all_lm_configs, get_config
     from repro_torch.models.transformer import check_supported
     out = {}
@@ -245,9 +252,76 @@ def lm_configs() -> dict[str, Any]:
         except NotImplementedError:
             continue
         out[name] = cfg
-    out["olmo-1b@fp32"] = dataclasses.replace(
-        get_config("olmo-1b"), param_dtype="float32",
-        compute_dtype="float32")
+    for name in ("olmo-1b", "seamless-m4t-large-v2", "llava-next-34b"):
+        out[f"{name}@fp32"] = dataclasses.replace(
+            get_config(name), param_dtype="float32", compute_dtype="float32")
+    return out
+
+
+def _frontend_inputs(cfg, batch: int, device) -> dict:
+    """The stubbed frontends' inputs of a batch: the config's audio frames
+    (enc-dec) or vision tokens."""
+    shape = (batch, cfg.audio_frames if cfg.enc_dec else cfg.vision_tokens,
+             cfg.frontend_dim)
+    return {"audio_embeds" if cfg.enc_dec else "vision_embeds":
+            torch.empty(shape, dtype=getattr(torch, cfg.compute_dtype),
+                        device=device)}
+
+
+def traced_entries(cfg, phase: str, batch: int, seq: int) -> dict:
+    """The matmul entries (as a schedule holds them) of one serving step of
+    an encoder-decoder or vision config with its frontend inputs, from the
+    engine's dispatch records of ``prefill_step`` or ``decode_step`` on
+    meta tensors: such a config's steps are what ``greedy_generate`` runs,
+    and a compiled schedule cannot hold them (an enc-dec config has none; a
+    vision config's is text-only)."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.schedule import _entries_from_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kvcache as KC
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    params = T.init_params(cfg, 0, device="meta")
+    cache_dtype = getattr(torch, cfg.compute_dtype)
+    eng = Engine(backend="torch")
+    with eng.tracing() as tr, eng.activate():
+        if phase == "prefill":
+            tokens = torch.empty((batch, seq), dtype=torch.int64,
+                                 device="meta")
+            prefill_step(cfg, params, {"tokens": tokens,
+                                       **_frontend_inputs(cfg, batch,
+                                                          "meta")},
+                         LM_MAX_SEQ, cache_dtype)
+        elif phase == "decode":
+            cache = KC.init_cache(cfg, batch, LM_MAX_SEQ,
+                                  enc_len=cfg.audio_frames,
+                                  dtype=cache_dtype, device="meta")
+            tok = torch.empty((batch, 1), dtype=torch.int64, device="meta")
+            decode_step(cfg, params, cache, tok, seq)
+        else:
+            raise ValueError(f"no traced {phase!r} step")
+    return _entries_from_trace(tr)[0]
+
+
+def attention_shapes(cfg, phase: str, batch: int, seq: int) -> list[tuple]:
+    """(label, flash arguments) of each kind of flash launch one step of
+    ``cfg`` makes on ``batch`` x ``seq`` tokens: none in decode (decode
+    attention is plain); else the decoder's causal self-attention per
+    window (global; sliding-window with the config's window) over the
+    vision tokens and the text, and an enc-dec config's encoder (frames x
+    frames) and cross-attention (text x frames), both non-causal."""
+    from repro_torch.configs.base import ATTN_LOCAL, MAMBA
+    if phase == "decode":
+        return []
+    itemsize = getattr(torch, cfg.compute_dtype).itemsize
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    s = seq + cfg.vision_tokens
+    out = [(f"attn window {w}", (batch, s, s, *heads, True, w, itemsize))
+           for w in sorted({cfg.sliding_window if ak == ATTN_LOCAL else 0
+                            for ak, _ in cfg.block_kinds() if ak != MAMBA})]
+    if cfg.enc_dec:
+        f = cfg.audio_frames
+        out += [("encoder attn", (batch, f, f, *heads, False, 0, itemsize)),
+                ("cross attn", (batch, seq, f, *heads, False, 0, itemsize))]
     return out
 
 
@@ -255,46 +329,49 @@ def lm_launches(configs: dict[str, Any] | None = None,
                 shapes=LM_SHAPES) -> list[Launch]:
     """The launches of LM serving and training: every matmul of each
     config's compiled schedule at ``shapes`` (SA-FC or the GEMM), and flash
-    attention at each prefill and train shape, once per attention kind
-    (global; sliding-window with the config's window).  Train shapes are
-    skipped for configs the port does not train yet
-    (:func:`repro_torch.models.transformer.can_train`).  Each config is
-    compiled one layer pattern deep: every period of the pattern makes the
-    same launches."""
-    from repro_torch.configs.base import ATTN_LOCAL, MAMBA
+    attention at each prefill and train shape, once per kind
+    (:func:`attention_shapes`).  Train shapes are skipped for configs the
+    port does not train yet
+    (:func:`repro_torch.models.transformer.can_train`).  Encoder-decoder
+    and vision configs are served with their frontend inputs by
+    ``greedy_generate``: their matmuls come from
+    :func:`traced_entries` at the serving ones of ``shapes`` and at
+    :data:`FRONTEND_SHAPES`.  Each config runs one layer pattern deep (and
+    one encoder layer): every period of the pattern makes the same
+    launches."""
     from repro_torch.core.schedule import LayerSchedule
     from repro_torch.models.transformer import can_train
     configs = lm_configs() if configs is None else configs
     out: list[Launch] = []
     for name, cfg in configs.items():
-        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
-        itemsize = getattr(torch, cfg.compute_dtype).itemsize
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern),
+                                  n_enc_layers=min(cfg.n_enc_layers, 1))
+        frontend = cfg.enc_dec or cfg.vision_tokens
         seen = set()
-        for phase, batch, seq in shapes:
+        for phase, batch, seq in (*shapes, *FRONTEND_SHAPES) if frontend \
+                else shapes:
             if phase == "train" and not can_train(cfg):
                 continue
-            sched = LayerSchedule.compile(cfg, phase, batch=batch, seq=seq,
-                                          max_seq=LM_MAX_SEQ,
-                                          cache_dtype=getattr(
-                                              torch, cfg.compute_dtype))
-            for lau in schedule_launches(sched):
+            if frontend:
+                entries = traced_entries(cfg, phase, batch, seq)
+                launches = [lau for key, plan in entries.items()
+                            for lau in launches_for(key, plan)]
+            else:
+                launches = schedule_launches(LayerSchedule.compile(
+                    cfg, phase, batch=batch, seq=seq, max_seq=LM_MAX_SEQ,
+                    cache_dtype=getattr(torch, cfg.compute_dtype)))
+            for lau in launches:
                 if (lau.kernel, lau.shape) not in seen:
                     seen.add((lau.kernel, lau.shape))
                     out.append(dataclasses.replace(
                         lau, op=f"{name} {phase} b{batch}x{seq}: {lau.op}"))
-            if phase == "decode":
-                continue                    # decode attention is plain
-            windows = sorted({cfg.sliding_window if ak == ATTN_LOCAL else 0
-                              for ak, _ in cfg.block_kinds() if ak != MAMBA})
-            for window in windows:
-                shape = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.hd, True, window, itemsize)
+            for label, shape in attention_shapes(cfg, phase, batch, seq):
                 if ("attention", shape) in seen:
                     continue
                 seen.add(("attention", shape))
                 out.append(flash_launch(
-                    f"{name} {phase} b{batch}x{seq}: attn window {window} "
-                    f"[attention]", *shape))
+                    f"{name} {phase} b{batch}x{seq}: {label} [attention]",
+                    *shape))
     return out
 
 
@@ -306,7 +383,8 @@ def edge_launches() -> list[Launch]:
     pooled bands whose last band is short; the pool at 16-, 8- and 4-byte
     vectors and a single bf16 element; flash with paired CTAs over an odd
     number of query tiles (a partial last one), without and with a window
-    that kills each tile's leading kv tiles."""
+    that kills each tile's leading kv tiles; and the non-causal flash sweep
+    of phase 13 (:func:`noncausal_edge_launches`)."""
     f32, bf16 = X_KIND["float32"], X_KIND["bfloat16"]
     return [
         fc_launch("edge b=1 [sa_fc]", 1, 3999, 1000, W_KIND["float32"], f32),
@@ -327,7 +405,31 @@ def edge_launches() -> list[Launch]:
                      True, 0, 4),
         flash_launch("edge paired window [attention]", 1, 392, 392, 128, 32,
                      64, True, 100, 4),
+        *noncausal_edge_launches(),
     ]
+
+
+def noncausal_edge_launches() -> list[Launch]:
+    """Non-causal flash (an encoder's self-attention, cross-attention),
+    which chip_smoke.py phase 13 launches on the card: fewer, as many and
+    more queries than keys (queries aligned to the end of the keys, so the
+    first tile's rows sit before key 0 when sq > skv), each over an odd
+    number of query tiles with a partial last one, paired and unpaired as
+    ``flash_geometry`` picks them, at head dims 64 and 128 (GQA groups of
+    1, 2, 4 and 7), fp32 and bf16."""
+    nc = dict(causal=False, window=0)
+    cases = (("sq<skv paired", (1, 1055, 1500, 16, 16, 64), 4),
+             ("sq<skv unpaired", (1, 392, 1024, 16, 16, 64), 2),
+             ("sq==skv paired g7", (2, 608, 608, 56, 8, 128), 4),
+             ("sq==skv paired g7", (2, 608, 608, 56, 8, 128), 2),
+             ("sq==skv unpaired", (1, 392, 392, 2, 1, 64), 2),
+             ("sq>skv paired g7", (1, 278, 100, 56, 8, 128), 2),
+             ("sq>skv unpaired", (1, 520, 100, 8, 2, 64), 4),
+             ("sq>skv unpaired", (1, 3000, 200, 1, 1, 128), 4))
+    return [flash_launch(f"edge non-causal {what} d{shape[5]} "
+                         f"{'fp32' if itemsize == 4 else 'bf16'} "
+                         "[attention]", *shape, itemsize=itemsize, **nc)
+            for what, shape, itemsize in cases]
 
 
 # ---------------------------------------------------------------------------

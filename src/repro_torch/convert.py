@@ -8,8 +8,10 @@ every leaf goes through numpy.
 
 LMs: the reference's ``init_params`` tree (``embed``, ``final_norm``,
 ``head`` unless tied, ``blocks`` — a list of dicts of stacked leaves —,
-``tail``, and ``shared`` for zamba2's shared attention) is copied leaf for
-leaf into the same layout, int8 ``QTensor`` leaves (the reference's
+``tail``, ``shared`` for zamba2's shared attention, ``frontend`` for the
+stubbed audio and vision frontends, and seamless-m4t's ``encoder`` with
+``lnx``/``xattn`` on every decoder block) is copied leaf for leaf into the
+same layout, whatever its keys, int8 ``QTensor`` leaves (the reference's
 ``quantize_params``) as the port's.
 """
 from __future__ import annotations

@@ -151,11 +151,21 @@ class LayerSchedule(Mapping):
         """Compile (and memoize) the schedule of LM ``cfg`` in ``phase``:
         ``train`` (the loss on a (batch, seq) batch), ``prefill`` ((batch,
         seq) prompt against a ``max_seq``-deep cache) or ``decode`` (one
-        token per slot against the cache).  ``params``
+        token per slot against the cache).  A vision config's schedules
+        are its text-only ones, as the reference compiles them; an
+        encoder-decoder config raises ``NotImplementedError``.  ``params``
         (optional) supplies the real parameter tree so quantized weight
         dtypes land in the keys; only its shapes and dtypes are read."""
         if phase not in PHASES:
             raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+        if cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: an encoder-decoder config has no compiled "
+                "schedule (its prefill and training need the audio frames, "
+                "its decode the encoder's length, which a schedule does not "
+                "take; the reference cannot compile one either): serve it "
+                "through repro_torch.serve.serve_step.greedy_generate; "
+                "training it is ROADMAP A.2b")
         if policy is None:
             policy = DispatchPolicy()
         key = (cfg, phase, batch, seq, max_seq, dtype_name(cache_dtype),

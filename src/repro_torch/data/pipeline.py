@@ -10,7 +10,8 @@ Tokens follow the reference's Zipf-like marginal (p(t) proportional to
 The draws come from a ``torch.Generator`` seeded from (seed, step, shard),
 not from ``jax.random``, so the port's tokens are not the reference's:
 tests that compare the two packages feed the reference's batches to both.
-Only token streams are made: the port runs no modality frontends yet.
+Only token streams are made: the port serves the stubbed frontends'
+embeddings but does not train on them yet (ROADMAP A.2b).
 """
 from __future__ import annotations
 

@@ -40,8 +40,9 @@ def main(argv: list[str] | None = None) -> None:
     cfg = reduced(all_lm_configs()[args.arch], param_dtype=args.dtype,
                   compute_dtype=args.dtype)
     if cfg.enc_dec or cfg.vision_tokens:
-        raise SystemExit("multimodal serving needs the stubbed frontend "
-                         "inputs, which the port does not take yet")
+        raise SystemExit("multimodal serving: use repro_torch.serve."
+                         "serve_step.greedy_generate(..., extra=...) with "
+                         "the stubbed frontend inputs")
     params = T.init_params(cfg, 0, device=args.device)
     eng = ServeEngine(cfg, params, batch_size=args.batch_size,
                       max_seq=args.max_seq,

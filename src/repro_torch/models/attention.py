@@ -1,12 +1,13 @@
 """Attention blocks of the port: GQA, sliding window (ring KV cache),
-logit softcap — the JAX package's ``repro.models.attention`` on tensors.
+logit softcap, cross-attention (enc-dec) — the JAX package's
+``repro.models.attention`` on tensors.
 
 Train/prefill attention goes through the active
 :class:`repro_torch.core.engine.Engine` (the flash kernel or its plain
 version).  Decode attends one query token against the cache with an
 explicit validity mask (plain PyTorch, fp32 accumulation): global layers
-keep a full-length cache, ``ATTN_LOCAL`` layers a ring of ``window`` slots.
-Cross-attention (enc-dec; ROADMAP A.2b, the rest of the LM stack) and the
+keep a full-length cache, ``ATTN_LOCAL`` layers a ring of ``window`` slots,
+and cross-attention attends the encoder's precomputed K/V.  The
 reference's head padding and sharding constraints, which do nothing
 without a device mesh (ROADMAP A.3, the XLA and multi-pod tools), are not
 ported.
@@ -30,15 +31,20 @@ def init_attn(cfg, gen: torch.Generator, dtype, device,
     }
 
 
-def _proj_qkv(cfg, p: dict, x: torch.Tensor):
+def _proj_qkv(cfg, p: dict, x: torch.Tensor,
+              x_kv: torch.Tensor | None = None):
+    """q from ``x``; k and v from ``x_kv`` when given (cross-attention),
+    else from ``x``."""
     eng = engine.current()
     b, s, _ = x.shape
     hd = cfg.hd
+    xkv = x if x_kv is None else x_kv
+    skv = xkv.shape[1]
     q = eng.matmul(x, p["wq"], name="attn.q").reshape(b, s, cfg.n_heads, hd)
-    k = eng.matmul(x, p["wk"], name="attn.k").reshape(
-        b, s, cfg.n_kv_heads, hd)
-    v = eng.matmul(x, p["wv"], name="attn.v").reshape(
-        b, s, cfg.n_kv_heads, hd)
+    k = eng.matmul(xkv, p["wk"], name="attn.k").reshape(
+        b, skv, cfg.n_kv_heads, hd)
+    v = eng.matmul(xkv, p["wv"], name="attn.v").reshape(
+        b, skv, cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -76,14 +82,20 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_forward(cfg, p: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
-                 window: int = 0, causal: bool = True,
+                 window: int = 0, use_rope: bool = True, causal: bool = True,
+                 x_kv: torch.Tensor | None = None,
                  softcap: float | None = None, return_kv: bool = False):
-    """Full-sequence (train / prefill) self-attention."""
+    """Full-sequence (train / prefill) attention: self-attention, or
+    cross-attention of ``x`` to ``x_kv`` (whose keys, when roped, take the
+    positions ``0 .. x_kv.shape[1] - 1``)."""
     eng = engine.current()
     b, s, _ = x.shape
-    q, k, v = _proj_qkv(cfg, p, x)
-    q = rope(q, pos_ids, cfg.rope_theta)
-    k = rope(k, pos_ids, cfg.rope_theta)
+    q, k, v = _proj_qkv(cfg, p, x, x_kv)
+    if use_rope:
+        q = rope(q, pos_ids, cfg.rope_theta)
+        k = rope(k, pos_ids if x_kv is None else
+                 torch.arange(x_kv.shape[1], device=x.device),
+                 cfg.rope_theta)
     sc = cfg.attn_softcap if softcap is None else softcap
     out = eng.attention(q, k, v, causal=causal, window=window, softcap=sc)
     out = eng.matmul(out.reshape(b, s, -1), p["wo"], name="attn.o")
@@ -100,20 +112,33 @@ def init_kv_cache(cfg, batch: int, max_seq: int, window: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attn_decode(cfg, p: dict, x: torch.Tensor, pos: int, cache: dict, *,
-                window: int = 0, softcap: float | None = None):
+def attn_decode(cfg, p: dict, x: torch.Tensor, pos: int,
+                cache: dict | None, *, window: int = 0,
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                softcap: float | None = None):
     """One-token decode step.  x: (b, 1, d); pos: the absolute position.
 
-    Projects k/v for the new token, writes them into the (ring) cache and
-    attends against every valid slot.  The write goes into the cache
-    tensors in place (the reference's ``dynamic_update_slice`` returns a
-    new cache): the returned cache holds the same tensors, updated."""
+    Self-attention projects k/v for the new token, writes them into the
+    (ring) cache and attends against every valid slot.  The write goes
+    into the cache tensors in place (the reference's
+    ``dynamic_update_slice`` returns a new cache): the returned cache holds
+    the same tensors, updated.  Cross-attention (``cross_kv``) attends the
+    encoder's precomputed k/v, every slot valid, the query unroped, and
+    returns ``cache`` untouched."""
     eng = engine.current()
     b = x.shape[0]
     hd = cfg.hd
     sc = cfg.attn_softcap if softcap is None else softcap
 
     q = eng.matmul(x, p["wq"], name="attn.q").reshape(b, 1, cfg.n_heads, hd)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        kv_mask = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+        out = masked_attention(q, k, v, kv_mask, softcap=sc)
+        out = eng.matmul(out.reshape(b, 1, -1), p["wo"], name="attn.o")
+        return out, cache
+
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k_new = eng.matmul(x, p["wk"], name="attn.k").reshape(

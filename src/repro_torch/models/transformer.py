@@ -1,7 +1,9 @@
 """LM assembly of the port: decoder-only stacks of global and
-sliding-window attention blocks with dense or MoE MLPs, Mamba2 blocks and
-zamba2's shared attention — the JAX package's ``repro.models.transformer``
-on tensors.
+sliding-window attention blocks with dense or MoE MLPs, Mamba2 blocks,
+zamba2's shared attention, the encoder-decoder stack (seamless-m4t:
+cross-attention to a non-causal encoder over stubbed audio frames) and the
+vision prefix (llava-next: stubbed patch embeddings projected in front of
+the text) — the JAX package's ``repro.models.transformer`` on tensors.
 
 Parameters keep the reference's stacked layout: ``params["blocks"][i]``
 holds pattern position *i* of every period, each leaf with a leading
@@ -26,9 +28,8 @@ leaves, without the serving copy ``embed_t``, so the loss computes the head
 from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
 optimizer step.
 
-Encoder-decoder and frontend families raise ``NotImplementedError``
-(ROADMAP A.2b), and so does training the MoE, Mamba and shared-attention
-families (:func:`loss_fn`).
+Training the MoE, Mamba, shared-attention, encoder-decoder and vision
+families raises ``NotImplementedError`` (:func:`loss_fn`; ROADMAP A.2b).
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ MODES = ("train", "prefill")
 #: ``remat`` policies: none, or each pattern period recomputed in the
 #: backward pass (the reference's ``jax.checkpoint`` of its scan body)
 REMATS = ("none", "block")
-_UNPORTED = "ROADMAP A.2b, the rest of the LM stack"
 _UNTRAINED = "ROADMAP A.2b, training the new families"
 
 
@@ -64,25 +64,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet."""
+    """Raise for a config the port cannot run: an unknown block kind."""
     for ak, mk in cfg.block_kinds():
         if ak not in (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, SHARED_ATTN):
             raise ValueError(f"{cfg.name}: unknown block kind {ak!r}")
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks are not ported yet "
-            f"({_UNPORTED})")
-    if cfg.vision_tokens or cfg.audio_frames or cfg.frontend_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet "
-            f"({_UNPORTED})")
 
 
 def can_train(cfg: ModelConfig) -> bool:
-    """Whether :func:`loss_fn` is ported for every block of ``cfg``: not
-    yet for MoE, Mamba or shared-attention blocks."""
-    return not any(ak in (MAMBA, SHARED_ATTN) or mk == "moe"
-                   for ak, mk in cfg.block_kinds())
+    """Whether :func:`loss_fn` is ported for ``cfg``: not yet for MoE,
+    Mamba or shared-attention blocks, nor for the encoder-decoder and
+    vision families."""
+    return not (cfg.enc_dec or cfg.vision_tokens or any(
+        ak in (MAMBA, SHARED_ATTN) or mk == "moe"
+        for ak, mk in cfg.block_kinds()))
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +84,10 @@ def can_train(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
                 lead: tuple[int, ...], attn_kind: str = ATTN_GLOBAL,
-                mlp_kind: str = "dense") -> dict:
+                mlp_kind: str = "dense", cross: bool = True) -> dict:
+    """One block's parameters; an enc-dec config's blocks carry
+    cross-attention (``lnx``, ``xattn``) unless ``cross`` is False (the
+    encoder's)."""
     dt = torch_dtype(cfg.param_dtype)
     d, ff = cfg.d_model, cfg.d_ff
     if attn_kind == MAMBA:
@@ -99,8 +96,11 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, device,
     if attn_kind == SHARED_ATTN:
         return {}                       # weights live in params["shared"]
     p = {"ln1": L.norm_params(cfg, d, device, lead),
-         "attn": attn_mod.init_attn(cfg, gen, dt, device, lead),
-         "ln2": L.norm_params(cfg, d, device, lead)}
+         "attn": attn_mod.init_attn(cfg, gen, dt, device, lead)}
+    if cfg.enc_dec and cross:
+        p["lnx"] = L.norm_params(cfg, d, device, lead)
+        p["xattn"] = attn_mod.init_attn(cfg, gen, dt, device, lead)
+    p["ln2"] = L.norm_params(cfg, d, device, lead)
     if mlp_kind == "moe":
         p["moe"] = moe_mod.init_moe(cfg, gen, d, ff, dt, device, lead)
     else:
@@ -141,6 +141,14 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
                       for i in range(rem)]
     if any(ak == SHARED_ATTN for ak, _ in kinds):
         params["shared"] = _init_block(cfg, gen, dev, ())
+    if cfg.frontend_dim:
+        params["frontend"] = L.dense_init(gen, cfg.frontend_dim, cfg.d_model,
+                                          dt, dev)
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "blocks": _init_block(cfg, gen, dev, (cfg.n_enc_layers,),
+                                  cross=False),
+            "final_norm": L.norm_params(cfg, cfg.d_model, dev)}
     return params
 
 
@@ -150,10 +158,13 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator, *,
 def _apply_block(cfg, p: dict, shared_p: dict | None, x: torch.Tensor,
                  pos_ids: torch.Tensor, *, attn_kind: str, mlp_kind: str,
                  mode: str, cache: dict | None = None,
-                 pos: int | None = None):
+                 pos: int | None = None,
+                 enc_out: torch.Tensor | None = None):
     """Returns (x, new_cache, aux), ``aux`` the MoE block's auxiliary loss
     or 0.0 (a Python float: a block without MoE launches nothing for it).
-    In decode the cache's tensors are updated in place and returned."""
+    In decode the cache's tensors are updated in place and returned; an
+    enc-dec block's cross-attention K/V (``xk``, ``xv``: projected from
+    ``enc_out`` in prefill) ride along untouched."""
     aux = 0.0
     if attn_kind == MAMBA:
         h = L.norm(cfg, p["ln1"], x)
@@ -180,6 +191,21 @@ def _apply_block(cfg, p: dict, shared_p: dict | None, x: torch.Tensor,
     else:
         y = attn_mod.attn_forward(cfg, pa["attn"], h, pos_ids, window=window)
     x = x + y
+
+    if cfg.enc_dec:
+        hx = L.norm(cfg, pa["lnx"], x)
+        if mode == "decode":
+            yx, _ = attn_mod.attn_decode(
+                cfg, pa["xattn"], hx, pos, None,
+                cross_kv=(cache["xk"], cache["xv"]))
+        else:
+            yx, (xk, xv) = attn_mod.attn_forward(
+                cfg, pa["xattn"], hx, pos_ids, x_kv=enc_out, causal=False,
+                use_rope=False, return_kv=True)
+            if mode == "prefill":
+                new_cache = {**new_cache, "xk": xk, "xv": xv}
+        x = x + yx
+
     h = L.norm(cfg, pa["ln2"], x)
     if mlp_kind == "moe":
         y, aux = moe_mod.moe_block(cfg, p["moe"], h)
@@ -209,7 +235,7 @@ def _stack(trees: list):
 
 def _period(cfg, kinds, blocks: list, shared_p: dict | None,
             x: torch.Tensor, pos_ids: torch.Tensor, mode: str, caches: list,
-            pos):
+            pos, enc_out: torch.Tensor | None = None):
     """One pattern period: every block kind once.  Returns (x, aux, [new
     cache per kind]), ``aux`` summed over the period's blocks."""
     new = []
@@ -217,10 +243,20 @@ def _period(cfg, kinds, blocks: list, shared_p: dict | None,
     for i, (ak, mk) in enumerate(kinds):
         x, nc, a = _apply_block(cfg, blocks[i], shared_p, x, pos_ids,
                                 attn_kind=ak, mlp_kind=mk, mode=mode,
-                                pos=pos, cache=caches[i])
+                                pos=pos, cache=caches[i], enc_out=enc_out)
         aux = aux + a
         new.append(nc)
     return x, aux, new
+
+
+def _check_remat(remat: str) -> None:
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (the reference's checkpoint_dots policy) is not "
+            "ported (ROADMAP A, training's open items)")
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS} or 'dots', got "
+                         f"{remat!r}")
 
 
 def _checkpointed(fn, *args):
@@ -237,20 +273,15 @@ def _checkpointed(fn, *args):
 
 def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
                 mode: str, caches: dict | None = None, pos: int | None = None,
-                remat: str = "none"):
+                enc_out: torch.Tensor | None = None, remat: str = "none"):
     """Run every block.  caches: ``{'main': [per-position stacked], 'tail':
     [per-position]}`` in decode, where the cache tensors are updated in
-    place and returned.  ``remat="block"`` checkpoints each period of the
+    place and returned.  ``enc_out``: the encoder's output, which an
+    enc-dec stack cross-attends in train and prefill.  ``remat="block"`` checkpoints each period of the
     stacked part (the unstacked tail runs plainly, as in the reference).
     Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss summed
     over the blocks (0 without MoE blocks)."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (the reference's checkpoint_dots policy) is not "
-            "ported (ROADMAP A, training's open items)")
-    if remat not in REMATS:
-        raise ValueError(f"remat must be one of {REMATS} or 'dots', got "
-                         f"{remat!r}")
+    _check_remat(remat)
     kinds = cfg.block_kinds()
     reps, rem = cfg.stack_shape()
     shared_p = params.get("shared")
@@ -260,7 +291,8 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
         blocks = [_select(params["blocks"][i], r) for i in range(len(kinds))]
         cs = [_select(caches["main"][i], r) if caches else None
               for i in range(len(kinds))]
-        args = (cfg, kinds, blocks, shared_p, x, pos_ids, mode, cs, pos)
+        args = (cfg, kinds, blocks, shared_p, x, pos_ids, mode, cs, pos,
+                enc_out)
         x, a, new = _checkpointed(_period, *args) if remat == "block" \
             else _period(*args)
         aux = aux + a
@@ -272,7 +304,8 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
         x, nc, a = _apply_block(cfg, params["tail"][i], shared_p, x, pos_ids,
                                 attn_kind=ak, mlp_kind=mk, mode=mode,
                                 pos=pos,
-                                cache=caches["tail"][i] if caches else None)
+                                cache=caches["tail"][i] if caches else None,
+                                enc_out=enc_out)
         aux = aux + a
         new_tail.append(nc)
     if not isinstance(aux, torch.Tensor):
@@ -286,11 +319,58 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# frontends and the encoder (seamless-m4t, llava-next)
+# ---------------------------------------------------------------------------
+def frontend(cfg: ModelConfig, params: dict,
+             embeds: torch.Tensor) -> torch.Tensor:
+    """The stubbed frontend's embeddings (B, s, frontend_dim) projected to
+    (B, s, d) in the compute dtype.  A plain product, as the reference's
+    einsum runs outside its kernels; fp32 stays fp32 (TF32 off)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x, w = embeds.to(cd), params["frontend"].to(cd)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _enc_block(cfg, p: dict, x: torch.Tensor,
+               pos_ids: torch.Tensor) -> torch.Tensor:
+    h = L.norm(cfg, p["ln1"], x)
+    x = x + attn_mod.attn_forward(cfg, p["attn"], h, pos_ids, causal=False)
+    h = L.norm(cfg, p["ln2"], x)
+    return x + mlp_mod.mlp(cfg, p["mlp"], h)
+
+
+def encode(cfg: ModelConfig, params: dict, audio_embeds: torch.Tensor,
+           remat: str = "none") -> torch.Tensor:
+    """The encoder (seamless-m4t): the frontend's projection of the audio
+    frames (B, sa, frontend_dim), then ``n_enc_layers`` non-causal, roped
+    attention + dense MLP blocks and the encoder's final norm.
+    ``remat="block"`` checkpoints each block."""
+    _check_remat(remat)
+    enc = params["encoder"]
+    x = frontend(cfg, params, audio_embeds)
+    pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
+    for r in range(cfg.n_enc_layers):
+        args = (cfg, _select(enc["blocks"], r), x, pos_ids)
+        x = _checkpointed(_enc_block, *args) if remat == "block" \
+            else _enc_block(*args)
+    return L.norm(cfg, enc["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "train", remat: str = "none"):
-    """batch: ``{"tokens": (B, S) integer}``.  Returns (logits (B, S, V)
+    """batch: ``{"tokens": (B, S) integer}``, plus ``"vision_embeds"`` (B,
+    vision_tokens, frontend_dim) for a vision config, projected and put in
+    front of the text (positions run over both), or ``"audio_embeds"`` (B,
+    frames, frontend_dim) for an enc-dec config, which the decoder
+    cross-attends through :func:`encode`.  Returns (logits (B, vt + S, V)
     fp32, aux, caches)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
@@ -299,9 +379,15 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     tokens = batch["tokens"]
     x = L.embed(params, tokens, scale=cfg.name.startswith("gemma"),
                 d=cfg.d_model, dtype=cd)
+    enc_out = None
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        x = torch.cat([frontend(cfg, params, batch["vision_embeds"]), x],
+                      dim=1)
+    if cfg.enc_dec:
+        enc_out = encode(cfg, params, batch["audio_embeds"], remat=remat)
     pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux, caches = stack_apply(cfg, params, x, pos_ids, mode=mode,
-                                 remat=remat)
+                                 enc_out=enc_out, remat=remat)
     x = L.norm(cfg, params["final_norm"], x)
     return L.unembed(cfg, params, x), aux, caches
 
@@ -327,14 +413,16 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     term as the reference's one-hot contraction), averaged over
     ``batch["loss_mask"][:, 1:]`` when given.  The head of a tied model
     comes from ``embed`` (:func:`trainable`).  Returns (loss, {"ce",
-    "aux"}).  Training the MoE, Mamba and shared-attention families is not
-    ported yet: the reference's SSD backward takes ``where(mask, exp(rel),
-    0)``, whose masked entries can be ``+inf`` in fp32 and then give NaN
-    gradients (``0 * inf``), here as there."""
+    "aux"}).  Training the MoE, Mamba, shared-attention, encoder-decoder
+    and vision families is not ported yet: the reference's SSD backward
+    takes ``where(mask, exp(rel), 0)``, whose masked entries can be
+    ``+inf`` in fp32 and then give NaN gradients (``0 * inf``), here as
+    there, and the vision loss's offset is not ported."""
     if not can_train(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: training MoE, Mamba and shared-attention blocks "
-            f"is not ported yet ({_UNTRAINED})")
+            f"{cfg.name}: training MoE, Mamba, shared-attention, "
+            f"encoder-decoder and vision configs is not ported yet "
+            f"({_UNTRAINED})")
     logits, aux, _ = forward(cfg, trainable(params), batch, mode="train",
                              remat=remat)
     tokens = batch["tokens"]

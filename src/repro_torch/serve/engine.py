@@ -43,11 +43,20 @@ class ServeEngine:
     The default ``engine`` is ``Engine(backend="kernels")``, where the
     reference defaults to its XLA backend: the port's entry points run its
     kernels (on CPU tensors the kernel wrappers run their plain versions).
+    Requests are tokens only: encoder-decoder and vision configs, whose
+    requests carry frontend embeddings, are served by
+    :func:`~repro_torch.serve.serve_step.greedy_generate` and refused here.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  batch_size: int = 4, max_seq: int = 256,
                  cache_dtype=torch.float32, engine: Engine | None = None):
+        if cfg.enc_dec or cfg.vision_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: ServeEngine takes tokens only; serve "
+                "encoder-decoder and vision configs with their frontend "
+                "inputs through repro_torch.serve.serve_step."
+                "greedy_generate(..., extra=...)")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

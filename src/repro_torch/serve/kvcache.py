@@ -8,10 +8,10 @@ stacked over reps], 'tail': [unstacked entries]}``.  Per position kind:
   hd)`` K/V (zamba2's shared attention: one such entry per application);
 * local attention  — a **ring** of ``min(window, max_seq)`` slots;
 * mamba            — ``{"conv", "h"}``: the depthwise conv's ``(B, cw-1,
-  ch)`` tail in the cache dtype and the ``(B, H, D, N)`` SSM state in fp32.
-
-Cross-attention entries come with the encoder-decoder stack (ROADMAP
-A.2b).
+  ch)`` tail in the cache dtype and the ``(B, H, D, N)`` SSM state in fp32;
+* enc-dec          — adds ``"xk"``/``"xv"``, the cross-attention K/V
+  ``(B, enc_len, hkv, hd)`` projected from the encoder's output at
+  prefill, which decode reads and never writes.
 """
 from __future__ import annotations
 
@@ -29,25 +29,32 @@ def _window(cfg: ModelConfig, attn_kind: str) -> int:
 
 
 def _position_proto(cfg: ModelConfig, attn_kind: str, batch: int,
-                    max_seq: int, dtype, device,
+                    max_seq: int, enc_len: int, dtype, device,
                     lead: tuple[int, ...] = ()) -> dict:
     if attn_kind == MAMBA:
         return init_mamba_cache(cfg, batch, dtype, device, lead)
-    return {"attn": init_kv_cache(cfg, batch, max_seq,
-                                  _window(cfg, attn_kind), dtype, device,
-                                  lead)}
+    entry = {"attn": init_kv_cache(cfg, batch, max_seq,
+                                   _window(cfg, attn_kind), dtype, device,
+                                   lead)}
+    if cfg.enc_dec:
+        shape = (*lead, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        entry["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        entry["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return entry
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               dtype=torch.bfloat16, device=None) -> dict:
+               enc_len: int = 0, dtype=torch.bfloat16, device=None) -> dict:
     """An empty cache on ``device`` (the card unless the caller names
-    another)."""
+    another); an enc-dec config's cross entries hold ``enc_len`` frames."""
     device = resolve_device(device)
     kinds = cfg.block_kinds()
     reps, rem = cfg.stack_shape()
-    main = [_position_proto(cfg, ak, batch, max_seq, dtype, device, (reps,))
+    main = [_position_proto(cfg, ak, batch, max_seq, enc_len, dtype, device,
+                            (reps,))
             for ak, _ in kinds]
-    tail = [_position_proto(cfg, kinds[i][0], batch, max_seq, dtype, device)
+    tail = [_position_proto(cfg, kinds[i][0], batch, max_seq, enc_len,
+                            dtype, device)
             for i in range(rem)]
     return {"main": main, "tail": tail}
 
@@ -89,7 +96,11 @@ def _convert_position(cfg, attn_kind: str, entry: dict, max_seq: int,
         pad = (0, 0, 0, 0, 0, max_seq - S)      # the seq axis, from the end
         k = torch.nn.functional.pad(k, pad)
         v = torch.nn.functional.pad(v, pad)
-    return {"attn": {"k": k, "v": v}}
+    out = {"attn": {"k": k, "v": v}}
+    if cfg.enc_dec:
+        out["xk"] = entry["xk"].to(dtype)
+        out["xv"] = entry["xv"].to(dtype)
+    return out
 
 
 def cache_from_prefill(cfg: ModelConfig, prefill_caches: dict, max_seq: int,

@@ -29,23 +29,31 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 def greedy_generate(cfg: ModelConfig, params: dict, prompt: torch.Tensor,
                     n_steps: int, *, max_seq: int | None = None,
+                    extra: dict | None = None,
                     cache_dtype=torch.float32,
                     engine: Engine | None = None) -> torch.Tensor:
     """Greedy sampling loop.  prompt: (B, S) -> (B, n_steps) tokens.
 
-    ``engine`` (optional) runs the loop under an explicit
+    ``extra`` holds the stubbed frontends' inputs: ``"audio_embeds"`` (B,
+    frames, frontend_dim) for an enc-dec config, ``"vision_embeds"`` (B,
+    vision_tokens, frontend_dim) for a vision config, whose positions come
+    before the prompt's.  This is the port's entry point for those
+    families (:class:`~repro_torch.serve.engine.ServeEngine` takes tokens
+    only).  ``engine`` (optional) runs the loop under an explicit
     :class:`~repro_torch.core.engine.Engine`: its backend, policy, schedule
     and trace apply to every projection in prefill and decode."""
     B, S = prompt.shape
-    max_seq = max_seq or (S + n_steps)
+    vt = cfg.vision_tokens if (extra and "vision_embeds" in extra) else 0
+    max_seq = max_seq or (S + vt + n_steps)
+    batch = {"tokens": prompt, **(extra or {})}
 
     def generate():
-        last_logits, cache = prefill_step(cfg, params, {"tokens": prompt},
-                                          max_seq, cache_dtype)
+        last_logits, cache = prefill_step(cfg, params, batch, max_seq,
+                                          cache_dtype)
         tok = last_logits.argmax(-1)[:, None]
         toks = [tok]
         for i in range(n_steps - 1):
-            logits, cache = decode_step(cfg, params, cache, tok, S + i)
+            logits, cache = decode_step(cfg, params, cache, tok, S + vt + i)
             tok = logits.argmax(-1)[:, None]
             toks.append(tok)
         return torch.cat(toks, dim=1)

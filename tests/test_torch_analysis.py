@@ -572,9 +572,11 @@ def test_launch_pass_clean_on_every_lm_config():
     shared attention (flash at hd = 80)."""
     configs = tlaunch.lm_configs()
     assert set(configs) == {"gemma2-27b", "gemma3-27b", "llama3-405b",
-                            "llama4-maverick-400b-a17b", "mamba2-130m",
+                            "llama4-maverick-400b-a17b", "llava-next-34b",
+                            "llava-next-34b@fp32", "mamba2-130m",
                             "mixtral-8x7b", "olmo-1b", "olmo-1b@fp32",
-                            "zamba2-2.7b"}
+                            "seamless-m4t-large-v2",
+                            "seamless-m4t-large-v2@fp32", "zamba2-2.7b"}
     launches = tlaunch.lm_launches(configs)
     kernels = {lau.kernel for lau in launches}
     assert kernels == {"sa_fc", "sa_conv", "attention"}
@@ -591,6 +593,87 @@ def test_launch_pass_clean_on_every_lm_config():
                    for lau in launches)
     report = tlaunch.verify_launches(launches)
     assert report.ok and report.findings == [], report.summary()
+
+
+def test_launch_pass_clean_on_the_frontend_families():
+    """seamless-m4t (as published and in fp32) and llava-next, served by
+    ``greedy_generate`` with their frontend inputs: the encoder's
+    non-causal flash over 1024 x 1024 frames, cross-attention's text x
+    frames (non-causal), the causal decoder; the 256206-wide head on SA-FC
+    and the GEMM, the cross K/V projections over B x 1024 rows; llava's
+    vision-prefixed prefill (576 + text rows, a GQA group of 7 at hd
+    128).  No finding."""
+    configs = {k: v for k, v in tlaunch.lm_configs().items()
+               if k.split("@")[0] in ("seamless-m4t-large-v2",
+                                      "llava-next-34b")}
+    assert len(configs) == 4
+    launches = tlaunch.lm_launches(configs)
+    flash = {lau.shape: lau.op.split(": ")[1] for lau in launches
+             if lau.kernel == "attention"}
+    assert flash[4, 1024, 1024, 16, 16, 64, False, 0, 2] == \
+        "encoder attn [attention]"
+    assert flash[4, 16, 1024, 16, 16, 64, False, 0, 2] == \
+        "cross attn [attention]"
+    assert flash[4, 16, 16, 16, 16, 64, True, 0, 2] == \
+        "attn window 0 [attention]"
+    assert flash[2, 608, 608, 56, 8, 128, True, 0, 2] == \
+        "attn window 0 [attention]"
+    heads = {(lau.kernel, lau.shape[:3]) for lau in launches
+             if "lm_head" in lau.op and "seamless" in lau.op}
+    assert ("sa_fc", (4, 1024, 256206)) in heads             # decode, b = 4
+    assert ("sa_conv", (2048, 256206, 1024)) in heads        # 4 x 512 rows
+    assert any(lau.kernel == "sa_conv" and lau.shape[:3] == (4096, 1024, 1024)
+               and "seamless-m4t-large-v2 prefill" in lau.op
+               for lau in launches)                    # encoder and cross K/V
+    assert any(lau.kernel == "sa_conv" and lau.shape[0] == 2 * 608
+               and "llava-next-34b prefill b2x32" in lau.op
+               for lau in launches)
+    report = tlaunch.verify_launches(launches)
+    assert report.ok and report.findings == [], report.summary()
+
+
+def test_noncausal_edge_launches_sweep_the_shapes_phase_13_needs():
+    edges = tlaunch.noncausal_edge_launches()
+    assert {lau.op for lau in edges} <= {lau.op for lau in
+                                         tlaunch.edge_launches()}
+    seen = set()
+    for lau in edges:
+        b, sq, skv, hq, hkv, d, causal, window, itemsize = lau.shape
+        (g,) = lau.geoms
+        assert not causal and window == 0 and g.q_tiles % 2 and sq % g.bq
+        assert tlaunch.check_launch(lau) == [], lau.op
+        seen |= {("rel", (sq > skv) - (sq < skv)), ("paired", g.paired),
+                 ("d", d), ("itemsize", itemsize), ("group", hq // hkv)}
+    assert seen == {("rel", -1), ("rel", 0), ("rel", 1), ("paired", False),
+                    ("paired", True), ("d", 64), ("d", 128), ("itemsize", 2),
+                    ("itemsize", 4), ("group", 1), ("group", 2),
+                    ("group", 4), ("group", 7)}
+
+
+@pytest.mark.parametrize("fault", ["causal loop", "short grid"])
+def test_launch_catches_a_fault_in_a_noncausal_flash_launch(monkeypatch,
+                                                             fault):
+    """A kernel loop that stops at the diagonal on a non-causal launch
+    (the kernel's ``kv_range`` taking every launch as causal) drops keys
+    the rows see; a grid one query tile short leaves rows unwritten."""
+    op = "edge non-causal sq>skv paired g7 d128 bf16 [attention]"
+    lau = _edge(op)
+    if fault == "causal loop":
+        real = tattn.live_tiles
+
+        def live_tiles(iq, sq, skv, *, causal, window, bq):
+            return real(iq, sq, skv, causal=True, window=window, bq=bq)
+
+        monkeypatch.setattr(tattn, "live_tiles", live_tiles)
+        msgs = _only(lau)
+        assert "attention coverage: keys: query row" in msgs, msgs
+        assert "live_tiles drops a visible kv tile" in msgs, msgs
+    else:
+        g = lau.geoms[0]
+        msgs = _only(dataclasses.replace(lau, geoms=(dataclasses.replace(
+            g, q_tiles=g.q_tiles - 1),)))
+        assert "attention coverage: out" in msgs, msgs
+        assert "written by no CTA" in msgs or "query tiles" in msgs, msgs
 
 
 def test_launch_pass_clean_on_the_declined_pool_and_strips():

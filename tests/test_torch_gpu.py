@@ -1289,3 +1289,93 @@ def test_smem_queries_equal_the_launch_pass(cuda):
     # a tile or type with no instantiation answers -1
     assert _build.smem_query("sa_fc", 0, 0, 3) == -1
     assert _build.smem_query("attention", 40, 64, 0) == -1
+
+
+# -- non-causal flash: encoders and cross-attention ---------------------------
+
+def _noncausal_cases():
+    from repro_torch.analysis.launch import noncausal_edge_launches
+    return [pytest.param(lau.shape, id=lau.op.removesuffix(" [attention]"))
+            for lau in noncausal_edge_launches()]
+
+
+@pytest.mark.parametrize("shape", _noncausal_cases())
+def test_flash_attention_noncausal_against_the_plain_version(cuda, shape):
+    """The phase 13 sweep: fewer, as many and more queries than keys, odd
+    query tiles paired and unpaired, hd 64 and 128, GQA up to 7, fp32
+    within the reference's flash tolerance and bf16 within its bf16 one,
+    bf16 bitwise the fp32 launch on the widened operands."""
+    b, sq, skv, hq, hkv, d, causal, window, itemsize = shape
+    dt = torch.float32 if itemsize == 4 else BF16
+    q = _t(0, (b, sq, hq, d), cuda).to(dt)
+    k, v = (_t(s, (b, skv, hkv, d), cuda).to(dt) for s in (1, 2))
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    tol = dict(rtol=3e-4, atol=3e-4) if itemsize == 4 else TOL_BF16
+    torch.testing.assert_close(got.float(), flash_plain(q, k, v, **kw).float(),
+                               **tol)
+    if itemsize == 2:
+        fp32 = flash_attention(q.float(), k.float(), v.float(), **kw)
+        assert torch.equal(got, fp32.to(BF16))
+
+
+@pytest.mark.parametrize("sq,skv", [(100, 390), (390, 390), (390, 100)])
+def test_flash_attention_noncausal_every_tiling_gives_the_same_bits(
+        cuda, monkeypatch, sq, skv):
+    b, hq, hkv, d = 2, 7, 1, 64
+    q = _t(0, (b, sq, hq, d), cuda)
+    k, v = _t(1, (b, skv, hkv, d), cuda), _t(2, (b, skv, hkv, d), cuda)
+    want = flash_plain(q, k, v, causal=False)
+    outs = []
+    for bq in tattn.BQ:
+        for paired in (False, True):
+            g = tattn.FlashGeometry(bq, paired, -(-sq // bq), b * hq,
+                                    tattn.smem_bytes(bq, d), 0.0)
+            monkeypatch.setattr(tattn, "flash_geometry", lambda *a, g=g: g)
+            outs.append(flash_attention(q, k, v, causal=False))
+            torch.testing.assert_close(outs[-1], want, rtol=3e-4, atol=3e-4)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_frontend_families_generate_on_the_card(cuda, arch):
+    """Reduced seamless (encoder, cross-attention) and llava (vision prefix)
+    through ``greedy_generate`` on the kernels: prefill logits within 1e-3
+    of the torch backend's, the three kernels launched, no plain call."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import greedy_generate
+    cfg = reduced(get_config(arch), param_dtype="float32",
+                  compute_dtype="float32")
+    params = T.init_params(cfg, 0)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda)
+    key = "audio_embeds" if cfg.enc_dec else "vision_embeds"
+    extra = {key: _t(3, (2, cfg.audio_frames or cfg.vision_tokens,
+                         cfg.frontend_dim), cuda)}
+    batch = {"tokens": prompt, **extra}
+    with Engine(backend="torch").activate():
+        want, _, _ = T.forward(cfg, params, batch, mode="prefill")
+    kern = Engine(backend="kernels")
+    ref.reset_counts()
+    kernels = {"sa_conv": sa_conv_matmul, "sa_fc": sa_fc_matmul,
+               "attention": flash_attention}
+    before = {r: f.launches for r, f in kernels.items()}
+    with kern.tracing() as tr, kern.activate():
+        got, _, _ = T.forward(cfg, params, batch, mode="prefill")
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    with kern.tracing() as tr2:
+        toks = greedy_generate(cfg, params, prompt, 4, extra=extra,
+                               engine=kern)
+    assert toks.shape == (2, 4)
+    recs = [x.regime for x in (*tr, *tr2)]
+    assert {r: f.launches - before[r] for r, f in kernels.items()} == \
+        {r: recs.count(r) for r in kernels}
+    # a prefill's flash launches: self- (and cross-) attention per decoder
+    # block, one per encoder block; two prefills
+    per = cfg.n_layers * (2 if cfg.enc_dec else 1) + cfg.n_enc_layers
+    assert recs.count("attention") == 2 * per
+    assert all(v == 0 for v in ref.counts().values())

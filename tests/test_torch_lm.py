@@ -147,21 +147,33 @@ def test_converted_and_initialised_trees_match_reference(name):
     assert wq.abs().max() <= 3 * tcfg.d_model ** -0.5 + 1e-6
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("seamless-m4t-large-v2", "encoder"), ("llava-next-34b", "frontends")])
-def test_unported_families_raise(arch, match):
-    cfg = tbase.reduced(treg.get_config(arch))
-    with pytest.raises(NotImplementedError, match=match):
-        T.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
-        T.check_supported(cfg)
+@pytest.mark.parametrize("arch,extra", [
+    ("seamless-m4t-large-v2", "audio_embeds"),
+    ("llava-next-34b", "vision_embeds")])
+def test_frontend_families_are_supported(arch, extra):
+    """The encoder-decoder and vision-prefix families init and run a
+    forward (tests/test_torch_encdec.py holds them to the reference)."""
+    cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
+                        compute_dtype="float32")
+    T.check_supported(cfg)
+    params = T.init_params(cfg, 0, device="cpu")
+    n = cfg.audio_frames or cfg.vision_tokens
+    emb = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, n, cfg.frontend_dim)).astype(np.float32))
+    with KERNELS.activate():
+        logits, _, _ = T.forward(cfg, params, {
+            "tokens": _t(_tokens(cfg, (1, 8))), extra: emb})
+    assert logits.shape == (1, 8 + cfg.vision_tokens, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
-                                  "mamba2-130m", "zamba2-2.7b"])
+                                  "mamba2-130m", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2", "llava-next-34b"])
 def test_loss_fn_refuses_the_untrained_families(arch):
-    """MoE, Mamba and shared-attention configs serve but do not train yet:
-    the loss raises, and so does compiling their train schedule."""
+    """MoE, Mamba, shared-attention, encoder-decoder and vision configs
+    serve but do not train yet: the loss raises, and so does compiling
+    their train schedule."""
     cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
                         compute_dtype="float32")
     T.check_supported(cfg)
