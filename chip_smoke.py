@@ -152,7 +152,29 @@ Phases (any failure raises and exits non-zero):
    and each kernel's shapes timed; then the non-causal flash sweep of
    ``analysis/launch.py`` (fewer, as many and more queries than keys, odd
    query tiles paired and unpaired, hd 64 and 128, fp32 and bf16) in
-   NaN-filled blocks.
+   NaN-filled blocks;
+14. training the decoder-only families through ``trainer.run`` on the
+   kernels backend, phase 12's models (zamba2-2.7b and mamba2-130m as
+   published, bf16; mixtral-8x7b at full width cut to 2 layers, fp32),
+   each with its train state donated to the optimizer (updated in place):
+   step-0 gradients of a few leaves against the torch backend's (zamba2's
+   at 1 x 512, remat by block on both; bf16 within sqrt(2) x the torch
+   backend's own bf16-vs-fp32 spread, fp32 within a relative L2 of 1e-3
+   or, in an SSM stack, within 4x the torch backend's own move under a
+   one-ulp nudge of its embedding, a rule its TF32 gradient must fail;
+   mixtral's routing captured on both backends, every differing selection
+   a near-tie, counted, and the loss gated instead where any differs, all
+   gradients finite), then 3 steps of 4 x 512 tokens with remat by block
+   and TrainConfig's optimizer defaults: every loss finite, every matmul a
+   schedule hit, launches per kernel as the train schedule implies (plain
+   attention only in the backward), the first Mamba block's
+   above-diagonal SSD ``rel`` entries over 88.72 counted at step 0 (where
+   the reference's ``where(mask, exp(rel), 0)`` would give NaN
+   gradients); mamba2's async checkpoint at step 2 restored bitwise and
+   resumed; trained tokens/s, device time and idle share, peak memory,
+   every distinct GEMM/SA-FC shape by role (forward, ``dx``, ``dw``) and
+   flash's forward held against their plain versions and timed, the SSD's
+   and the expert products' card time.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -294,9 +316,15 @@ TRAIN_FP32_REL_L2 = 1e-3
 #: spread at these leaves (PERF.md §6), where a wrong gradient is off
 #: by its own norm, ~50 spreads
 TRAIN_BF16_SPREAD = 2 ** 0.5
-#: matmuls whose activation is not linear (models/mlp.py: the gate of the
-#: gated MLPs), whose backward recomputes the pre-activation
-ACT_MATMULS = ("mlp.gate",)
+#: an SSM stack's fp32 step-0 gradient may miss TRAIN_FP32_REL_L2 only
+#: where the torch backend's own fp32 gradient moves when its embedding
+#: moves by an ulp, and then by at most this many times that move (L2):
+#: rmsnorm of a near-zero ``y * silu(z)`` blows a rounding up, as in
+#: tests/test_torch_moe_ssm_stacks.py::_match and the CPU tests of the
+#: families, where the same factor holds.  Each run holds the rule to a
+#: control: the torch backend's gradient through TF32 products must lie
+#: outside it
+TRAIN_NUDGE_SPREAD = 4.0
 #: the kernels of the train path, reported on it under these names
 TRAIN_KERNELS = {k: f"{k}[train]" for k in ("sa_conv_matmul",
                                              "flash_attention")}
@@ -328,6 +356,8 @@ class Report:
                                      *TRAIN_KERNELS.values(),
                                      *REST_KERNELS.values(),
                                      *(n for d in FRONTEND_KERNELS.values()
+                                       for n in d.values()),
+                                     *(n for d in FAMILY_KERNELS.values()
                                        for n in d.values())]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
@@ -1681,6 +1711,14 @@ def op_counts(cfg) -> dict:
     return c
 
 
+def matmul_act(cfg, name: str) -> str:
+    """The activation ``models/mlp.py`` fuses into the matmul ``name``:
+    the gate of a gated MLP and a plain MLP's fc1 (not linear, so their
+    backward recomputes the pre-activation), none elsewhere."""
+    return {"mlp.gate": "silu" if cfg.mlp == "swiglu" else "gelu",
+            "mlp.fc1": "gelu"}.get(name, "none")
+
+
 def lm_schedules(srv, waves: list[int]):
     """(wave size, phase, schedule, passes) of each schedule that
     ``ServeEngine.run`` runs for waves of ``waves`` requests of LM_PROMPT
@@ -2859,24 +2897,47 @@ def _leaf(tree, path: str):
     return tree if not layer else tree[int(layer.rstrip("]"))]
 
 
+def stacked_counts(cfg) -> dict:
+    """:func:`op_counts` of the blocks that remat recomputes: the stacked
+    periods (not the unstacked tail, nor the head)."""
+    import dataclasses
+    reps, _ = cfg.stack_shape()
+    c = op_counts(dataclasses.replace(cfg, n_layers=reps * len(cfg.pattern)))
+    c.pop("lm_head")
+    return c
+
+
+def attention_blocks(cfg, stacked: bool = False) -> int:
+    """Attention blocks a forward runs (zamba2's shared one at each of its
+    applications); with ``stacked``, those of the stacked periods."""
+    from repro_torch.configs.base import MAMBA
+    reps, rem = cfg.stack_shape()
+    kinds = cfg.block_kinds()
+    return sum(ak != MAMBA for ak, _ in list(kinds) * reps +
+               ([] if stacked else list(kinds[:rem])))
+
+
 def train_launches(cfg, sched, steps: int, remat: bool) -> dict:
     """Launches per kernel (and plain attention calls) that ``steps`` train
     steps of ``cfg`` must make under ``sched``: each matmul runs on its
-    regime's kernel once forward, once more in the remat recompute (the
-    blocks', not the head's), once for ``pre`` where its activation is not
-    linear and once for ``dx``; its ``dw`` runs on the SA-CONV GEMM.
-    Attention: flash forward (and recompute), the plain version once in
-    the backward."""
+    regime's kernel as often as a forward calls it (:func:`op_counts`),
+    again in the remat recompute (the stacked blocks', not the head's),
+    once more for ``pre`` where its activation is not linear and once for
+    ``dx``; its ``dw`` runs on the SA-CONV GEMM.  Attention: flash forward
+    (and recompute), the plain version once in the backward."""
     kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
+    per = op_counts(cfg)
+    again = stacked_counts(cfg) if remat else {}
     out = {k: 0 for k in _wrappers()}
     for key, plan in sched.items():
-        per = 1 if key.name == "lm_head" else cfg.n_layers
-        runs = 1 + (remat and key.name != "lm_head") + \
-            (key.name in ACT_MATMULS) + 1
-        out[kernel[plan.regime]] += per * runs * steps
-        out["sa_conv_matmul"] += per * steps
-    out["flash_attention"] = cfg.n_layers * (1 + remat) * steps
-    out["plain.attention"] = cfg.n_layers * steps
+        n = per[key.name]
+        runs = 2 * n + again.get(key.name, 0) + \
+            (n if matmul_act(cfg, key.name) != "none" else 0)
+        out[kernel[plan.regime]] += runs * steps
+        out["sa_conv_matmul"] += n * steps
+    out["flash_attention"] = (attention_blocks(cfg) + remat *
+                              attention_blocks(cfg, stacked=True)) * steps
+    out["plain.attention"] = attention_blocks(cfg) * steps
     return out
 
 
@@ -2995,32 +3056,62 @@ def dtype_tag(dt) -> str:
     return "bf16" if dt == torch.bfloat16 else "fp32"
 
 
-def check_train_grads(rep: Report, cfg, tc, params, batch) -> None:
-    """Step-0 gradients of ``TRAIN_LEAVES``: the kernels backend's bf16
-    ones within ``TRAIN_BF16_SPREAD`` times (L2) the torch backend's own
-    bf16-vs-fp32 spread of the torch backend's bf16 ones, and the kernels
-    backend's fp32 ones within ``TRAIN_FP32_REL_L2`` (relative L2) of the
-    torch backend's fp32 ones.  The torch backend runs without remat: the
-    same gradient, half the plain forwards."""
-    import dataclasses
+def step0_leaves(cfg, tc, params, batch, backend: str, leaves) -> tuple:
+    """(loss, {path: fp32 copy of the gradient at that leaf}, seconds) of
+    one gradient of ``cfg``'s loss on ``backend``; every gradient of the
+    tree must be finite."""
     import torch
+    from repro_torch.core import tree
     from repro_torch.core.engine import Engine
     from repro_torch.train import train_step as TS
+    t0 = time.perf_counter()
+    loss, g = TS.make_grad_fn(cfg, tc, engine=Engine(backend=backend))(
+        params, batch)
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(t).all()) for t in tree.leaves(g))
+    out = {p: _leaf(g, p).float().clone() for p in leaves}
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError(f"step-0 {backend} loss or gradients of "
+                             f"{cfg.name} not finite")
+    return float(loss), out, time.perf_counter() - t0
+
+
+def nudged_embed(params: dict, seed: int) -> dict:
+    """``params`` with every entry of ``embed`` moved by at most one ulp
+    (times 1 +- 2^-23, rounded), each direction drawn from ``seed``."""
+    import torch
+    e = params["embed"]
+    gen = torch.Generator(device=e.device).manual_seed(seed)
+    sign = torch.randint(0, 2, e.shape, generator=gen, device=e.device,
+                         dtype=torch.float64) * 2 - 1
+    return {**params, "embed": (e.double() * (1 + sign * 2.0 ** -23)).to(
+        e.dtype)}
+
+
+def check_train_grads(rep: Report, cfg, tc, params, batch,
+                      leaves=TRAIN_LEAVES, torch_remat: str = "none",
+                      key: str = "train_step0_grads") -> None:
+    """Step-0 gradients of ``leaves``: the kernels backend's bf16 ones
+    within ``TRAIN_BF16_SPREAD`` times (L2) the torch backend's own
+    bf16-vs-fp32 spread of the torch backend's bf16 ones, and the kernels
+    backend's fp32 ones within ``TRAIN_FP32_REL_L2`` (relative L2) of the
+    torch backend's fp32 ones, or, in an SSM stack, within
+    ``TRAIN_NUDGE_SPREAD`` times (L2) the torch backend's own move under a
+    one-ulp nudge of its embedding, a rule that must refuse the torch
+    backend's fp32 gradient through TF32 products (the control); every
+    gradient finite.  The torch backend
+    runs with ``torch_remat``: without remat by default, the same
+    gradient with half the plain forwards."""
+    import dataclasses
+    import torch
 
     def leaves_of(cfg, tc, params, backend):
-        t0 = time.perf_counter()
-        loss, g = TS.make_grad_fn(cfg, tc, engine=Engine(backend=backend))(
-            params, batch)
-        out = {p: _leaf(g, p).float().clone() for p in TRAIN_LEAVES}
-        del g
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        if not (torch.isfinite(loss) and all(
-                torch.isfinite(t).all() for t in out.values())):
-            raise AssertionError(f"step-0 {backend} gradients not finite")
-        return float(loss), out, time.perf_counter() - t0
+        return step0_leaves(cfg, tc, params, batch, backend, leaves)
 
-    plain_tc = dataclasses.replace(tc, remat="none")
+    plain_tc = dataclasses.replace(tc, remat=torch_remat)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     runs = {"kernels bf16": leaves_of(cfg, tc, params, "kernels"),
@@ -3028,13 +3119,35 @@ def check_train_grads(rep: Report, cfg, tc, params, batch) -> None:
     params32 = widen_tree(params)
     runs["torch fp32"] = leaves_of(cfg32, plain_tc, params32, "torch")
     runs["kernels fp32"] = leaves_of(cfg32, tc, params32, "kernels")
-    del params32
-    torch.cuda.empty_cache()
     k16, t16, t32, k32 = (runs[k][1] for k in ("kernels bf16", "torch bf16",
                                                "torch fp32",
                                                "kernels fp32"))
+    moves = {}
+    if cfg.ssm is not None and any(
+            (k32[p] - t32[p]).norm() > TRAIN_FP32_REL_L2 * t32[p].norm()
+            for p in leaves):
+        for seed in (1, 2):
+            loss_n, tn, _ = leaves_of(cfg32, plain_tc,
+                                      nudged_embed(params32, seed), "torch")
+            for p in leaves:
+                moves[p] = max(moves.get(p, 0.0),
+                               (tn[p] - t32[p]).norm().item())
+            del tn
+        # the control: the same fp32 gradient through TF32 products, which
+        # the nudge rule must refuse
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            _, control, _ = leaves_of(cfg32, plain_tc, params32, "torch")
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+    del params32
+    torch.cuda.empty_cache()
     rows = {}
-    for p in TRAIN_LEAVES:
+    for p in leaves:
         d16 = (k16[p] - t16[p]).norm().item()
         spread = (t16[p] - t32[p]).norm().item()
         rel32 = ((k32[p] - t32[p]).norm() / t32[p].norm()).item()
@@ -3056,92 +3169,159 @@ def check_train_grads(rep: Report, cfg, tc, params, batch) -> None:
                 f"step-0 gradient {p}: kernels vs torch backend bf16 L2 "
                 f"{d16:.4g} > {TRAIN_BF16_SPREAD:.4f} x the torch backend's "
                 f"bf16 vs fp32 spread {spread:.4g}")
-        if not rel32 <= TRAIN_FP32_REL_L2:
+        if rel32 <= TRAIN_FP32_REL_L2:
+            continue
+        d32 = (k32[p] - t32[p]).norm().item()
+        move = rows[p]["torch_fp32_nudge_move_l2"] = moves.get(p, 0.0)
+        dc = rows[p]["torch_tf32_vs_fp32_l2"] = \
+            (control[p] - t32[p]).norm().item()
+        log(f"    fp32 {p}: kernels vs torch L2 {d32:.4g} = "
+            f"{d32 / max(move, 1e-30):.3f} x the torch backend's own move "
+            f"{move:.4g} under a one-ulp nudge of its embedding; the "
+            f"control, torch with TF32 products, {dc:.4g} = "
+            f"{dc / max(move, 1e-30):.3f} x")
+        if not d32 <= TRAIN_NUDGE_SPREAD * move:
             raise AssertionError(
                 f"step-0 fp32 gradient {p}: relative L2 {rel32:.3g} > "
-                f"{TRAIN_FP32_REL_L2}")
-    rep.detail["train_step0_grads"] = dict(
+                f"{TRAIN_FP32_REL_L2}, and L2 {d32:.4g} > "
+                f"{TRAIN_NUDGE_SPREAD} x the torch backend's one-ulp move "
+                f"{move:.4g}")
+        if not dc > TRAIN_NUDGE_SPREAD * move:
+            raise AssertionError(
+                f"step-0 fp32 gradient {p}: the TF32 control lies within "
+                f"{TRAIN_NUDGE_SPREAD} x the one-ulp move ({dc:.4g} <= "
+                f"{TRAIN_NUDGE_SPREAD * move:.4g}): the rule cannot tell a "
+                "lower-precision product from a sound one here")
+    rep.detail[key] = dict(
         leaves=rows, losses={k: v[0] for k, v in runs.items()},
         seconds={k: v[2] for k, v in runs.items()})
     log("  step-0 losses: " + ", ".join(
         f"{k} {v[0]:.5f} ({v[2]:.1f} s)" for k, v in runs.items()))
 
 
-def train_rows(rep: Report, cfg, sched, steps_per: dict) -> None:
-    """Card time of one train step's kernel work, per shape and role: the
-    SA-CONV GEMM forward (and recompute, and ``pre``), ``dx`` against
-    ``w.T`` and ``dw = x.T dpre``, each at its shapes in bf16 beside its
-    bound, plain version and ``torch.mm``; flash's forward at the step's
-    wave."""
+def train_rows(rep: Report, cfg, sched, names: dict, path: str) -> None:
+    """Card time of one train step's kernel work (remat by block), per
+    distinct shape and role: each matmul's forward (with the recompute and
+    ``pre``) on its regime's kernel, ``dx`` against ``w.T`` on the same
+    kernel and ``dw = x.T dpre`` on the SA-CONV GEMM, each first held
+    against its plain version (relative to the output's RMS: TOL_FC in
+    fp32, TOL_BF16 in bf16) and then timed beside its bound, plain version
+    and ``torch.mm``; flash's forward at the step's wave (the config's
+    heads and window), held against ``flash_plain``.  Rows go under
+    ``names[kernel]`` on ``path``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.attention import flash_attention, flash_plain
     from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                              sa_conv_matmul_plain)
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, sa_fc_plain
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    bf = torch.bfloat16
+    dt = getattr(torch, cfg.compute_dtype)
+    bf16 = dt == torch.bfloat16
+    peak, tol = (PEAK_BF16_FLOPS, TOL_BF16) if bf16 else (PEAK_FP32_FLOPS,
+                                                          TOL_FC)
+    fns = {"sa_conv": ("sa_conv_matmul", sa_conv_matmul,
+                       sa_conv_matmul_plain),
+           "sa_fc": ("sa_fc_matmul", sa_fc_matmul, sa_fc_plain)}
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device=DEVICE).to(bf)
+    def rand(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
+    per, again = op_counts(cfg), stacked_counts(cfg)
+    groups: dict = {}
     for key, plan in sched.items():
-        if plan.regime != "sa_conv":
-            raise AssertionError(f"{key.name}: not on the SA-CONV GEMM")
-        m, n, k = key.m, key.n, key.k
-        per = 1 if key.name == "lm_head" else cfg.n_layers
-        act = "silu" if key.name in ACT_MATMULS else "none"
-        x, w, dpre = rand(m, k), rand(k, n) * k ** -0.5, rand(m, n)
-        roles = (("forward", x, w, act, per * (
-            1 + (key.name != "lm_head") + (act != "none"))),
-            ("dx", dpre, w.t().contiguous(), "none", per),
-            ("dw", x.t().contiguous(), dpre, "none", per))
-        for role, a, b, ac, count in roles:
-            out = sa_conv_matmul(a, b, act=ac)
-            add_row(rep, "sa_conv_matmul[train]", "trainer.run",
-                    f"{key.name} {role} ({a.shape[0]}x{a.shape[1]})@"
-                    f"({b.shape[0]}x{b.shape[1]})",
-                    timed(lambda: sa_conv_matmul(a, b, act=ac)),
-                    timed(lambda: sa_conv_matmul_plain(a, b, act=ac),
-                          runs=1, warmup=0),
+        act = matmul_act(cfg, key.name)
+        n = per[key.name]
+        g = groups.setdefault((plan.regime, key.m, key.k, key.n, act,
+                               key.dtype), dict(names=[], forward=0, dx=0,
+                                                dw=0))
+        g["names"].append(key.name)
+        g["forward"] += n + again.get(key.name, 0) + (n if act != "none"
+                                                      else 0)
+        g["dx"] += n
+        g["dw"] += n
+    for (regime, m, k, n, act, xdt), g in groups.items():
+        xdt = getattr(torch, xdt)
+        x, w, dpre = rand(m, k, dtype=xdt), rand(k, n, dtype=xdt) * \
+            k ** -0.5, rand(m, n, dtype=xdt)
+        roles = (("forward", fns[regime], x, w, act),
+                 ("dx", fns[regime], dpre, w.t().contiguous(), "none"),
+                 ("dw", fns["sa_conv"], x.t().contiguous(), dpre, "none"))
+        for role, (kname, kern, plain), a, b, ac in roles:
+            out = kern(a, b, act=ac)
+            want = plain(a, b, act=ac)
+            label = (f"{'/'.join(g['names'])} {role} ({a.shape[0]}x"
+                     f"{a.shape[1]})@({b.shape[0]}x{b.shape[1]})")
+            rep.note_err(names[kname], allclose_rms(
+                f"{path} {label}", out, want, tol))
+            del want
+            add_row(rep, names[kname], path, label,
+                    timed(lambda: kern(a, b, act=ac)),
+                    timed(lambda: plain(a, b, act=ac), runs=1, warmup=0),
                     timed(lambda: ref.apply_act(torch.mm(a, b), ac)),
                     2 * a.shape[0] * a.shape[1] * b.shape[1],
-                    nbytes(a, b, out), peak=PEAK_BF16_FLOPS, per_pass=count,
+                    nbytes(a, b, out), peak=peak, per_pass=g[role],
                     phase="train step")
         del x, w, dpre
-    q, k, v = (rand(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
-               for _ in range(3))
-    out = flash_attention(q, k, v)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    add_row(rep, "flash_attention[train]", "trainer.run",
-            f"{tuple(q.shape)} causal forward",
-            timed(lambda: flash_attention(q, k, v)),
-            timed(lambda: flash_plain(q, k, v), runs=5, warmup=1),
-            timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=True)),
-            4 * TRAIN_BATCH * cfg.n_heads * pairs * cfg.hd,
-            nbytes(q, k, v, out), peak=PEAK_BF16_FLOPS,
-            per_pass=steps_per["flash_attention"], phase="train step")
+    blocks = attention_blocks(cfg)
+    if blocks:
+        from repro_torch.configs.base import ATTN_LOCAL
+        window = cfg.sliding_window if any(
+            ak == ATTN_LOCAL for ak, _ in cfg.block_kinds()) else 0
+        sdpa = dict(is_causal=True)
+        if window and window < TRAIN_SEQ:
+            pos = torch.arange(TRAIN_SEQ, device=DEVICE)
+            sdpa = dict(attn_mask=(pos[None, :] <= pos[:, None]) &
+                        (pos[None, :] > pos[:, None] - window))
+        q = rand(TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+        kk, vv = (rand(TRAIN_BATCH, TRAIN_SEQ, cfg.n_kv_heads, cfg.hd)
+                  for _ in range(2))
+        out = flash_attention(q, kk, vv, window=window)
+        rep.note_err(names["flash_attention"], allclose(
+            f"{path} flash forward", out, flash_plain(q, kk, vv,
+                                                      window=window),
+            TOL_BF16 if bf16 else TOL_ATTN))
+        g = cfg.n_heads // cfg.n_kv_heads
+        qt, kt, vt = (t.transpose(1, 2) for t in (
+            q, kk.repeat_interleave(g, 2), vv.repeat_interleave(g, 2)))
+        pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        add_row(rep, names["flash_attention"], path,
+                f"{tuple(q.shape)} kv {cfg.n_kv_heads} causal"
+                f"{f' window {window}' if window else ''} forward",
+                timed(lambda: flash_attention(q, kk, vv, window=window)),
+                timed(lambda: flash_plain(q, kk, vv, window=window), runs=5,
+                      warmup=1),
+                timed(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                             **sdpa)),
+                4 * TRAIN_BATCH * cfg.n_heads * pairs * cfg.hd,
+                nbytes(q, kk, vv, out), peak=peak,
+                per_pass=blocks + attention_blocks(cfg, stacked=True),
+                phase="train step")
     torch.cuda.synchronize()
 
 
-def train_phase(rep: Report, smi: str, cfg=None) -> dict:
-    """Phase 10: OLMo-1B as published (bf16, full width and depth) trains
-    through ``trainer.run`` on the kernels backend.  The autograd
-    Functions against torch autograd through the plain versions; the
-    step-0 gradients against the torch backend's (bf16 within its own
-    bf16-vs-fp32 spread, fp32 within ``TRAIN_FP32_REL_L2``); then
-    ``TRAIN_STEPS`` steps with an async checkpoint at ``TRAIN_CKPT``:
-    every loss finite, every dispatch a schedule hit, launches as the
-    train schedule implies, the checkpoint restored bitwise into a fresh
-    state and the trainer resuming from it; host and device time of a
-    step, tokens/s, idle share, peak memory.  Returns the 4-step run's
-    launches."""
+def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
+                names: dict, path: str, key: str, ckpt: bool = True,
+                donate: bool = False, note: str = "") -> dict:
+    """One model trained on the kernels backend through ``trainer.run``
+    (phases 10 and 14).  ``grads(params, batch)`` checks the step-0
+    gradients; then ``tc.total_steps`` steps, the state updated in place
+    by the optimizer where ``donate``: every loss finite, every matmul a
+    schedule hit (an MoE block's expert products aside), launches as the
+    train schedule implies (the plain version only in attention's
+    backward), in an SSM stack the first Mamba block's above-diagonal
+    ``rel`` entries over EXP_MAX counted at step 0.  With ``ckpt``, the
+    async checkpoint of step TRAIN_CKPT restored bitwise into a fresh
+    state and the trainer resuming from it.  Then clean steps from the
+    trained state (host clock, tokens/s), device time and idle share, peak
+    memory, the kernels' shapes by role against their plain versions and
+    timed (:func:`train_rows`, under ``names`` on ``path``), an SSM's or
+    MoE's plain ops (:func:`block_times`).  ``rep.detail[key]`` holds the
+    numbers; returns the trainer's launches."""
     import shutil
     import torch
     from repro_torch.checkpoint.checkpoint import Checkpointer
-    from repro_torch.configs.base import TrainConfig
     from repro_torch.core import tree
     from repro_torch.core.engine import Engine
     from repro_torch.core.schedule import LayerSchedule
@@ -3150,24 +3330,27 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
     from repro_torch.train import train_step as TS
     from repro_torch.train import trainer
 
-    cfg = cfg if cfg is not None else olmo_bf16_config()
-    t_phase = time.perf_counter()
-    check_train_functions(rep, cfg)
-    tc = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                     total_steps=TRAIN_STEPS, warmup_steps=1, remat="block")
+    t_model = time.perf_counter()
+    steps = tc.total_steps
     data = SyntheticLM(DataConfig(cfg.vocab_size, tc.seq_len,
                                   tc.global_batch, seed=tc.seed))
     pending = [TS.init_train_state(cfg, tc, tc.seed, device=DEVICE)]
-    check_train_grads(rep, cfg, tc, pending[0][0], data.batch_at(0))
+    state_bytes = nbytes(*tree.leaves(pending[0]))
+    log(f"  [{smi}] {name}: {cfg.n_params() / 1e9:.3f} B parameters in "
+        f"{cfg.param_dtype}, train state (parameters and "
+        f"{tc.moment_dtype} AdamW moments) {state_bytes / 1e9:.2f} GB"
+        f"{note}")
+    grads(pending[0][0], data.batch_at(0))
 
     eng = Engine(backend="kernels")
-    step_fn = TS.make_train_step(cfg, tc, engine=eng)
+    step_fn = TS.make_train_step(cfg, tc, engine=eng, donate=donate)
     snapshot = {}
 
     def stepping(params, opt, cs, batch):
         out = step_fn(params, opt, cs, batch)
         stepping.calls += 1
-        if stepping.calls == TRAIN_CKPT:       # the state saved at CKPT
+        stepping.state = out[:3]
+        if ckpt and stepping.calls == TRAIN_CKPT:  # the state saved at CKPT
             snapshot["state"] = tree.map_leaves(
                 torch.clone, (T.trainable(out[0]), out[1], out[2]))
         return out
@@ -3178,72 +3361,88 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
-    with eng.tracing() as tr:
-        run = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
+    with eng.tracing() as tr, SSDCapture() as ssd:
+        run = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir) if ckpt else None,
                           ckpt_every=TRAIN_CKPT, train_step_fn=stepping,
                           state=pending.pop(), data=data, log_every=1,
                           log=lambda s: log(f"  {s}"))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     c = counters()
-    sched = LayerSchedule.compile(cfg, "train", batch=TRAIN_BATCH,
-                                  seq=TRAIN_SEQ, policy=eng.policy)
-    want = train_launches(cfg, sched, TRAIN_STEPS, remat=True)
-    expect_train_counts(c, "trainer.run", want)
-    per_step = train_launches(cfg, sched, 1, remat=True)
-    mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")]
-    per_forward = sum(1 if key.name == "lm_head" else cfg.n_layers
-                      for key in sched)
-    if len(mm) != TRAIN_STEPS * per_forward or \
-            len(tr) != len(mm) + TRAIN_STEPS * cfg.n_layers or \
+    sched = LayerSchedule.compile(cfg, "train", batch=tc.global_batch,
+                                  seq=tc.seq_len, policy=eng.policy)
+    expect_train_counts(c, path, train_launches(cfg, sched, steps,
+                                                remat=True))
+    per = op_counts(cfg)
+    mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")
+          and not r.name.endswith(".experts")]
+    att = [r for r in tr if r.regime == "attention"]
+    experts = [r for r in tr if r.name.endswith(".experts")]
+    if len(mm) != steps * sum(per[k.name] for k in sched) or \
+            len(att) != steps * attention_blocks(cfg) or \
+            len(tr) != len(mm) + len(att) + len(experts) or \
             any(r.schedule != "hit" for r in mm):
-        raise AssertionError("trainer.run: a matmul missed its schedule, or "
-                             "the trace holds other records than one "
-                             "forward's a step (remat and the backward "
-                             "record nothing)")
-    if len(run.losses) != TRAIN_STEPS or not all(
+        raise AssertionError(f"{path}: a matmul missed its schedule, or the "
+                             "trace holds other records than one forward's "
+                             "a step (remat and the backward record nothing)")
+    if len(run.losses) != steps or not all(
             l == l and abs(l) < float("inf") for l in run.losses):
-        raise AssertionError(f"trainer.run losses {run.losses}")
-    log(f"  trainer.run: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-        f"tokens in {run_s:.2f} s (schedule compiled, checkpoints written); "
-        f"losses {[round(l, 5) for l in run.losses]}, all finite; "
-        f"{len(mm)} matmul dispatches, all schedule hits; launches {c} == "
-        f"the train schedule's")
+        raise AssertionError(f"{path} losses {run.losses}")
+    log(f"  {path}: {steps} steps of {tc.global_batch} x {tc.seq_len} "
+        f"tokens in {run_s:.2f} s (schedule compiled"
+        f"{', checkpoints written' if ckpt else ''}); losses "
+        f"{[round(l, 5) for l in run.losses]}, all finite; {len(mm)} "
+        f"matmul dispatches, all schedule hits; launches {c} == the train "
+        "schedule's")
+    detail = dict(card=smi, steps=steps, batch=tc.global_batch,
+                  seq=tc.seq_len, donated=donate, losses=run.losses,
+                  launches=c,
+                  launches_per_step=train_launches(cfg, sched, 1, True),
+                  trainer_step_seconds=run.step_seconds,
+                  trainer_step_s_median=statistics.median(
+                      run.step_seconds[1:]),
+                  state_bytes=state_bytes)
+    if cfg.ssm is not None:
+        st = ssd.stats
+        if st is None:
+            raise AssertionError(f"{path}: no SSD call captured")
+        detail["ssd_rel"] = st
+        log(f"  {name} step 0, first Mamba block (chunk {st['chunk']}): "
+            f"{st['over']} of {st['above']} above-diagonal rel entries over "
+            f"{EXP_MAX:.2f} (where where(mask, exp(rel), 0) overflows), in "
+            f"{st['heads_over']} of {st['heads']} heads; largest "
+            f"{st['max_rel']:.1f}; every gradient finite")
 
-    # the async checkpoint at TRAIN_CKPT, restored into a fresh state
-    saved = snapshot.pop("state")
-    fresh = tree.map_leaves(torch.empty_like, saved)
-    t0 = time.perf_counter()
-    restored, step, _ = Checkpointer(str(ckpt_dir)).restore(fresh,
-                                                            step=TRAIN_CKPT)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    del fresh
-    leaves = tree.leaves(restored)
-    if step != TRAIN_CKPT or not all(
-            a.dtype == b.dtype and torch.equal(a, b)
-            for a, b in zip(leaves, tree.leaves(saved))):
-        raise AssertionError("the step-2 checkpoint restored is not bitwise "
-                             "the state saved")
-    ckpt_bytes = nbytes(*leaves)
-    del saved
-    log(f"  checkpoint at step {TRAIN_CKPT} ({len(leaves)} leaves, "
-        f"{ckpt_bytes / 1e9:.2f} GB) restored into a fresh state in "
-        f"{restore_s:.2f} s: bitwise the state saved")
+    if ckpt:        # the async checkpoint, restored into a fresh state
+        saved = snapshot.pop("state")
+        fresh = tree.map_leaves(torch.empty_like, saved)
+        t0 = time.perf_counter()
+        restored, step, _ = Checkpointer(str(ckpt_dir)).restore(
+            fresh, step=TRAIN_CKPT)
+        torch.cuda.synchronize()
+        detail["restore_s"] = time.perf_counter() - t0
+        if step != TRAIN_CKPT or not all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(tree.leaves(restored), tree.leaves(saved))):
+            raise AssertionError(f"{name}: the step-{TRAIN_CKPT} checkpoint "
+                                 "restored is not bitwise the state saved")
+        detail["checkpoint_bytes"] = nbytes(*tree.leaves(restored))
+        log(f"  {name}: checkpoint at step {TRAIN_CKPT} "
+            f"({len(tree.leaves(restored))} leaves, "
+            f"{detail['checkpoint_bytes'] / 1e9:.2f} GB) restored into a "
+            f"fresh state in {detail['restore_s']:.2f} s: bitwise the state "
+            "saved")
+        del fresh, restored, saved
 
-    # steps from the restored state with no checkpoint in flight (the
-    # trainer's steps 2 and 3 overlap the async write of step 2's): host
-    # clock to the loss on the host, median of 3; peak memory; one
-    # profiled step
-    tp, opt, cs = restored
-    del restored, leaves
-    params = T.with_head_copy(cfg, tp)
-    batch = data.batch_at(TRAIN_CKPT)
-    trainer_s = statistics.median(run.step_seconds[1:])
+    # clean steps from the trained state (the trainer's steps from
+    # TRAIN_CKPT on overlap the async write): host clock to the loss on
+    # the host, median of 3; peak memory; one profiled step
+    params, opt, cs = stepping.state
+    del stepping.state
+    batch = data.batch_at(steps)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3253,66 +3452,91 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
     step_s = statistics.median(walls)
     busy = device_busy(lambda: step_fn(params, opt, cs, batch), step_s,
                        top=12)
-    del params, tp, opt, cs
+    ops = block_times(rep, name, cfg, params) if (
+        cfg.ssm is not None or cfg.moe is not None) else {}
+    del params, opt, cs
     torch.cuda.empty_cache()
 
-    # the trainer resumes from the async checkpoint
-    shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS:08d}")
-    resumed = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
-                          ckpt_every=TRAIN_CKPT, data=data, log_every=1,
-                          log=lambda s: log(f"  {s}"), device=DEVICE,
-                          engine=eng)
-    if resumed.resumed_from != TRAIN_CKPT or \
-            resumed.steps_run != TRAIN_STEPS - TRAIN_CKPT or not all(
-                abs(l) < float("inf") for l in resumed.losses):
-        raise AssertionError(f"resume: from {resumed.resumed_from}, "
-                             f"{resumed.steps_run} steps, losses "
-                             f"{resumed.losses}")
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
-    same = resumed.losses == run.losses[TRAIN_CKPT:]
-    log(f"  trainer.run resumed from step {resumed.resumed_from}: losses "
-        f"{resumed.losses} against the uninterrupted run's "
-        f"{run.losses[TRAIN_CKPT:]}: {'' if same else 'not '}bitwise "
-        "equal (reported, not required)")
+    if ckpt:        # the trainer resumes from the async checkpoint
+        shutil.rmtree(ckpt_dir / f"step_{steps:08d}")
+        resumed = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
+                              ckpt_every=TRAIN_CKPT, data=data,
+                              log_every=1, log=lambda s: log(f"  {s}"),
+                              device=DEVICE, engine=eng)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if resumed.resumed_from != TRAIN_CKPT or \
+                resumed.steps_run != steps - TRAIN_CKPT or not all(
+                    abs(l) < float("inf") for l in resumed.losses):
+            raise AssertionError(f"{name} resume: from "
+                                 f"{resumed.resumed_from}, "
+                                 f"{resumed.steps_run} steps, losses "
+                                 f"{resumed.losses}")
+        detail["resumed_losses"] = resumed.losses
+        detail["resumed_bitwise"] = same = \
+            resumed.losses == run.losses[TRAIN_CKPT:]
+        log(f"  {name}: trainer.run resumed from step "
+            f"{resumed.resumed_from}: losses {resumed.losses} against the "
+            f"uninterrupted run's {run.losses[TRAIN_CKPT:]}: "
+            f"{'' if same else 'not '}bitwise equal (reported, not "
+            "required)")
+        torch.cuda.empty_cache()
 
-    train_rows(rep, cfg, sched, per_step)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    b4 = [r for r in rep.rows if r["kernel"] == "sa_conv_matmul[train]"]
-    by_role = {role: sum(r["ms"] * r["per_pass"] for r in b4
+    train_rows(rep, cfg, sched, names, path)
+    tokens = tc.global_batch * tc.seq_len
+    gemm = [r for r in rep.rows if r["path"] == path
+            and r["kernel"] in (names["sa_conv_matmul"],
+                                names.get("sa_fc_matmul"))]
+    by_role = {role: sum(r["ms"] * r["per_pass"] for r in gemm
                          if f" {role} " in r["shape"])
                for role in ("forward", "dx", "dw")}
     flash_ms = sum(r["ms"] * r["per_pass"] for r in rep.rows
-                   if r["kernel"] == "flash_attention[train]")
-    detail = dict(
-        card=smi, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        losses=run.losses, resumed_losses=resumed.losses,
-        resumed_bitwise=same,
-        trainer_step_seconds=run.step_seconds,
-        trainer_step_s_median=trainer_s, step_seconds=walls,
-        step_s_median=step_s, tokens_per_s=tokens / step_s, launches=c, launches_per_step=per_step,
-        b4_ms_per_step=by_role, flash_ms_per_step=flash_ms,
-        device=busy, peak_bytes=peak, state_bytes=base,
-        checkpoint_bytes=ckpt_bytes, restore_s=restore_s,
-        phase_s=time.perf_counter() - t_phase)
-    rep.detail["train"] = detail
+                   if r["path"] == path and r["kernel"] ==
+                   names.get("flash_attention"))
+    detail.update(step_seconds=walls, step_s_median=step_s,
+                  tokens_per_s=tokens / step_s, device=busy,
+                  peak_bytes=peak, matmul_ms_per_step=by_role,
+                  flash_ms_per_step=flash_ms, plain_ops=ops,
+                  seconds=time.perf_counter() - t_model)
+    rep.detail[key] = detail
     dev = "not measured" if busy["device_ms"] is None else \
         f"{busy['device_ms']:.2f} ms"
     idle = "not measured" if busy["idle_share"] is None else \
         f"{busy['idle_share']:.3f}"
-    log(f"  [{smi}] bf16 train step of {tokens} tokens: {step_s * 1e3:.1f} "
-        f"ms host clock (median of 3 with no checkpoint in flight) = "
-        f"{tokens / step_s:.0f} trained tokens/s; trainer.run's steps "
-        f"1-{TRAIN_STEPS - 1}: median {trainer_s * 1e3:.1f} ms (steps "
-        f"{TRAIN_CKPT}-{TRAIN_STEPS - 1} overlap the async checkpoint's "
-        f"write); device {dev} (torch.profiler), idle share {idle}; top "
-        f"{busy['top']}")
-    log(f"  [{smi}] one step's launches {per_step}; SA-CONV GEMM card ms "
-        f"forward {by_role['forward']:.2f} (with the recompute and pre), dx "
+    log(f"  [{smi}] {name} train step of {tokens} tokens: "
+        f"{step_s * 1e3:.1f} ms host clock (median of 3, no checkpoint in "
+        f"flight) = {tokens / step_s:.0f} trained tokens/s; trainer.run's "
+        f"steps 1-{steps - 1}: median "
+        f"{detail['trainer_step_s_median'] * 1e3:.1f} ms; device {dev} "
+        f"(torch.profiler), idle share {idle}; peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated over the "
+        f"clean steps); top {busy['top']}")
+    log(f"  [{smi}] {name}: one step's launches "
+        f"{detail['launches_per_step']}; GEMM/SA-FC card ms forward "
+        f"{by_role['forward']:.2f} (with the recompute and pre), dx "
         f"{by_role['dx']:.2f}, dw {by_role['dw']:.2f}; flash forward "
-        f"{flash_ms:.3f} ms; peak memory {peak / 1e9:.2f} GB "
-        f"(torch.cuda.max_memory_allocated over one step, state "
-        f"{base / 1e9:.2f} GB); phase {detail['phase_s']:.1f} s")
+        f"{flash_ms:.3f}; {name}: {detail['seconds']:.1f} s")
+    return c
+
+
+def train_phase(rep: Report, smi: str, cfg=None) -> dict:
+    """Phase 10: OLMo-1B as published (bf16, full width and depth) trains
+    through :func:`train_model`: first the autograd Functions against
+    torch autograd through the plain versions; the step-0 gradients
+    against the torch backend's (bf16 within its own bf16-vs-fp32 spread,
+    fp32 within ``TRAIN_FP32_REL_L2``); ``TRAIN_STEPS`` steps with an
+    async checkpoint every ``TRAIN_CKPT``.  Returns the run's launches."""
+    from repro_torch.configs.base import TrainConfig
+    cfg = cfg if cfg is not None else olmo_bf16_config()
+    t_phase = time.perf_counter()
+    check_train_functions(rep, cfg)
+    tc = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     total_steps=TRAIN_STEPS, warmup_steps=1, remat="block")
+    c = train_model(rep, smi, cfg.name, cfg, tc,
+                    lambda params, batch: check_train_grads(
+                        rep, cfg, tc, params, batch),
+                    names=TRAIN_KERNELS, path="trainer.run", key="train")
+    rep.detail["train"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {rep.detail['train']['phase_s']:.1f} s")
     return c
 
 
@@ -3740,8 +3964,9 @@ def check_rest_bf16(rep: Report, name: str, cfg, params, srv,
 
 class RouteCapture:
     """Inside ``with``: each MoE routing call's (chosen experts, plain
-    gates) on the host.  The gates are recomputed with the router's plain
-    version, which is what the torch backend's routing used."""
+    gates) on the host, a schedule compile's calls on meta tensors aside.
+    The gates are recomputed with the router's plain version, which is
+    what the torch backend's routing used."""
 
     def __init__(self) -> None:
         self.calls: list = []
@@ -3754,6 +3979,8 @@ class RouteCapture:
 
         def route(cfg, p, xf, name):
             vals, idx, aux = orig(cfg, p, xf, name)
+            if xf.device.type == "meta":        # a schedule's compile
+                return vals, idx, aux
             gates = torch.softmax(ref.matmul_bias_act(
                 xf.to(torch.float32), p["router"],
                 out_dtype=torch.float32), dim=-1)
@@ -3875,13 +4102,11 @@ def rest_matmuls(srv, cfg, params) -> list[dict]:
     one pass of that phase makes."""
     import torch
     per = op_counts(cfg)
-    acts = {"mlp.gate": "silu" if cfg.mlp == "swiglu" else "gelu",
-            "mlp.fc1": "gelu"}
     out: dict = {}
     for b, phase, sched, _ in lm_schedules(srv, sorted(set(lm_waves()),
                                                         reverse=True)):
         for key in sched:
-            act = acts.get(key.name, "none")
+            act = matmul_act(cfg, key.name)
             ident = (sched[key].regime, phase, key.m, key.k, key.n, act)
             if ident not in out:
                 w = rest_weight(cfg, params, key.name)
@@ -4178,7 +4403,6 @@ def frontend_matmuls(name: str, cfg, params, trace) -> list[dict]:
     m, (k, n), act, the ops that share it, a weight of that shape and its
     launches in one prefill or one decode step."""
     import torch
-    acts = {"mlp.gate": "silu" if cfg.mlp == "swiglu" else "gelu"}
     reqs, _, n_new = FRONTEND_REQUESTS[name]
     decode_steps = n_new - 1
     out: dict = {}
@@ -4186,7 +4410,7 @@ def frontend_matmuls(name: str, cfg, params, trace) -> list[dict]:
         if x.regime not in ("sa_conv", "sa_fc"):
             continue
         phase = "decode" if x.m == reqs else "prefill"
-        act = acts.get(x.name, "none")
+        act = matmul_act(cfg, x.name)
         ident = (x.regime, phase, x.m, x.k, x.n, act)
         if ident not in out:
             out[ident] = dict(regime=x.regime, phase=phase, m=x.m, act=act,
@@ -4572,10 +4796,249 @@ def frontend_phase(rep: Report, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training the decoder-only families (zamba2, mixtral, mamba2)
+# ---------------------------------------------------------------------------
+#: phase 14: FAMILY_STEPS train steps of TRAIN_BATCH x TRAIN_SEQ tokens a
+#: model through trainer.run; FAMILY_CKPT_MODEL writes an async checkpoint
+#: at step TRAIN_CKPT, restores it and resumes from it
+FAMILY_STEPS, FAMILY_CKPT_MODEL = 3, "mamba2-130m"
+#: the step-0 gradient checks' batch where it is not TRAIN_BATCH: zamba2's
+#: fp32 copy (7.9 GB of parameters, as many of gradients) at 1 x TRAIN_SEQ
+FAMILY_GRAD_BATCH = {"zamba2-2.7b": 1}
+#: the leaves whose step-0 gradients phase 14 holds against the torch
+#: backend's: zamba2's embedding, its first Mamba block's in_proj, a_log
+#: and dt_bias, the shared block's q projection (summed over its 9
+#: applications); mamba2's first block's projections, conv and a_log;
+#: mixtral's first layer's router, expert gate stack and q projection
+FAMILY_LEAVES = {
+    "zamba2-2.7b": ("embed", "blocks.0.mamba.in_proj[0]",
+                    "blocks.0.mamba.a_log[0]", "blocks.0.mamba.dt_bias[0]",
+                    "shared.attn.wq"),
+    "mixtral-8x7b": ("blocks.0.moe.router[0]", "blocks.0.moe.wg[0]",
+                     "blocks.0.attn.wq[0]"),
+    "mamba2-130m": ("blocks.0.mamba.in_proj[0]", "blocks.0.mamba.out_proj[0]",
+                    "blocks.0.mamba.conv_w[0]", "blocks.0.mamba.a_log[0]")}
+#: the kernels of each model's train path, reported on it under these names
+FAMILY_KERNELS = {
+    "zamba2-2.7b": {k: f"{k}[train zamba2]" for k in ("sa_conv_matmul",
+                                                       "flash_attention")},
+    "mixtral-8x7b": {k: f"{k}[train mixtral]" for k in (
+        "sa_conv_matmul", "flash_attention", "sa_fc_matmul")},
+    "mamba2-130m": {"sa_conv_matmul": "sa_conv_matmul[train mamba2]"}}
+#: fp32 ``exp`` overflows above log(float32 max)
+EXP_MAX = 88.72283935546875
+
+
+def rel_overflow(dt, a, chunk: int) -> dict:
+    """``ssd_chunked``'s ``rel = cum[t] - cum[s]`` above each chunk's
+    diagonal (s > t, where it is >= 0), computed as ``ssd_chunked``
+    computes ``cum``: the entries, those over EXP_MAX (where a literal
+    ``where(mask, exp(rel), 0)`` overflows and its backward gives NaN),
+    the largest, and the heads with an entry over."""
+    import torch
+    import torch.nn.functional as F
+    Bt, S, H = dt.shape
+    dtc = F.pad(dt.float(), (0, 0, 0, (-S) % chunk)).reshape(Bt, -1, chunk,
+                                                             H)
+    cum = torch.cumsum(dtc * a.float()[None, None, None, :], dim=2)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    above = torch.triu(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=dt.device), 1)[None, None, :, :, None]
+    rel = rel.masked_fill(~above, float("-inf"))
+    return dict(above=int(above.sum()) * Bt * rel.shape[1] * H,
+                over=int((rel > EXP_MAX).sum()), max_rel=float(rel.max()),
+                heads_over=int((rel.amax(dim=(0, 1, 2, 3)) > EXP_MAX).sum()),
+                heads=H, chunk=chunk)
+
+
+class SSDCapture:
+    """Inside ``with``: :func:`rel_overflow` of the first call of
+    :func:`repro_torch.models.ssm.ssd_chunked` on data (the first Mamba
+    block of the first forward; a schedule compile's calls on meta
+    tensors aside), as ``stats``."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self._orig = orig = ssm.ssd_chunked
+        self.stats = None
+
+        def ssd_chunked(x, dt, a, b, c, *, chunk, **kw):
+            if self.stats is None and dt.device.type != "meta":
+                self.stats = rel_overflow(dt.detach(), a.detach(), chunk)
+            return orig(x, dt, a, b, c, chunk=chunk, **kw)
+
+        ssm.ssd_chunked = ssd_chunked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm.ssd_chunked = self._orig
+
+
+def check_moe_grads(rep: Report, name: str, cfg, params, batch) -> None:
+    """mixtral's step-0 gradients (fp32, no remat, so each routing call
+    is the forward's) on the kernels against the torch backend, each
+    backend's routing captured: every selection equal except at near-ties
+    of the k-th and (k+1)-th gate (:func:`check_routes`, counted).  Where
+    no selection differs, each leaf within TRAIN_FP32_REL_L2 (relative
+    L2); where some do, the losses within TOL_LM and the leaves' distances
+    printed (another expert at a token is another function there)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    tc = TrainConfig(remat="none")
+    leaves = FAMILY_LEAVES[name]
+    runs = {}
+    for backend in ("kernels", "torch"):
+        with RouteCapture() as cap:
+            runs[backend] = (*step0_leaves(cfg, tc, params, batch, backend,
+                                           leaves), cap.calls)
+    (kl, kg, ks, kc), (tl, tg, ts, pc) = runs["kernels"], runs["torch"]
+    ties, first = check_routes(f"{name} step 0", kc, pc, cfg.moe.top_k)
+    differ = sum(int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                     .any(-1).sum()) for (a, _), (b, _) in zip(kc, pc))
+    rows = {p: dict(rel_l2=((kg[p] - tg[p]).norm() / tg[p].norm()).item(),
+                    max_abs=(kg[p] - tg[p]).abs().max().item(),
+                    norm=tg[p].norm().item()) for p in leaves}
+    for p, r in rows.items():
+        log(f"  {name} step-0 gradient {p} (|g| {r['norm']:.4g}): fp32 "
+            f"kernels vs torch relative L2 {r['rel_l2']:.3g}, max|d| "
+            f"{r['max_abs']:.3g}")
+    loss_d = abs(kl - tl)
+    if differ:
+        if not loss_d <= TOL_LM["atol"] + TOL_LM["rtol"] * abs(tl):
+            raise AssertionError(f"{name} step-0 loss {kl} vs {tl}")
+        gated = f"the loss (|d| {loss_d:.3g} within TOL_LM)"
+    else:
+        for p, r in rows.items():
+            if not r["rel_l2"] <= TRAIN_FP32_REL_L2:
+                raise AssertionError(
+                    f"{name} step-0 fp32 gradient {p}: relative L2 "
+                    f"{r['rel_l2']:.3g} > {TRAIN_FP32_REL_L2}")
+        gated = (f"every leaf within relative L2 {TRAIN_FP32_REL_L2} "
+                 f"(loss |d| {loss_d:.3g})")
+    rep.detail[f"family_{name}_step0_grads"] = dict(
+        leaves=rows, losses={"kernels fp32": kl, "torch fp32": tl},
+        seconds={"kernels fp32": ks, "torch fp32": ts},
+        routing_calls=len(kc), tokens_differing=differ, near_ties=ties)
+    log(f"  {name} step 0: {len(kc)} routing calls, {differ} tokens whose "
+        f"experts differ between the backends (each a near-tie; {ties} "
+        f"near-ties within {ROUTE_TIE:g} in all): gated {gated}; losses "
+        f"kernels {kl:.6f}, torch {tl:.6f} ({ks:.1f} s, {ts:.1f} s)")
+
+
+def block_times(rep: Report, name: str, cfg, params) -> dict:
+    """Card time (CUDA events, median) of the plain torch ops of a train
+    step, at its shapes: a Mamba block's SSD (``ssd_chunked``) and an MoE
+    block's expert products (``moe._experts`` over the (E, C, d) slot
+    buffer of TRAIN_BATCH x TRAIN_SEQ tokens, layer 0's weights), each
+    forward and forward + backward.  A step runs each block's forward
+    twice (remat) and its backward once: blocks x (forward + forward and
+    backward) ms a step."""
+    import torch
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.transformer import _select
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    dt_ = getattr(torch, cfg.compute_dtype)
+    per = op_counts(cfg)
+    out = {}
+
+    def rand(*shape, dtype=dt_, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale
+                ).to(dtype).requires_grad_()
+
+    def fwd_bwd(fn, live):
+        def run():
+            y = fn()
+            torch.autograd.grad(y.float().sum(), live)
+        return run
+
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        nh, hd, ns = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+        x = rand(TRAIN_BATCH, TRAIN_SEQ, nh, hd)
+        dt = (torch.rand((TRAIN_BATCH, TRAIN_SEQ, nh), generator=gen,
+                         device=DEVICE) * 0.1 + 1e-3).requires_grad_()
+        a = (-torch.exp(torch.rand((nh,), generator=gen, device=DEVICE)
+                        * 2.77)).requires_grad_()
+        b, c = rand(TRAIN_BATCH, TRAIN_SEQ, ns), rand(TRAIN_BATCH, TRAIN_SEQ,
+                                                       ns)
+
+        def fn():
+            return ssm.ssd_chunked(x, dt, a, b, c, chunk=s.chunk)
+        out["ssd"] = dict(forward_ms=timed(fn, runs=10),
+                          fwd_bwd_ms=timed(fwd_bwd(fn, [x, dt, a, b, c]),
+                                           runs=10),
+                          blocks=per["ssm.in_proj"])
+    if cfg.moe is not None:
+        p = {k: v.detach().requires_grad_() for k, v in _select(
+            params["blocks"][0]["moe"], 0).items() if k in ("wg", "wu",
+                                                            "wd")}
+        E, d = cfg.moe.n_experts, cfg.d_model
+        C = moe._capacity(TRAIN_BATCH * TRAIN_SEQ, cfg)
+        xe = rand(1, E, C, d)
+
+        def fn():
+            return moe._experts(cfg, p, xe, "ge")
+        out["experts"] = dict(forward_ms=timed(fn, runs=10),
+                              fwd_bwd_ms=timed(fwd_bwd(fn, [xe, *p.values()]),
+                                               runs=10),
+                              blocks=per["moe.router"], capacity=C)
+    for k, v in out.items():
+        v["ms_per_step"] = v["blocks"] * (v["forward_ms"] + v["fwd_bwd_ms"])
+        log(f"  {name} {k}: forward {v['forward_ms']:.3f} ms, forward + "
+            f"backward {v['fwd_bwd_ms']:.3f} ms a block (CUDA events) x "
+            f"{v['blocks']} blocks = {v['ms_per_step']:.1f} ms a step")
+    rep.detail[f"family_{name}_plain_ops"] = out
+    return out
+
+
+def family_phase(rep: Report, smi: str) -> dict:
+    """Phase 14: each of phase 12's models trains through
+    :func:`train_model`, its state donated to the optimizer (mixtral-2L's
+    functional update would hold a second 38 GB state): step-0 gradients
+    against the torch backend (mixtral's by :func:`check_moe_grads`, the
+    SSM stacks' by :func:`check_train_grads` at FAMILY_GRAD_BATCH, remat
+    by block on both backends); FAMILY_STEPS steps; FAMILY_CKPT_MODEL's
+    async checkpoint.  Returns the trainer's launches by model."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    t_phase = time.perf_counter()
+    out = {}
+    for name, cfg in rest_configs().items():
+        tc = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         total_steps=FAMILY_STEPS, remat="block")
+        gb = FAMILY_GRAD_BATCH.get(name, TRAIN_BATCH)
+
+        def grads(params, batch, name=name, cfg=cfg, tc=tc, gb=gb):
+            batch = {k: v[:gb] for k, v in batch.items()}
+            if cfg.moe is not None:
+                return check_moe_grads(rep, name, cfg, params, batch)
+            log(f"  {name} step-0 gradients at {gb} x {TRAIN_SEQ} tokens, "
+                "remat by block on both backends:")
+            check_train_grads(rep, cfg, tc, params, batch,
+                              FAMILY_LEAVES[name], torch_remat="block",
+                              key=f"family_{name}_step0_grads")
+
+        cut = "" if name != "mixtral-8x7b" else (
+            f"; reduced: depth only, {cfg.n_layers} of 32 layers, full "
+            "width, fp32")
+        out[name] = train_model(rep, smi, name, cfg, tc, grads,
+                                names=FAMILY_KERNELS[name],
+                                path=f"trainer.run {name}",
+                                key=f"family_{name}",
+                                ckpt=name == FAMILY_CKPT_MODEL,
+                                donate=True, note=cut)
+        torch.cuda.empty_cache()
+    rep.detail["family_phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {rep.detail['family_phase_s']:.1f} s")
+    return out
+
+
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
                  fleet: dict, train: dict, rest: dict,
-                 frontend: dict) -> dict:
+                 frontend: dict, families: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -4600,11 +5063,16 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     (``<kernel>[seamless]``, ``<kernel>[llava]``), read on that model's
     ``greedy_generate`` (bf16): the wave's prefill for the GEMM and flash
     (every kind: encoder, cross, decoder), a decode step for SA-FC, bounded
-    by bf16's rate.  ``launches_by_path`` gives every path's count (the
-    zoo's ``ModelZooServer.serve``, the bf16 ``CNNServer.run``, ``fleet``,
-    the fleet's three executed configurations, ``trainer.run``, phase 12's
-    three ``ServeEngine.run`` paths and phase 13's two ``greedy_generate``
-    paths among them);
+    by bf16's rate.  Then one per kernel of each of phase 14's train paths
+    (``<kernel>[train zamba2]``, ``[train mixtral]``, ``[train mamba2]``),
+    read on that model's ``trainer.run``: one step's work, as phase 10's
+    (mixtral's router on SA-FC: forward, recompute and ``dx``), bounded by
+    bf16's rate, fp32's for mixtral.  ``launches_by_path`` gives every
+    path's count (the zoo's ``ModelZooServer.serve``, the bf16
+    ``CNNServer.run``, ``fleet``, the fleet's three executed
+    configurations, ``trainer.run``, phase 12's three ``ServeEngine.run``
+    paths, phase 13's two ``greedy_generate`` paths and phase 14's three
+    ``trainer.run`` paths among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -4642,7 +5110,8 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              "trainer.run": train,
              **{f"ServeEngine.run {name}": c for name, c in rest.items()},
              **{f"greedy_generate {name}": c
-                for name, c in frontend.items()}}
+                for name, c in frontend.items()},
+             **{f"trainer.run {name}": c for name, c in families.items()}}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -4691,6 +5160,15 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                     and r["path"] == path and r["phase"] == phase]
             out.append(entry(name, kernel, path, frontend[model][kernel],
                              rows, PEAK_BF16_FLOPS))
+    for model, names in FAMILY_KERNELS.items():
+        path = f"trainer.run {model}"
+        peak = PEAK_FP32_FLOPS if model == "mixtral-8x7b" else \
+            PEAK_BF16_FLOPS
+        for kernel, name in names.items():
+            rows = [r for r in rep.rows if r["kernel"] == name
+                    and r["path"] == path]
+            out.append(entry(name, kernel, path, families[model][kernel],
+                             rows, peak))
     return {"kernels": out}
 
 
@@ -4799,9 +5277,15 @@ def main() -> int:
         "the non-causal flash sweep")
     frontend = frontend_phase(rep, smi)
 
+    log("== phase 14: training the decoder-only families: trainer.run over "
+        "zamba2-2.7b and mamba2-130m as published (bf16) and mixtral-8x7b "
+        f"at full width cut to {MIXTRAL_LAYERS} layers (fp32)")
+    with torch.enable_grad():
+        families = family_phase(rep, smi)
+
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
-                        served_bf16, fleet, train, rest, frontend)
+                        served_bf16, fleet, train, rest, frontend, families)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -229,6 +229,27 @@ def launches_for(key, plan) -> list[Launch]:
                         *kinds)]
 
 
+def backward_launches(key, plan) -> list[Launch]:
+    """The launches of one train-schedule matmul's backward on the kernels
+    backend (``core/engine.py``'s ``_MatmulFn``, ``_QuantMatmulFn``):
+    ``dx = dpre @ w.T`` on the forward's regime kernel and ``dw = x.T @
+    dpre`` on the GEMM, ``dpre`` in the activation's dtype; frozen int8
+    weights make ``dx`` alone, against ``q.T``.  A non-linear activation's
+    recompute of the pre-activation is the forward's launch again."""
+    x_kind = X_KIND[key.dtype]
+    w_kind = W_KIND[key.weight_dtype]
+    if plan.regime == "sa_fc":
+        out = [fc_launch(f"{key.name} dx [sa_fc]", key.m, key.n, key.k,
+                         w_kind, x_kind)]
+    else:
+        out = [gemm_launch(f"{key.name} dx [sa_conv]", key.m, key.k, key.n,
+                           w_kind, x_kind)]
+    if key.weight_dtype != "int8":
+        out.append(gemm_launch(f"{key.name} dw [sa_conv]", key.k, key.n,
+                               key.m, W_KIND[key.dtype], x_kind))
+    return out
+
+
 def schedule_launches(schedule) -> list[Launch]:
     """Every launch of a compiled schedule, conv entries first."""
     out = []
@@ -328,7 +349,8 @@ def attention_shapes(cfg, phase: str, batch: int, seq: int) -> list[tuple]:
 def lm_launches(configs: dict[str, Any] | None = None,
                 shapes=LM_SHAPES) -> list[Launch]:
     """The launches of LM serving and training: every matmul of each
-    config's compiled schedule at ``shapes`` (SA-FC or the GEMM), and flash
+    config's compiled schedule at ``shapes`` (SA-FC or the GEMM), its
+    backward's at the train shapes (:func:`backward_launches`), and flash
     attention at each prefill and train shape, once per kind
     (:func:`attention_shapes`).  Train shapes are skipped for configs the
     port does not train yet
@@ -357,9 +379,13 @@ def lm_launches(configs: dict[str, Any] | None = None,
                 launches = [lau for key, plan in entries.items()
                             for lau in launches_for(key, plan)]
             else:
-                launches = schedule_launches(LayerSchedule.compile(
+                sched = LayerSchedule.compile(
                     cfg, phase, batch=batch, seq=seq, max_seq=LM_MAX_SEQ,
-                    cache_dtype=getattr(torch, cfg.compute_dtype)))
+                    cache_dtype=getattr(torch, cfg.compute_dtype))
+                launches = schedule_launches(sched)
+                if phase == "train":
+                    launches += [lau for key, plan in sched.items()
+                                 for lau in backward_launches(key, plan)]
             for lau in launches:
                 if (lau.kernel, lau.shape) not in seen:
                     seen.add((lau.kernel, lau.shape))

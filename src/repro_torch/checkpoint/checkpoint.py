@@ -32,7 +32,9 @@ _MANIFEST = "manifest.json"
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    # a copy even of a host tensor: an async save writes from it while
+    # a donated step updates the state in place
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

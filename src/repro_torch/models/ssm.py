@@ -81,12 +81,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.cumsum(dA, dim=2)                           # inclusive
 
     # ---- intra-chunk (masked quadratic) --------------------------------
-    # decay[t,s] = exp(cum[t]-cum[s]) for s <= t
+    # decay[t,s] = exp(cum[t]-cum[s]) for s <= t, else 0.  Above the
+    # diagonal rel >= 0 and reaches +inf in fp32 at published sizes (a
+    # 256-step span of dt*|A| passes 88.7), so rel is masked to -inf before
+    # the exp: the same values as the reference's where(mask, exp(rel), 0)
+    # (exp(-inf) == 0), and a backward with no 0 * inf in it.
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,t,s,H)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(rel),
-                        torch.zeros((), dtype=f32, device=x.device))
+    decay = torch.exp(rel.masked_fill(~mask[None, None, :, :, None],
+                                      float("-inf")))
     cb = torch.einsum("bztn,bzsn->bzts", cc, bc)            # (B,nc,t,s)
     dx = dtc[..., None] * xc                                # (B,nc,c,H,D)
     y = torch.einsum("bzts,bztsh,bzshd->bzthd", cb, decay, dx)

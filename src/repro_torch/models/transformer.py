@@ -28,8 +28,8 @@ leaves, without the serving copy ``embed_t``, so the loss computes the head
 from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
 optimizer step.
 
-Training the MoE, Mamba, shared-attention, encoder-decoder and vision
-families raises ``NotImplementedError`` (:func:`loss_fn`; ROADMAP A.2b).
+Training the encoder-decoder and vision families raises
+``NotImplementedError`` (:func:`loss_fn`; ROADMAP A.2b).
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ MODES = ("train", "prefill")
 #: ``remat`` policies: none, or each pattern period recomputed in the
 #: backward pass (the reference's ``jax.checkpoint`` of its scan body)
 REMATS = ("none", "block")
-_UNTRAINED = "ROADMAP A.2b, training the new families"
+_UNTRAINED = ("ROADMAP A.2b, training the encoder-decoder and vision "
+              "families")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -71,12 +72,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def can_train(cfg: ModelConfig) -> bool:
-    """Whether :func:`loss_fn` is ported for ``cfg``: not yet for MoE,
-    Mamba or shared-attention blocks, nor for the encoder-decoder and
-    vision families."""
-    return not (cfg.enc_dec or cfg.vision_tokens or any(
-        ak in (MAMBA, SHARED_ATTN) or mk == "moe"
-        for ak, mk in cfg.block_kinds()))
+    """Whether :func:`loss_fn` is ported for ``cfg``: every decoder-only
+    config (dense, MoE, Mamba, shared attention), not yet the
+    encoder-decoder and vision families."""
+    return not (cfg.enc_dec or cfg.vision_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -413,16 +412,13 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     term as the reference's one-hot contraction), averaged over
     ``batch["loss_mask"][:, 1:]`` when given.  The head of a tied model
     comes from ``embed`` (:func:`trainable`).  Returns (loss, {"ce",
-    "aux"}).  Training the MoE, Mamba, shared-attention, encoder-decoder
-    and vision families is not ported yet: the reference's SSD backward
-    takes ``where(mask, exp(rel), 0)``, whose masked entries can be
-    ``+inf`` in fp32 and then give NaN gradients (``0 * inf``), here as
-    there, and the vision loss's offset is not ported."""
+    "aux"}), ``aux`` the MoE blocks' load-balance loss (0 without them).
+    Training the encoder-decoder and vision families is not ported yet
+    (the vision loss's offset, ``encode`` under remat)."""
     if not can_train(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: training MoE, Mamba, shared-attention, "
-            f"encoder-decoder and vision configs is not ported yet "
-            f"({_UNTRAINED})")
+            f"{cfg.name}: training encoder-decoder and vision configs is "
+            f"not ported yet ({_UNTRAINED})")
     logits, aux, _ = forward(cfg, trainable(params), batch, mode="train",
                              remat=remat)
     tokens = batch["tokens"]

@@ -95,9 +95,13 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *,
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
-                    engine: Engine | None = None) -> Callable:
+                    engine: Engine | None = None,
+                    donate: bool = False) -> Callable:
     """``train_step(params, opt_state, cstate, batch) -> (params, opt_state,
-    cstate, metrics)``; ``batch`` may hold tensors or numpy arrays."""
+    cstate, metrics)``; ``batch`` may hold tensors or numpy arrays.
+    ``donate`` hands the parameters and moments to the optimizer to
+    update in place (:func:`repro_torch.optim.adamw.apply`): the same
+    values, with one copy of the state on the device instead of two."""
     grads_of = make_grad_fn(cfg, tc, engine=engine)
 
     def train_step(params, opt_state, cstate, batch):
@@ -105,7 +109,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
         grads, cstate = grad_compress.compress_grads(grads, cstate,
                                                      tc.grad_compress)
         tp, opt_state, om = adamw.apply(T.trainable(params), grads,
-                                        opt_state, tc)
+                                        opt_state, tc, donate=donate)
         return (T.with_head_copy(cfg, tp), opt_state, cstate,
                 {"loss": value, **om})
 

@@ -583,7 +583,7 @@ def test_launch_pass_clean_on_every_lm_config():
     windows = {lau.shape[7] for lau in launches
                if lau.kernel == "attention"}
     assert windows == {0, 1024, 4096}          # gemma3's, gemma2's, mixtral's
-    routers = {lau.shape[2] for lau in launches if "moe.router" in lau.op}
+    routers = {lau.shape[2] for lau in launches if "moe.router [" in lau.op}
     assert routers == {8, 128}
     assert any("zamba2" in lau.op and "ssm.in_proj" in lau.op
                and lau.shape[1] == 10448 for lau in launches)
@@ -591,6 +591,39 @@ def test_launch_pass_clean_on_every_lm_config():
                and lau.shape[5] == 80 for lau in launches)
     assert not any("mamba2-130m" in lau.op and lau.kernel == "attention"
                    for lau in launches)
+    report = tlaunch.verify_launches(launches)
+    assert report.ok and report.findings == [], report.summary()
+
+
+def test_launch_pass_covers_the_train_backward_of_every_trained_config():
+    """Every config the port trains has its train shape's launches checked,
+    the backward's ``dx`` (the forward's regime kernel against ``w.T``)
+    and ``dw`` (the GEMM on ``x.T``) among them: mixtral's router (dx on
+    SA-FC with k = E = 8, dw at n = 8), Mamba's in_proj (n = 2 di + 2 ns
+    + nh: 10448 for zamba2, 3352 for mamba2).  The encoder-decoder and
+    vision configs, which do not train yet, have none.  No finding."""
+    configs = {k: v for k, v in tlaunch.lm_configs().items()
+               if k in ("mixtral-8x7b", "mamba2-130m", "zamba2-2.7b",
+                        "olmo-1b", "seamless-m4t-large-v2")}
+    launches = tlaunch.lm_launches(configs)
+    train = {(lau.op.split(" ")[0], lau.op.split(": ")[1], lau.kernel,
+              lau.shape[:3]) for lau in launches if " train " in lau.op}
+    assert {name for name, *_ in train} == {"mixtral-8x7b", "mamba2-130m",
+                                            "zamba2-2.7b", "olmo-1b"}
+    for want in (
+            ("mixtral-8x7b", "moe.router dx [sa_fc]", "sa_fc",
+             (2048, 8, 4096)),
+            ("mixtral-8x7b", "moe.router dw [sa_conv]", "sa_conv",
+             (4096, 8, 2048)),
+            ("zamba2-2.7b", "ssm.in_proj dx [sa_conv]", "sa_conv",
+             (2048, 2560, 10448)),
+            ("zamba2-2.7b", "ssm.in_proj dw [sa_conv]", "sa_conv",
+             (2560, 10448, 2048)),
+            ("mamba2-130m", "ssm.in_proj dw [sa_conv]", "sa_conv",
+             (768, 3352, 2048)),
+            ("olmo-1b", "lm_head dx [sa_conv]", "sa_conv",
+             (2048, 2048, 50304))):
+        assert want in train, want
     report = tlaunch.verify_launches(launches)
     assert report.ok and report.findings == [], report.summary()
 

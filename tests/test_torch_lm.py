@@ -41,6 +41,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import kvcache as KC
 from repro_torch.serve import serve_step as tstep
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train import train_step as TS
 from repro_torch.train.train_step import init_train_state
 
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -167,13 +168,10 @@ def test_frontend_families_are_supported(arch, extra):
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
-                                  "mamba2-130m", "zamba2-2.7b",
-                                  "seamless-m4t-large-v2", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
 def test_loss_fn_refuses_the_untrained_families(arch):
-    """MoE, Mamba, shared-attention, encoder-decoder and vision configs
-    serve but do not train yet: the loss raises, and so does compiling
-    their train schedule."""
+    """Encoder-decoder and vision configs serve but do not train yet: the
+    loss raises, and so does compiling their train schedule."""
     cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
                         compute_dtype="float32")
     T.check_supported(cfg)
@@ -184,6 +182,28 @@ def test_loss_fn_refuses_the_untrained_families(arch):
         T.loss_fn(cfg, params, {"tokens": tokens})
     with pytest.raises(NotImplementedError, match="training"):
         tsched.LayerSchedule.compile(cfg, "train", batch=1, seq=8)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "mamba2-130m", "zamba2-2.7b"])
+def test_decoder_only_families_train(arch):
+    """MoE, Mamba2 and shared-attention configs train (tests/test_archs.py's
+    check on the port): the loss and every gradient are finite, the train
+    schedule compiles, and one SGD step changes the loss
+    (tests/test_torch_train_families.py holds them to the reference)."""
+    cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
+                        compute_dtype="float32")
+    assert T.can_train(cfg)
+    params = T.trainable(T.init_params(cfg, 0, device="cpu"))
+    batch = {"tokens": _t(_tokens(cfg, (2, 32)))}
+    loss, grads = TS.make_grad_fn(cfg, tbase.TrainConfig(),
+                                  engine=KERNELS)(params, batch)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in tree.leaves(grads))
+    assert len(tsched.LayerSchedule.compile(cfg, "train", batch=2, seq=32))
+    stepped = tree.map_leaves(lambda p, g: p - 0.1 * g, params, grads)
+    loss2, _ = T.loss_fn(cfg, stepped, batch)
+    assert torch.isfinite(loss2) and float(loss2) != float(loss)
 
 
 def test_entry_points_default_to_the_card():
