@@ -174,7 +174,20 @@ Phases (any failure raises and exits non-zero):
    resumed; trained tokens/s, device time and idle share, peak memory,
    every distinct GEMM/SA-FC shape by role (forward, ``dx``, ``dw``) and
    flash's forward held against their plain versions and timed, the SSD's
-   and the expert products' card time.
+   and the expert products' card time;
+15. training the encoder-decoder and vision families through the same
+   harness: seamless-m4t-large-v2 as published (24 + 24 layers, 4 x 1024
+   audio frames a step) and llava-next-34b at full width cut to 4 of its
+   60 layers (576 vision tokens in front of each sequence), both bf16,
+   3 steps of 4 x 512 text tokens, remat by block, the state donated.
+   Both train through ``make_train_step``: llava on its text-only
+   schedule, as the reference compiles it; seamless, which has no train
+   schedule in either package, with none attached.  Step-0 gradients of the
+   frontend, seamless's first encoder block's q, first decoder block's
+   cross-attention k and head, llava's first block's q and head against
+   the torch backend's at 1 x 512 text tokens; the dispatch records and
+   launches held to a meta trace of the same step; seamless's checkpoint
+   restored bitwise and resumed; the kernels' shapes timed by role.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -358,6 +371,9 @@ class Report:
                                      *(n for d in FRONTEND_KERNELS.values()
                                        for n in d.values()),
                                      *(n for d in FAMILY_KERNELS.values()
+                                       for n in d.values()),
+                                     *(n for d in
+                                       FRONTEND_TRAIN_KERNELS.values()
                                        for n in d.values())]}
         self.rows: list[dict] = []          # per-shape timings
         self.detail: dict = {}
@@ -3199,16 +3215,50 @@ def check_train_grads(rep: Report, cfg, tc, params, batch,
         f"{k} {v[0]:.5f} ({v[2]:.1f} s)" for k, v in runs.items()))
 
 
-def train_rows(rep: Report, cfg, sched, names: dict, path: str) -> None:
+def train_groups(cfg, sched=None, recs=None) -> dict:
+    """One train step's matmul work (remat by block) by distinct (regime,
+    m, k, n, act, dtype): the ops' names and each role's launches -- the
+    forward with the recompute and ``pre``, ``dx``, ``dw``.  From the
+    train schedule and the config's op counts, or, for a frontend config
+    (whose matmuls run over the frames or the vision prefix), from one
+    forward's engine records (:func:`meta_train_records`: every matmul but
+    the head is recomputed)."""
+    if recs is None:
+        per, again = op_counts(cfg), stacked_counts(cfg)
+        ops = [(key.name, plan.regime, key.m, key.k, key.n, key.dtype,
+                per[key.name], again.get(key.name, 0))
+               for key, plan in sched.items()]
+    else:
+        ops = [(r.name, r.regime, r.m, r.k, r.n, r.dtype, 1,
+                int(r.name != "lm_head")) for r in recs
+               if r.regime in ("sa_conv", "sa_fc")]
+    groups: dict = {}
+    for name, regime, m, k, n, dtype, runs, again in ops:
+        act = matmul_act(cfg, name)
+        g = groups.setdefault((regime, m, k, n, act, dtype),
+                              dict(names=[], forward=0, dx=0, dw=0))
+        if name not in g["names"]:
+            g["names"].append(name)
+        g["forward"] += runs + again + (runs if act != "none" else 0)
+        g["dx"] += runs
+        g["dw"] += runs
+    return groups
+
+
+def train_rows(rep: Report, cfg, groups: dict, names: dict,
+               path: str, heavy_flops: float | None = None) -> None:
     """Card time of one train step's kernel work (remat by block), per
-    distinct shape and role: each matmul's forward (with the recompute and
-    ``pre``) on its regime's kernel, ``dx`` against ``w.T`` on the same
-    kernel and ``dw = x.T dpre`` on the SA-CONV GEMM, each first held
-    against its plain version (relative to the output's RMS: TOL_FC in
-    fp32, TOL_BF16 in bf16) and then timed beside its bound, plain version
-    and ``torch.mm``; flash's forward at the step's wave (the config's
-    heads and window), held against ``flash_plain``.  Rows go under
-    ``names[kernel]`` on ``path``."""
+    distinct shape and role (:func:`train_groups`): each matmul's forward
+    (with the recompute and ``pre``) on its regime's kernel, ``dx``
+    against ``w.T`` on the same kernel and ``dw = x.T dpre`` on the SA-CONV
+    GEMM, each first held against its plain version (relative to the
+    output's RMS: TOL_FC in fp32, TOL_BF16 in bf16) and then timed beside
+    its bound, plain version and ``torch.mm`` (a median of 25 calls; of 5
+    for a shape of more than ``heavy_flops`` operations, where given);
+    flash's forward at the step's wave (the config's heads and window; a
+    frontend config's every kind, :func:`frontend_train_flash`), held
+    against ``flash_plain``.  Rows go under ``names[kernel]`` on
+    ``path``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -3228,19 +3278,6 @@ def train_rows(rep: Report, cfg, sched, names: dict, path: str) -> None:
     def rand(*shape, dtype=dt):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
-    per, again = op_counts(cfg), stacked_counts(cfg)
-    groups: dict = {}
-    for key, plan in sched.items():
-        act = matmul_act(cfg, key.name)
-        n = per[key.name]
-        g = groups.setdefault((plan.regime, key.m, key.k, key.n, act,
-                               key.dtype), dict(names=[], forward=0, dx=0,
-                                                dw=0))
-        g["names"].append(key.name)
-        g["forward"] += n + again.get(key.name, 0) + (n if act != "none"
-                                                      else 0)
-        g["dx"] += n
-        g["dw"] += n
     for (regime, m, k, n, act, xdt), g in groups.items():
         xdt = getattr(torch, xdt)
         x, w, dpre = rand(m, k, dtype=xdt), rand(k, n, dtype=xdt) * \
@@ -3256,16 +3293,21 @@ def train_rows(rep: Report, cfg, sched, names: dict, path: str) -> None:
             rep.note_err(names[kname], allclose_rms(
                 f"{path} {label}", out, want, tol))
             del want
+            flops = 2 * a.shape[0] * a.shape[1] * b.shape[1]
+            runs = dict(runs=5, warmup=1) if heavy_flops is not None and \
+                flops > heavy_flops else {}
             add_row(rep, names[kname], path, label,
-                    timed(lambda: kern(a, b, act=ac)),
+                    timed(lambda: kern(a, b, act=ac), **runs),
                     timed(lambda: plain(a, b, act=ac), runs=1, warmup=0),
-                    timed(lambda: ref.apply_act(torch.mm(a, b), ac)),
-                    2 * a.shape[0] * a.shape[1] * b.shape[1],
-                    nbytes(a, b, out), peak=peak, per_pass=g[role],
+                    timed(lambda: ref.apply_act(torch.mm(a, b), ac), **runs),
+                    flops, nbytes(a, b, out), peak=peak, per_pass=g[role],
                     phase="train step")
         del x, w, dpre
     blocks = attention_blocks(cfg)
-    if blocks:
+    if cfg.enc_dec or cfg.vision_tokens:
+        frontend_train_flash(rep, cfg, names, path, peak,
+                             TOL_BF16 if bf16 else TOL_ATTN)
+    elif blocks:
         from repro_torch.configs.base import ATTN_LOCAL
         window = cfg.sliding_window if any(
             ak == ATTN_LOCAL for ak, _ in cfg.block_kinds()) else 0
@@ -3303,25 +3345,27 @@ def train_rows(rep: Report, cfg, sched, names: dict, path: str) -> None:
 
 def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
                 names: dict, path: str, key: str, ckpt: bool = True,
-                donate: bool = False, note: str = "") -> dict:
+                donate: bool = False, note: str = "",
+                heavy_flops: float | None = None) -> dict:
     """One model trained on the kernels backend through ``trainer.run``
-    (phases 10 and 14).  ``grads(params, batch)`` checks the step-0
+    (phases 10, 14 and 15).  ``grads(params, batch)`` checks the step-0
     gradients; then ``tc.total_steps`` steps, the state updated in place
     by the optimizer where ``donate``: every loss finite, every matmul a
     schedule hit (an MoE block's expert products aside), launches as the
     train schedule implies (the plain version only in attention's
     backward), in an SSM stack the first Mamba block's above-diagonal
     ``rel`` entries over EXP_MAX counted at step 0.  With ``ckpt``, the
-    async checkpoint of step TRAIN_CKPT restored bitwise into a fresh
-    state and the trainer resuming from it.  Then clean steps from the
-    trained state (host clock, tokens/s), device time and idle share, peak
-    memory, the kernels' shapes by role against their plain versions and
-    timed (:func:`train_rows`, under ``names`` on ``path``), an SSM's or
+    trainer resuming from the async checkpoint of step TRAIN_CKPT, the
+    state it restored into a fresh one bitwise the state saved.  Then
+    clean steps from the trained (or resumed) state (host clock,
+    tokens/s), device time and idle share, peak memory, the kernels'
+    shapes by role against their plain versions and timed
+    (:func:`train_rows`, under ``names`` on ``path``, ``heavy_flops``
+    passed on), an SSM's or
     MoE's plain ops (:func:`block_times`).  ``rep.detail[key]`` holds the
     numbers; returns the trainer's launches."""
     import shutil
     import torch
-    from repro_torch.checkpoint.checkpoint import Checkpointer
     from repro_torch.core import tree
     from repro_torch.core.engine import Engine
     from repro_torch.core.schedule import LayerSchedule
@@ -3332,8 +3376,9 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
 
     t_model = time.perf_counter()
     steps = tc.total_steps
+    frontend = bool(cfg.enc_dec or cfg.vision_tokens)
     data = SyntheticLM(DataConfig(cfg.vocab_size, tc.seq_len,
-                                  tc.global_batch, seed=tc.seed))
+                                  tc.global_batch, seed=tc.seed), cfg)
     pending = [TS.init_train_state(cfg, tc, tc.seed, device=DEVICE)]
     state_bytes = nbytes(*tree.leaves(pending[0]))
     log(f"  [{smi}] {name}: {cfg.n_params() / 1e9:.3f} B parameters in "
@@ -3369,35 +3414,48 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     c = counters()
-    sched = LayerSchedule.compile(cfg, "train", batch=tc.global_batch,
-                                  seq=tc.seq_len, policy=eng.policy)
-    expect_train_counts(c, path, train_launches(cfg, sched, steps,
-                                                remat=True))
-    per = op_counts(cfg)
-    mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")
-          and not r.name.endswith(".experts")]
-    att = [r for r in tr if r.regime == "attention"]
-    experts = [r for r in tr if r.name.endswith(".experts")]
-    if len(mm) != steps * sum(per[k.name] for k in sched) or \
-            len(att) != steps * attention_blocks(cfg) or \
-            len(tr) != len(mm) + len(att) + len(experts) or \
-            any(r.schedule != "hit" for r in mm):
-        raise AssertionError(f"{path}: a matmul missed its schedule, or the "
-                             "trace holds other records than one forward's "
-                             "a step (remat and the backward record nothing)")
+    if frontend:
+        recs = meta_train_records(cfg, tc, eng.policy)
+        groups = train_groups(cfg, recs=recs)
+        per_step = record_launches(cfg, recs, 1)
+        expect_train_counts(c, path, record_launches(cfg, recs, steps))
+        states = check_frontend_records(path, tr, recs, steps)
+        mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")]
+        said = (f"{len(mm)} matmul dispatches, schedule states {states} a "
+                "step as a meta trace of the step gives; launches "
+                f"{c} == its records'")
+    else:
+        sched = LayerSchedule.compile(cfg, "train", batch=tc.global_batch,
+                                      seq=tc.seq_len, policy=eng.policy)
+        groups = train_groups(cfg, sched)
+        per_step = train_launches(cfg, sched, 1, True)
+        expect_train_counts(c, path, train_launches(cfg, sched, steps,
+                                                    remat=True))
+        per = op_counts(cfg)
+        mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")
+              and not r.name.endswith(".experts")]
+        att = [r for r in tr if r.regime == "attention"]
+        experts = [r for r in tr if r.name.endswith(".experts")]
+        if len(mm) != steps * sum(per[k.name] for k in sched) or \
+                len(att) != steps * attention_blocks(cfg) or \
+                len(tr) != len(mm) + len(att) + len(experts) or \
+                any(r.schedule != "hit" for r in mm):
+            raise AssertionError(f"{path}: a matmul missed its schedule, or "
+                                 "the trace holds other records than one "
+                                 "forward's a step (remat and the backward "
+                                 "record nothing)")
+        said = (f"{len(mm)} matmul dispatches, all schedule hits; launches "
+                f"{c} == the train schedule's")
     if len(run.losses) != steps or not all(
             l == l and abs(l) < float("inf") for l in run.losses):
         raise AssertionError(f"{path} losses {run.losses}")
     log(f"  {path}: {steps} steps of {tc.global_batch} x {tc.seq_len} "
         f"tokens in {run_s:.2f} s (schedule compiled"
         f"{', checkpoints written' if ckpt else ''}); losses "
-        f"{[round(l, 5) for l in run.losses]}, all finite; {len(mm)} "
-        f"matmul dispatches, all schedule hits; launches {c} == the train "
-        "schedule's")
+        f"{[round(l, 5) for l in run.losses]}, all finite; {said}")
     detail = dict(card=smi, steps=steps, batch=tc.global_batch,
                   seq=tc.seq_len, donated=donate, losses=run.losses,
-                  launches=c,
-                  launches_per_step=train_launches(cfg, sched, 1, True),
+                  launches=c, launches_per_step=per_step,
                   trainer_step_seconds=run.step_seconds,
                   trainer_step_s_median=statistics.median(
                       run.step_seconds[1:]),
@@ -3413,32 +3471,68 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
             f"{st['heads_over']} of {st['heads']} heads; largest "
             f"{st['max_rel']:.1f}; every gradient finite")
 
-    if ckpt:        # the async checkpoint, restored into a fresh state
-        saved = snapshot.pop("state")
-        fresh = tree.map_leaves(torch.empty_like, saved)
-        t0 = time.perf_counter()
-        restored, step, _ = Checkpointer(str(ckpt_dir)).restore(
-            fresh, step=TRAIN_CKPT)
-        torch.cuda.synchronize()
-        detail["restore_s"] = time.perf_counter() - t0
-        if step != TRAIN_CKPT or not all(
-                a.dtype == b.dtype and torch.equal(a, b)
-                for a, b in zip(tree.leaves(restored), tree.leaves(saved))):
-            raise AssertionError(f"{name}: the step-{TRAIN_CKPT} checkpoint "
-                                 "restored is not bitwise the state saved")
-        detail["checkpoint_bytes"] = nbytes(*tree.leaves(restored))
-        log(f"  {name}: checkpoint at step {TRAIN_CKPT} "
-            f"({len(tree.leaves(restored))} leaves, "
-            f"{detail['checkpoint_bytes'] / 1e9:.2f} GB) restored into a "
-            f"fresh state in {detail['restore_s']:.2f} s: bitwise the state "
-            "saved")
-        del fresh, restored, saved
-
-    # clean steps from the trained state (the trainer's steps from
-    # TRAIN_CKPT on overlap the async write): host clock to the loss on
-    # the host, median of 3; peak memory; one profiled step
-    params, opt, cs = stepping.state
+    state = stepping.state
     del stepping.state
+    if ckpt:        # the trainer resumes from the async checkpoint
+        del state
+        torch.cuda.empty_cache()
+        shutil.rmtree(ckpt_dir / f"step_{steps:08d}")
+
+        def resuming(params, opt, cs, batch):
+            saved = snapshot.pop("state", None)
+            if saved is not None:       # the state the trainer restored
+                detail["restore_s"] = time.perf_counter() - t_resume
+                got = tree.leaves((T.trainable(params), opt, cs))
+                want = tree.leaves(saved)
+                if len(got) != len(want) or not all(
+                        a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"{name}: the step-{TRAIN_CKPT} checkpoint the "
+                        "trainer restored is not bitwise the state saved")
+                detail["checkpoint_bytes"] = nbytes(*got)
+                detail["checkpoint_leaves"] = len(got)
+                del saved, got, want
+            out = step_fn(params, opt, cs, batch)
+            resuming.state = out[:3]
+            return out
+
+        t_resume = time.perf_counter()
+        resumed = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
+                              ckpt_every=TRAIN_CKPT, train_step_fn=resuming,
+                              data=data, log_every=1,
+                              log=lambda s: log(f"  {s}"), device=DEVICE)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if "checkpoint_bytes" not in detail or \
+                resumed.resumed_from != TRAIN_CKPT or \
+                resumed.steps_run != steps - TRAIN_CKPT or not all(
+                    abs(l) < float("inf") for l in resumed.losses):
+            raise AssertionError(f"{name} resume: from "
+                                 f"{resumed.resumed_from}, "
+                                 f"{resumed.steps_run} steps, losses "
+                                 f"{resumed.losses}")
+        state = resuming.state
+        del resuming.state
+        detail["resumed_losses"] = resumed.losses
+        detail["resumed_bitwise"] = same = \
+            resumed.losses == run.losses[TRAIN_CKPT:]
+        log(f"  {name}: checkpoint at step {TRAIN_CKPT} "
+            f"({detail['checkpoint_leaves']} leaves, "
+            f"{detail['checkpoint_bytes'] / 1e9:.2f} GB) restored by "
+            "trainer.run into a fresh state in "
+            f"{detail['restore_s']:.2f} s (the state drawn and the "
+            "checkpoint read): bitwise the state "
+            f"saved; resumed from step {resumed.resumed_from}: losses "
+            f"{resumed.losses} against the uninterrupted run's "
+            f"{run.losses[TRAIN_CKPT:]}: {'' if same else 'not '}bitwise "
+            "equal (reported, not required)")
+
+    # clean steps from the trained state, or from the resumed one (the
+    # trainer's steps from TRAIN_CKPT on overlap the async write): host
+    # clock to the loss on the host, median of 3; peak memory; one
+    # profiled step
+    params, opt, cs = state
+    del state
     batch = data.batch_at(steps)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3457,31 +3551,7 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     del params, opt, cs
     torch.cuda.empty_cache()
 
-    if ckpt:        # the trainer resumes from the async checkpoint
-        shutil.rmtree(ckpt_dir / f"step_{steps:08d}")
-        resumed = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir),
-                              ckpt_every=TRAIN_CKPT, data=data,
-                              log_every=1, log=lambda s: log(f"  {s}"),
-                              device=DEVICE, engine=eng)
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        if resumed.resumed_from != TRAIN_CKPT or \
-                resumed.steps_run != steps - TRAIN_CKPT or not all(
-                    abs(l) < float("inf") for l in resumed.losses):
-            raise AssertionError(f"{name} resume: from "
-                                 f"{resumed.resumed_from}, "
-                                 f"{resumed.steps_run} steps, losses "
-                                 f"{resumed.losses}")
-        detail["resumed_losses"] = resumed.losses
-        detail["resumed_bitwise"] = same = \
-            resumed.losses == run.losses[TRAIN_CKPT:]
-        log(f"  {name}: trainer.run resumed from step "
-            f"{resumed.resumed_from}: losses {resumed.losses} against the "
-            f"uninterrupted run's {run.losses[TRAIN_CKPT:]}: "
-            f"{'' if same else 'not '}bitwise equal (reported, not "
-            "required)")
-        torch.cuda.empty_cache()
-
-    train_rows(rep, cfg, sched, names, path)
+    train_rows(rep, cfg, groups, names, path, heavy_flops)
     tokens = tc.global_batch * tc.seq_len
     gemm = [r for r in rep.rows if r["path"] == path
             and r["kernel"] in (names["sa_conv_matmul"],
@@ -5035,10 +5105,203 @@ def family_phase(rep: Report, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training the encoder-decoder and vision-prefix families
+# ---------------------------------------------------------------------------
+#: phase 15: FRONTEND_TRAIN_STEPS train steps of TRAIN_BATCH x TRAIN_SEQ
+#: text tokens a model through trainer.run; FRONTEND_CKPT_MODEL writes an
+#: async checkpoint at step TRAIN_CKPT, restores it and resumes from it
+FRONTEND_TRAIN_STEPS, FRONTEND_CKPT_MODEL = 3, "seamless-m4t-large-v2"
+#: a phase 15 train matmul shape of more operations than this (~10 ms or
+#: more on the GEMM: both heads, llava's projections and MLP) is timed
+#: over 5 runs, not 25 (one run of llava's head takes ~86 ms)
+FRONTEND_HEAVY_FLOPS = 2e11
+#: the step-0 gradient checks' batch: 1 x TRAIN_SEQ text tokens (llava's
+#: fp32 copy, 12.6 GB of parameters and as many of gradients, fits beside
+#: its state only so; seamless's torch backend, whose plain products run
+#: row by row, took 174 s at 4 x TRAIN_SEQ)
+FRONTEND_GRAD_BATCH = 1
+#: the leaves whose step-0 gradients phase 15 holds against the torch
+#: backend's: the frontend's projection (llava's reached only through the
+#: vision prefix's keys and values), the head; seamless's first encoder
+#: block's q projection and first decoder block's cross-attention k
+#: projection (the encoder's gradient sums over 24 cross-attentions);
+#: llava's first block's q projection
+FRONTEND_LEAVES = {
+    "seamless-m4t-large-v2": ("frontend", "encoder.blocks.attn.wq[0]",
+                              "blocks.0.xattn.wk[0]", "head"),
+    "llava-next-34b": ("frontend", "blocks.0.attn.wq[0]", "head")}
+#: the kernels of each phase 15 train path, reported on it under these
+#: names (no train matmul has m below flip_batch: no SA-FC launch)
+FRONTEND_TRAIN_KERNELS = {
+    name: {k: f"{k}[train {tag}]" for k in ("sa_conv_matmul",
+                                             "flash_attention")}
+    for name, tag in (("seamless-m4t-large-v2", "seamless"),
+                      ("llava-next-34b", "llava"))}
+
+
+def meta_train_records(cfg, tc, policy) -> list:
+    """The engine's dispatch records of one train step's forward of a
+    frontend config, traced on meta tensors with its frontend inputs and
+    the schedule the step attaches: llava's text-only train schedule (so
+    its matmuls over the vision prefix miss), none for seamless.  Every
+    matmul of such a config but the head runs in a checkpointed block
+    (no unstacked tail; the encoder's blocks are checkpointed too)."""
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.schedule import LayerSchedule
+    from repro_torch.models import transformer as T
+    if cfg.stack_shape()[1]:
+        raise AssertionError(f"{cfg.name}: an unstacked tail is not "
+                             "recomputed")
+    b, s = tc.global_batch, tc.seq_len
+    eng = Engine(backend="torch", policy=policy)
+    if not cfg.enc_dec:
+        eng = eng.with_schedule(LayerSchedule.compile(
+            cfg, "train", batch=b, seq=s, policy=policy))
+    n = cfg.audio_frames if cfg.enc_dec else cfg.vision_tokens
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int64, device="meta"),
+             "audio_embeds" if cfg.enc_dec else "vision_embeds":
+                 torch.empty((b, n, cfg.frontend_dim), device="meta")}
+    with eng.tracing() as tr, eng.activate():
+        T.loss_fn(cfg, T.init_params(cfg, 0, device="meta"), batch)
+    return list(tr)
+
+
+def record_launches(cfg, recs: list, steps: int) -> dict:
+    """Launches per kernel (and plain attention calls) that ``steps`` train
+    steps with remat by block make, from one forward's records
+    (:func:`meta_train_records`): each matmul on its regime's kernel in
+    the forward, again in the recompute (all but the head), once more for
+    ``pre`` where its activation is not linear and once for ``dx``; its
+    ``dw`` on the SA-CONV GEMM; each attention on flash in the forward and
+    the recompute, the plain version once in the backward."""
+    kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
+    out = {k: 0 for k in _wrappers()}
+    out["plain.attention"] = 0
+    for r in recs:
+        if r.regime == "attention":
+            out["flash_attention"] += 2 * steps
+            out["plain.attention"] += steps
+            continue
+        runs = 2 + (r.name != "lm_head") + \
+            (matmul_act(cfg, r.name) != "none")
+        out[kernel[r.regime]] += runs * steps
+        out["sa_conv_matmul"] += steps
+    return out
+
+
+def check_frontend_records(path: str, tr, recs: list, steps: int) -> dict:
+    """The run's dispatch records are ``steps`` times one meta-traced
+    forward's (name, m, n, k, regime, dtype, schedule state): remat's
+    recompute and the backward record nothing.  Returns one step's
+    matmul schedule states (llava: hits and misses; seamless: unscheduled,
+    ``""``)."""
+    from collections import Counter
+
+    def key(r):
+        return (r.name, r.m, r.n, r.k, r.regime, r.dtype, r.schedule)
+
+    got = Counter(key(r) for r in tr)
+    want = Counter({k: v * steps for k, v in
+                    Counter(key(r) for r in recs).items()})
+    if got != want:
+        raise AssertionError(f"{path}: the run's dispatch records differ "
+                             f"from {steps} x a meta trace of the step: "
+                             f"{(got - want) + (want - got)}")
+    return dict(Counter(r.schedule or "unscheduled" for r in recs
+                        if r.regime != "attention"))
+
+
+def frontend_train_flash(rep: Report, cfg, names: dict, path: str,
+                         peak: float, tol: dict) -> None:
+    """Each kind of flash launch of a frontend config's train step at
+    TRAIN_BATCH x TRAIN_SEQ text tokens (``attention_shapes``: the causal
+    decoder over the vision prefix and the text; the encoder over the
+    frames and cross-attention from the text to them, non-causal), held
+    against ``flash_plain`` within ``tol`` and timed beside its bound,
+    plain version and SDPA (GQA enabled); each kind launches in the
+    forward and the recompute of every block that has it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.analysis.launch import attention_shapes
+    from repro_torch.kernels.attention import flash_attention, flash_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    blocks = {"encoder attn": cfg.n_enc_layers, "cross attn": cfg.n_layers,
+              "attn window 0": cfg.n_layers}
+    for label, (b, sq, skv, hq, hkv, d, causal, window, itemsize) in \
+            attention_shapes(cfg, "train", TRAIN_BATCH, TRAIN_SEQ):
+        dt = torch.bfloat16 if itemsize == 2 else torch.float32
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                 (b, skv, hkv, d)))
+        out = flash_attention(q, k, v, causal=causal)
+        what = f"{label} {tuple(q.shape)} x {skv}, {tiling_log(q, k, causal)}"
+        rep.note_err(names["flash_attention"], allclose(
+            f"{path} flash {what}", out, flash_plain(q, k, v, causal=causal),
+            tol))
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        add_row(rep, names["flash_attention"], path, f"{what} forward",
+                timed(lambda: flash_attention(q, k, v, causal=causal)),
+                timed(lambda: flash_plain(q, k, v, causal=causal), runs=5,
+                      warmup=1),
+                timed(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv)),
+                4 * b * hq * pairs * d, nbytes(q, k, v, out), peak=peak,
+                per_pass=2 * blocks[label], phase="train step")
+        del q, k, v, out, qt, kt, vt
+
+
+def frontend_train_phase(rep: Report, smi: str) -> dict:
+    """Phase 15: phase 13's models train through :func:`train_model`
+    (``make_train_step``: llava on its text-only schedule, seamless with
+    none), their state donated to the optimizer; step-0 gradients against
+    the torch backend's by :func:`check_train_grads` at
+    FRONTEND_GRAD_BATCH; FRONTEND_TRAIN_STEPS steps; FRONTEND_CKPT_MODEL's
+    async checkpoint; shapes over FRONTEND_HEAVY_FLOPS timed over 5 runs.
+    Returns the trainer's launches by model."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    t_phase = time.perf_counter()
+    out = {}
+    for name, cfg in frontend_configs().items():
+        tc = TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         total_steps=FRONTEND_TRAIN_STEPS, remat="block")
+
+        def grads(params, batch, name=name, cfg=cfg, tc=tc):
+            gb = FRONTEND_GRAD_BATCH
+            batch = {k: v[:gb] for k, v in batch.items()}
+            log(f"  {name} step-0 gradients at {gb} x {TRAIN_SEQ} text "
+                "tokens:")
+            check_train_grads(rep, cfg, tc, params, batch,
+                              FRONTEND_LEAVES[name],
+                              key=f"frontend_train_{name}_step0_grads")
+
+        n = cfg.audio_frames if cfg.enc_dec else cfg.vision_tokens
+        what = "audio frames" if cfg.enc_dec else "vision tokens"
+        cut = f"; {n} {what} a sequence" + (
+            "" if name != "llava-next-34b" else
+            f"; reduced: depth only, {cfg.n_layers} of 60 layers, full "
+            "width")
+        out[name] = train_model(rep, smi, name, cfg, tc, grads,
+                                names=FRONTEND_TRAIN_KERNELS[name],
+                                path=f"trainer.run {name}",
+                                key=f"frontend_train_{name}",
+                                ckpt=name == FRONTEND_CKPT_MODEL,
+                                donate=True, note=cut,
+                                heavy_flops=FRONTEND_HEAVY_FLOPS)
+        torch.cuda.empty_cache()
+    rep.detail["frontend_train_phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {rep.detail['frontend_train_phase_s']:.1f} s")
+    return out
+
+
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
                  fleet: dict, train: dict, rest: dict,
-                 frontend: dict, families: dict) -> dict:
+                 frontend: dict, families: dict,
+                 frontend_train: dict) -> dict:
     """One entry per kernel, read on the path it is reported for:
     ``CNNServer.run`` (130 requests) for SA-CONV implicit and SA-FC, the
     declined-fusion dispatch for the pool kernel, ``ServeEngine.run`` (9
@@ -5067,12 +5330,16 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
     (``<kernel>[train zamba2]``, ``[train mixtral]``, ``[train mamba2]``),
     read on that model's ``trainer.run``: one step's work, as phase 10's
     (mixtral's router on SA-FC: forward, recompute and ``dx``), bounded by
-    bf16's rate, fp32's for mixtral.  ``launches_by_path`` gives every
+    bf16's rate, fp32's for mixtral.  Then one per kernel of each of
+    phase 15's train paths (``<kernel>[train seamless]``, ``[train
+    llava]``), read on that model's ``trainer.run``: one step's work, the
+    GEMM's roles and flash's forward at every kind, bounded by bf16's
+    rate.  ``launches_by_path`` gives every
     path's count (the zoo's ``ModelZooServer.serve``, the bf16
     ``CNNServer.run``, ``fleet``, the fleet's three executed
     configurations, ``trainer.run``, phase 12's three ``ServeEngine.run``
-    paths, phase 13's two ``greedy_generate`` paths and phase 14's three
-    ``trainer.run`` paths among them);
+    paths, phase 13's two ``greedy_generate`` paths and phases 14's three
+    and 15's two ``trainer.run`` paths among them);
     ``host_ms``, where measured (SA-FC), sums the same unit timed with the
     card drained before each call."""
     def entry(name, kernel, path, launches, rows, peak):
@@ -5111,7 +5378,9 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              **{f"ServeEngine.run {name}": c for name, c in rest.items()},
              **{f"greedy_generate {name}": c
                 for name, c in frontend.items()},
-             **{f"trainer.run {name}": c for name, c in families.items()}}
+             **{f"trainer.run {name}": c for name, c in families.items()},
+             **{f"trainer.run {name}": c
+                for name, c in frontend_train.items()}}
     out = []
     for kernel in SOURCES:
         if kernel == "maxpool_act":
@@ -5169,6 +5438,14 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                     and r["path"] == path]
             out.append(entry(name, kernel, path, families[model][kernel],
                              rows, peak))
+    for model, names in FRONTEND_TRAIN_KERNELS.items():
+        path = f"trainer.run {model}"
+        for kernel, name in names.items():
+            rows = [r for r in rep.rows if r["kernel"] == name
+                    and r["path"] == path]
+            out.append(entry(name, kernel, path,
+                             frontend_train[model][kernel], rows,
+                             PEAK_BF16_FLOPS))
     return {"kernels": out}
 
 
@@ -5283,9 +5560,16 @@ def main() -> int:
     with torch.enable_grad():
         families = family_phase(rep, smi)
 
+    log("== phase 15: training the encoder-decoder and vision families: "
+        "trainer.run over seamless-m4t-large-v2 as published and "
+        f"llava-next-34b at full width cut to {LLAVA_LAYERS} layers (bf16)")
+    with torch.enable_grad():
+        frontend_train = frontend_train_phase(rep, smi)
+
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,
-                        served_bf16, fleet, train, rest, frontend, families)
+                        served_bf16, fleet, train, rest, frontend, families,
+                        frontend_train)
     rep.detail["rows"] = rep.rows
     rep.detail["kernels"] = line["kernels"]
     rep.detail["total_s"] = time.perf_counter() - t_start

@@ -103,8 +103,9 @@ POOL_ALIGNS = (16, 8, 4, 2, 1)
 
 #: LM shapes whose launches :func:`lm_launches` checks, as (phase, batch,
 #: sequence): chip_smoke.py phases 6 and 7 (waves of 4 and a lone request
-#: of 512 prompt tokens, decode at 4 slots), phase 10 (training on 4 x
-#: 512 tokens) and launch/serve.py (prompts of 8 tokens, waves of 4)
+#: of 512 prompt tokens, decode at 4 slots), phases 10, 14 and 15
+#: (training on 4 x 512 tokens) and launch/serve.py (prompts of 8 tokens,
+#: waves of 4)
 LM_SHAPES = (("prefill", 4, 512), ("prefill", 1, 512), ("decode", 4, 512),
              ("train", 4, 512), ("prefill", 4, 8))
 #: the KV cache depth of chip_smoke.py's ServeEngine
@@ -290,11 +291,13 @@ def _frontend_inputs(cfg, batch: int, device) -> dict:
 
 
 def traced_entries(cfg, phase: str, batch: int, seq: int) -> dict:
-    """The matmul entries (as a schedule holds them) of one serving step of
-    an encoder-decoder or vision config with its frontend inputs, from the
-    engine's dispatch records of ``prefill_step`` or ``decode_step`` on
-    meta tensors: such a config's steps are what ``greedy_generate`` runs,
-    and a compiled schedule cannot hold them (an enc-dec config has none; a
+    """The matmul entries (as a schedule holds them) of one step of an
+    encoder-decoder or vision config with its frontend inputs, from the
+    engine's dispatch records of ``prefill_step``, ``decode_step`` or, in
+    ``"train"``, the forward of ``loss_fn`` on meta tensors: such a
+    config's serving steps are what ``greedy_generate`` runs, its train
+    step's matmuls run over the frames or the vision prefix, and a
+    compiled schedule cannot hold them (an enc-dec config has none; a
     vision config's is text-only)."""
     from repro_torch.core.engine import Engine
     from repro_torch.core.schedule import _entries_from_trace
@@ -305,7 +308,12 @@ def traced_entries(cfg, phase: str, batch: int, seq: int) -> dict:
     cache_dtype = getattr(torch, cfg.compute_dtype)
     eng = Engine(backend="torch")
     with eng.tracing() as tr, eng.activate():
-        if phase == "prefill":
+        if phase == "train":
+            tokens = torch.empty((batch, seq), dtype=torch.int64,
+                                 device="meta")
+            T.loss_fn(cfg, params, {"tokens": tokens,
+                                    **_frontend_inputs(cfg, batch, "meta")})
+        elif phase == "prefill":
             tokens = torch.empty((batch, seq), dtype=torch.int64,
                                  device="meta")
             prefill_step(cfg, params, {"tokens": tokens,
@@ -352,17 +360,14 @@ def lm_launches(configs: dict[str, Any] | None = None,
     config's compiled schedule at ``shapes`` (SA-FC or the GEMM), its
     backward's at the train shapes (:func:`backward_launches`), and flash
     attention at each prefill and train shape, once per kind
-    (:func:`attention_shapes`).  Train shapes are skipped for configs the
-    port does not train yet
-    (:func:`repro_torch.models.transformer.can_train`).  Encoder-decoder
-    and vision configs are served with their frontend inputs by
-    ``greedy_generate``: their matmuls come from
-    :func:`traced_entries` at the serving ones of ``shapes`` and at
+    (:func:`attention_shapes`).  Encoder-decoder and vision configs run
+    with their frontend inputs (served by ``greedy_generate``, trained on
+    the frames or behind the vision prefix): their matmuls come from
+    :func:`traced_entries` at ``shapes`` and, served, at
     :data:`FRONTEND_SHAPES`.  Each config runs one layer pattern deep (and
     one encoder layer): every period of the pattern makes the same
     launches."""
     from repro_torch.core.schedule import LayerSchedule
-    from repro_torch.models.transformer import can_train
     configs = lm_configs() if configs is None else configs
     out: list[Launch] = []
     for name, cfg in configs.items():
@@ -372,20 +377,15 @@ def lm_launches(configs: dict[str, Any] | None = None,
         seen = set()
         for phase, batch, seq in (*shapes, *FRONTEND_SHAPES) if frontend \
                 else shapes:
-            if phase == "train" and not can_train(cfg):
-                continue
-            if frontend:
-                entries = traced_entries(cfg, phase, batch, seq)
-                launches = [lau for key, plan in entries.items()
-                            for lau in launches_for(key, plan)]
-            else:
-                sched = LayerSchedule.compile(
+            entries = traced_entries(cfg, phase, batch, seq) if frontend \
+                else dict(LayerSchedule.compile(
                     cfg, phase, batch=batch, seq=seq, max_seq=LM_MAX_SEQ,
-                    cache_dtype=getattr(torch, cfg.compute_dtype))
-                launches = schedule_launches(sched)
-                if phase == "train":
-                    launches += [lau for key, plan in sched.items()
-                                 for lau in backward_launches(key, plan)]
+                    cache_dtype=getattr(torch, cfg.compute_dtype)).items())
+            launches = [lau for key, plan in entries.items()
+                        for lau in launches_for(key, plan)]
+            if phase == "train":
+                launches += [lau for key, plan in entries.items()
+                             for lau in backward_launches(key, plan)]
             for lau in launches:
                 if (lau.kernel, lau.shape) not in seen:
                     seen.add((lau.kernel, lau.shape))

@@ -164,8 +164,9 @@ class LayerSchedule(Mapping):
                 "schedule (its prefill and training need the audio frames, "
                 "its decode the encoder's length, which a schedule does not "
                 "take; the reference cannot compile one either): serve it "
-                "through repro_torch.serve.serve_step.greedy_generate; "
-                "training it is ROADMAP A.2b")
+                "through repro_torch.serve.serve_step.greedy_generate, and "
+                "train it through train_step.make_train_step, which runs "
+                "it with no schedule")
         if policy is None:
             policy = DispatchPolicy()
         key = (cfg, phase, batch, seq, max_seq, dtype_name(cache_dtype),

@@ -10,8 +10,10 @@ Tokens follow the reference's Zipf-like marginal (p(t) proportional to
 The draws come from a ``torch.Generator`` seeded from (seed, step, shard),
 not from ``jax.random``, so the port's tokens are not the reference's:
 tests that compare the two packages feed the reference's batches to both.
-Only token streams are made: the port serves the stubbed frontends'
-embeddings but does not train on them yet (ROADMAP A.2b).
+A vision config's batches also carry ``vision_embeds`` (B, vision_tokens,
+frontend_dim) and an encoder-decoder config's ``audio_embeds`` (B,
+audio_frames, frontend_dim): the stubbed frontends' embeddings, fp32
+standard normals drawn from the step's generator after the tokens.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def zipf_probs(vocab: int) -> torch.Tensor:
 
 class SyntheticLM:
     """``batch_at(step) -> {"tokens": (local_batch, seq) int64}`` on the
-    CPU, deterministic in (seed, step, shard)."""
+    CPU, plus the frontend embeddings of ``cfg`` where it has them,
+    deterministic in (seed, step, shard)."""
 
     def __init__(self, dc: DataConfig, cfg: ModelConfig | None = None):
         if dc.global_batch % dc.n_shards:
@@ -62,14 +65,24 @@ class SyntheticLM:
 
     def batch_at(self, step: int) -> dict:
         dc = self.dc
+        gen = self._generator(step)
         base = torch.multinomial(self._probs, self.local_batch * dc.seq_len,
-                                 replacement=True,
-                                 generator=self._generator(step)).reshape(
+                                 replacement=True, generator=gen).reshape(
             self.local_batch, dc.seq_len)
         odd = (torch.arange(dc.seq_len) % 2 == 1)[None, :]
         prev = torch.roll(base, 1, dims=1)
-        return {"tokens": torch.where(odd, (prev * 2 + 1) % dc.vocab_size,
-                                      base)}
+        batch = {"tokens": torch.where(odd, (prev * 2 + 1) % dc.vocab_size,
+                                       base)}
+        cfg = self.cfg
+        if cfg is not None and cfg.vision_tokens:
+            batch["vision_embeds"] = torch.randn(
+                (self.local_batch, cfg.vision_tokens, cfg.frontend_dim),
+                generator=gen, dtype=torch.float32)
+        if cfg is not None and cfg.enc_dec:
+            batch["audio_embeds"] = torch.randn(
+                (self.local_batch, cfg.audio_frames, cfg.frontend_dim),
+                generator=gen, dtype=torch.float32)
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

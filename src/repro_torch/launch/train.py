@@ -7,7 +7,11 @@ Runs on the card with the ``"kernels"`` backend unless told otherwise:
 ``--device cpu --reduced`` trains the reduced same-family config on the
 CPU, where the kernels' wrappers take their plain versions; ``--backend
 torch`` runs the plain versions on any device.  Without ``--reduced`` the
-config is the published one (OLMo-1B: bf16 parameters and compute).
+config is the published one (OLMo-1B: bf16 parameters and compute).  A
+vision config (llava-next) trains on its text behind the stubbed vision
+embeddings of each batch, an encoder-decoder config (seamless-m4t) on its
+text beside the stubbed audio frames, with no schedule
+(:func:`repro_torch.train.train_step.make_grad_fn`).
 """
 from __future__ import annotations
 

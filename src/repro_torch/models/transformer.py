@@ -26,10 +26,9 @@ Modes:
 Tied models train one matrix: :func:`trainable` is the tree of trained
 leaves, without the serving copy ``embed_t``, so the loss computes the head
 from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
-optimizer step.
-
-Training the encoder-decoder and vision families raises
-``NotImplementedError`` (:func:`loss_fn`; ROADMAP A.2b).
+optimizer step.  Every supported config trains: a vision config predicts
+its text from the logits behind the vision prefix, and an encoder-decoder
+config's encoder recomputes each block under ``remat="block"``.
 """
 from __future__ import annotations
 
@@ -54,8 +53,6 @@ MODES = ("train", "prefill")
 #: ``remat`` policies: none, or each pattern period recomputed in the
 #: backward pass (the reference's ``jax.checkpoint`` of its scan body)
 REMATS = ("none", "block")
-_UNTRAINED = ("ROADMAP A.2b, training the encoder-decoder and vision "
-              "families")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -69,13 +66,6 @@ def check_supported(cfg: ModelConfig) -> None:
     for ak, mk in cfg.block_kinds():
         if ak not in (ATTN_GLOBAL, ATTN_LOCAL, MAMBA, SHARED_ATTN):
             raise ValueError(f"{cfg.name}: unknown block kind {ak!r}")
-
-
-def can_train(cfg: ModelConfig) -> bool:
-    """Whether :func:`loss_fn` is ported for ``cfg``: every decoder-only
-    config (dense, MoE, Mamba, shared attention), not yet the
-    encoder-decoder and vision families."""
-    return not (cfg.enc_dec or cfg.vision_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -410,25 +400,30 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     """Next-token cross entropy + 0.01 x aux, as the reference computes it:
     CE = logsumexp - target logit in fp32 (a gather picks the same exact
     term as the reference's one-hot contraction), averaged over
-    ``batch["loss_mask"][:, 1:]`` when given.  The head of a tied model
-    comes from ``embed`` (:func:`trainable`).  Returns (loss, {"ce",
-    "aux"}), ``aux`` the MoE blocks' load-balance loss (0 without them).
-    Training the encoder-decoder and vision families is not ported yet
-    (the vision loss's offset, ``encode`` under remat)."""
-    if not can_train(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training encoder-decoder and vision configs is "
-            f"not ported yet ({_UNTRAINED})")
+    ``batch["loss_mask"][:, 1:]`` when given.  With ``"vision_embeds"`` in
+    the batch of a vision config, the ``vt`` vision tokens come first: the
+    logits at ``vt - 1 .. vt + S - 2`` predict every text token, and a
+    given ``loss_mask`` is taken whole.  The head of a tied model comes
+    from ``embed`` (:func:`trainable`).  Returns (loss, {"ce", "aux"}),
+    ``aux`` the MoE blocks' load-balance loss (0 without them)."""
     logits, aux, _ = forward(cfg, trainable(params), batch, mode="train",
                              remat=remat)
     tokens = batch["tokens"]
-    predf = logits[:, :-1].to(torch.float32)
-    tgt = tokens[:, 1:].to(torch.int64)
+    vt = cfg.vision_tokens if (cfg.vision_tokens and
+                               "vision_embeds" in batch) else 0
+    if vt:
+        pred = logits[:, vt - 1:vt + tokens.shape[1] - 1]
+        tgt = tokens
+    else:
+        pred = logits[:, :-1]
+        tgt = tokens[:, 1:]
+    predf = pred.to(torch.float32)
+    tgt = tgt.to(torch.int64)
     lse = torch.logsumexp(predf, dim=-1)
     ll = predf.gather(-1, tgt.unsqueeze(-1)).squeeze(-1) - lse
     mask = batch.get("loss_mask")
     if mask is not None:
-        mask = mask[:, 1:].to(torch.float32)
+        mask = (mask if vt else mask[:, 1:]).to(torch.float32)
         ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:
         ce = -torch.mean(ll)

@@ -11,8 +11,14 @@ on SA-FC and the SA-CONV GEMM, attention's forward on the flash kernel.
 
 Microbatches run as a Python loop (the reference's ``lax.scan``), their
 gradients summed in fp32 and averaged: the same gradient as the full
-batch, not an approximation.  A tied model trains ``embed`` alone; its
-serving copy ``embed_t`` is derived again after every update
+batch, not an approximation.  The schedule is compiled on the tokens
+alone, as the reference compiles it: a vision config's matmuls, which
+also run over the vision prefix, miss it and are planned on the fly.  An
+encoder-decoder config has no train schedule (neither package can compile
+one without the audio frames): its steps run on the engine with no
+schedule attached, every matmul planned on the fly.  A
+tied model trains ``embed`` alone; its serving copy ``embed_t`` is
+derived again after every update
 (:func:`repro_torch.models.transformer.with_head_copy`).
 """
 from __future__ import annotations
@@ -62,7 +68,8 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *,
                  engine: Engine | None = None) -> Callable:
     """``grads_of(params, batch) -> (loss, grads)`` of the trained leaves,
     under the memoized train schedule at the per-pass shape (the
-    microbatch when accumulating, the batch otherwise)."""
+    microbatch when accumulating, the batch otherwise); an
+    encoder-decoder config runs with no schedule."""
     loss = make_loss(cfg, tc)
     eng = engine if engine is not None else Engine(backend="kernels")
 
@@ -71,7 +78,7 @@ def make_grad_fn(cfg: ModelConfig, tc: TrainConfig, *,
         batch = _on_device(batch, tree.leaves(tp)[0].device)
         b, s = batch["tokens"].shape
         micro = bool(tc.microbatch) and tc.microbatch < b
-        sched = LayerSchedule.compile(
+        sched = None if cfg.enc_dec else LayerSchedule.compile(
             cfg, "train", batch=tc.microbatch if micro else b, seq=s,
             policy=eng.policy, params=tp)
         with eng.with_schedule(sched).activate():

@@ -2,7 +2,8 @@
 JAX package's ``repro.train.trainer`` on the port.
 
 ``run()`` resumes from the latest complete checkpoint (restart-idempotent),
-saves every ``ckpt_every`` steps on a background thread, and flags a step
+saves every ``ckpt_every`` steps on a background thread and once at the
+end (each step written once, the last write joined), and flags a step
 whose wall time exceeds 3x the running median
 (:class:`repro_torch.distributed.fault_tolerance.StepMonitor`).  A step's
 wall time runs from drawing its batch to the host reading its loss, so it
@@ -93,8 +94,11 @@ def run(cfg: ModelConfig, tc: TrainConfig, *,
                       extra={"loss": loss}, async_save=True)
 
     if ckpt:
-        ckpt.save(tc.total_steps, (T.trainable(params), opt_state, cstate),
-                  extra={"loss": losses[-1] if losses else None})
+        # a last step on ckpt_every was saved by the loop: join that write
+        if start_step == tc.total_steps or tc.total_steps % ckpt_every:
+            ckpt.save(tc.total_steps,
+                      (T.trainable(params), opt_state, cstate),
+                      extra={"loss": losses[-1] if losses else None})
         ckpt.wait()
     return TrainerReport(steps_run=max(0, tc.total_steps - start_step),
                          final_loss=losses[-1] if losses else float("nan"),

@@ -591,7 +591,8 @@ def test_launch_pass_clean_on_every_lm_config():
                and lau.shape[5] == 80 for lau in launches)
     assert not any("mamba2-130m" in lau.op and lau.kernel == "attention"
                    for lau in launches)
-    report = tlaunch.verify_launches(launches)
+    assert len(launches) == 460         # 430 before the frontend families
+    report = tlaunch.verify_launches(launches)           # trained
     assert report.ok and report.findings == [], report.summary()
 
 
@@ -600,16 +601,21 @@ def test_launch_pass_covers_the_train_backward_of_every_trained_config():
     the backward's ``dx`` (the forward's regime kernel against ``w.T``)
     and ``dw`` (the GEMM on ``x.T``) among them: mixtral's router (dx on
     SA-FC with k = E = 8, dw at n = 8), Mamba's in_proj (n = 2 di + 2 ns
-    + nh: 10448 for zamba2, 3352 for mamba2).  The encoder-decoder and
-    vision configs, which do not train yet, have none.  No finding."""
+    + nh: 10448 for zamba2, 3352 for mamba2), and, since every config
+    trains, the encoder-decoder and vision configs' (seamless's encoder
+    and cross K/V at m = 4 x 1024 frames, its 256206-wide head's ``dw`` at
+    k = 2048; llava's projections over 4 x (576 + 512) rows) with their
+    flash launches at the train shape: llava's 1088 x 1088 causal (GQA 56
+    / 8, hd 128), seamless's 1024 x 1024 encoder, 512 x 1024 cross and
+    512 x 512 causal (hd 64).  No finding."""
     configs = {k: v for k, v in tlaunch.lm_configs().items()
                if k in ("mixtral-8x7b", "mamba2-130m", "zamba2-2.7b",
-                        "olmo-1b", "seamless-m4t-large-v2")}
+                        "olmo-1b", "seamless-m4t-large-v2",
+                        "llava-next-34b")}
     launches = tlaunch.lm_launches(configs)
     train = {(lau.op.split(" ")[0], lau.op.split(": ")[1], lau.kernel,
               lau.shape[:3]) for lau in launches if " train " in lau.op}
-    assert {name for name, *_ in train} == {"mixtral-8x7b", "mamba2-130m",
-                                            "zamba2-2.7b", "olmo-1b"}
+    assert {name for name, *_ in train} == set(configs)
     for want in (
             ("mixtral-8x7b", "moe.router dx [sa_fc]", "sa_fc",
              (2048, 8, 4096)),
@@ -622,8 +628,29 @@ def test_launch_pass_covers_the_train_backward_of_every_trained_config():
             ("mamba2-130m", "ssm.in_proj dw [sa_conv]", "sa_conv",
              (768, 3352, 2048)),
             ("olmo-1b", "lm_head dx [sa_conv]", "sa_conv",
-             (2048, 2048, 50304))):
+             (2048, 2048, 50304)),
+            ("seamless-m4t-large-v2", "attn.q dw [sa_conv]", "sa_conv",
+             (1024, 1024, 4096)),
+            ("seamless-m4t-large-v2", "mlp.down dw [sa_conv]", "sa_conv",
+             (8192, 1024, 4096)),
+            ("seamless-m4t-large-v2", "lm_head dx [sa_conv]", "sa_conv",
+             (2048, 1024, 256206)),
+            ("seamless-m4t-large-v2", "lm_head dw [sa_conv]", "sa_conv",
+             (1024, 256206, 2048)),
+            ("llava-next-34b", "attn.k dx [sa_conv]", "sa_conv",
+             (4352, 7168, 1024)),
+            ("llava-next-34b", "lm_head dw [sa_conv]", "sa_conv",
+             (7168, 64000, 4352))):
         assert want in train, want
+    # each shape once per config, under the first phase that launches it
+    flash = {(lau.op.split(" ")[0], lau.shape) for lau in launches
+             if lau.kernel == "attention"}
+    for shape in ((4, 512, 512, 16, 16, 64, True, 0, 2),
+                  (4, 1024, 1024, 16, 16, 64, False, 0, 2),
+                  (4, 512, 1024, 16, 16, 64, False, 0, 2)):
+        assert ("seamless-m4t-large-v2", shape) in flash, shape
+    assert ("llava-next-34b", (4, 1088, 1088, 56, 8, 128, True, 0, 2)) \
+        in flash
     report = tlaunch.verify_launches(launches)
     assert report.ok and report.findings == [], report.summary()
 

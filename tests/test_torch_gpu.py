@@ -1302,6 +1302,47 @@ def test_family_train_steps_on_the_card(cuda, arch):
                                losses["torch", False], rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_frontend_family_train_steps_on_the_card(cuda, arch):
+    """Three steps of reduced seamless (no schedule) or llava (its schedule
+    text-only) through ``make_train_step`` in fp32, remat by block, over
+    ``SyntheticLM``'s frames or vision embeddings: the kernels backend follows the torch backend's within
+    1e-4 of loss, a donated step gives the functional step's losses and
+    parameters bitwise, and the GEMM and flash both launched."""
+    from repro_torch.configs.base import TrainConfig, reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import train_step as TS
+    cfg = reduced(get_config(arch), param_dtype="float32",
+                  compute_dtype="float32")
+    tc = TrainConfig(global_batch=4, seq_len=64, total_steps=3,
+                     warmup_steps=1, lr=3e-3, remat="block")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4, seed=1), cfg)
+    losses, params = {}, {}
+    for backend, donate in (("kernels", False), ("kernels", True),
+                            ("torch", False)):
+        state = TS.init_train_state(cfg, tc, 0, device=cuda)
+        step = TS.make_train_step(cfg, tc, engine=Engine(backend=backend),
+                                  donate=donate)
+        before = (sa_conv_matmul.launches, flash_attention.launches)
+        run = losses[backend, donate] = []
+        for s in range(3):
+            *state, m = step(*state, data.batch_at(s))
+            run.append(float(m["loss"]))
+        if backend == "kernels":
+            assert sa_conv_matmul.launches > before[0]
+            assert flash_attention.launches > before[1]
+        params[backend, donate] = state[0]
+    assert all(np.isfinite(v).all() for v in losses.values())
+    assert losses["kernels", True] == losses["kernels", False]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(params["kernels", True]),
+        tree.leaves(params["kernels", False])))
+    np.testing.assert_allclose(losses["kernels", False],
+                               losses["torch", False], rtol=0, atol=1e-4)
+
+
 def test_smem_queries_equal_the_launch_pass(cuda):
     """Each kernel's exported shared-memory query gives the dynamic shared
     memory ``analysis/launch.py`` derives, for every launch of the zoo's

@@ -168,20 +168,39 @@ def test_frontend_families_are_supported(arch, extra):
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
-def test_loss_fn_refuses_the_untrained_families(arch):
-    """Encoder-decoder and vision configs serve but do not train yet: the
-    loss raises, and so does compiling their train schedule."""
+@pytest.mark.parametrize("arch,extra", [
+    ("seamless-m4t-large-v2", "audio_embeds"),
+    ("llava-next-34b", "vision_embeds")])
+def test_frontend_families_train(arch, extra, capsys):
+    """Encoder-decoder and vision configs train through ``make_grad_fn``
+    and the launcher: the loss over the text (behind llava's vision
+    prefix) and every gradient are finite, and one SGD step changes the
+    loss.  llava's train schedule is its text-only one; seamless has none
+    in either package (its compile refuses), so its steps run with no
+    schedule (tests/test_torch_train_encdec.py holds both to the
+    reference)."""
     cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
                         compute_dtype="float32")
     T.check_supported(cfg)
-    assert not T.can_train(cfg)
-    params = T.init_params(cfg, 0, device="cpu")
-    tokens = _t(_tokens(cfg, (1, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
-        T.loss_fn(cfg, params, {"tokens": tokens})
-    with pytest.raises(NotImplementedError, match="training"):
-        tsched.LayerSchedule.compile(cfg, "train", batch=1, seq=8)
+    params = T.trainable(T.init_params(cfg, 0, device="cpu"))
+    n = cfg.audio_frames or cfg.vision_tokens
+    batch = {"tokens": _t(_tokens(cfg, (2, 32))),
+             extra: torch.from_numpy(np.random.default_rng(1).standard_normal(
+                 (2, n, cfg.frontend_dim)).astype(np.float32))}
+    if cfg.enc_dec:
+        with pytest.raises(NotImplementedError, match="training"):
+            tsched.LayerSchedule.compile(cfg, "train", batch=2, seq=32)
+    loss, grads = TS.make_grad_fn(cfg, tbase.TrainConfig(),
+                                  engine=KERNELS)(params, batch)
+    tlaunch_train.main(["--arch", arch, "--device", "cpu", "--reduced",
+                        "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert "[train] loss" in capsys.readouterr().out
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in tree.leaves(grads))
+    assert float(grads["frontend"].abs().sum()) > 0
+    stepped = tree.map_leaves(lambda p, g: p - 0.1 * g, params, grads)
+    loss2, _ = T.loss_fn(cfg, stepped, batch)
+    assert torch.isfinite(loss2) and float(loss2) != float(loss)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
@@ -193,7 +212,7 @@ def test_decoder_only_families_train(arch):
     (tests/test_torch_train_families.py holds them to the reference)."""
     cfg = tbase.reduced(treg.get_config(arch), param_dtype="float32",
                         compute_dtype="float32")
-    assert T.can_train(cfg)
+    T.check_supported(cfg)
     params = T.trainable(T.init_params(cfg, 0, device="cpu"))
     batch = {"tokens": _t(_tokens(cfg, (2, 32)))}
     loss, grads = TS.make_grad_fn(cfg, tbase.TrainConfig(),

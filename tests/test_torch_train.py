@@ -626,6 +626,28 @@ def test_trainer_resume_equals_uninterrupted_bitwise(tmp_path):
     assert sa == sb == 4 and _equal_trees(a, b)
 
 
+@pytest.mark.parametrize("total,saved", [(4, [2, 4]), (3, [2, 3])])
+def test_trainer_writes_each_checkpoint_once(tmp_path, monkeypatch, total,
+                                             saved):
+    """A checkpoint every ``ckpt_every`` steps and one at the end, each
+    step written once: a last step on ``ckpt_every`` is not written again
+    at the end (its async write is joined before ``run`` returns)."""
+    steps = []
+    real = Checkpointer.save
+
+    def save(self, step, *a, **k):
+        steps.append(step)
+        return real(self, step, *a, **k)
+
+    monkeypatch.setattr(Checkpointer, "save", save)
+    tc = tbase.TrainConfig(global_batch=2, seq_len=16, total_steps=total,
+                           lr=3e-3, warmup_steps=1)
+    trainer.run(TCFG, tc, ckpt_dir=str(tmp_path), ckpt_every=2,
+                device="cpu", log=lambda s: None)
+    assert steps == saved
+    assert Checkpointer(str(tmp_path)).steps() == saved
+
+
 def test_train_launcher_runs_on_the_cpu(capsys):
     tlaunch.main(["--arch", "olmo-1b", "--device", "cpu", "--reduced",
                   "--steps", "3", "--batch", "2", "--seq", "16"])
