@@ -187,7 +187,22 @@ Phases (any failure raises and exits non-zero):
    cross-attention k and head, llava's first block's q and head against
    the torch backend's at 1 x 512 text tokens; the dispatch records and
    launches held to a meta trace of the same step; seamless's checkpoint
-   restored bitwise and resumed; the kernels' shapes timed by role.
+   restored bitwise and resumed; the kernels' shapes timed by role;
+16. the dry run against the card: phases 10, 14 and 15's six trained
+   paths traced on meta tensors (``launch/dryrun.py``, a 1 x 1 mesh, each
+   phase's TrainConfig, batch and donation): their argument bytes equal
+   the card's state and batch tensors' bytes, and the operations of their
+   traced matmul kernel calls equal the sum of 2 m n k over one step's B1
+   and B4 launches (their shapes captured as the trainer's steps launch
+   them, their counts held to the launch counters), both exactly; the
+   predicted peak against ``max_memory_allocated`` as a ratio, the H100
+   bound against the measured device time (``roofline_fraction``) and the
+   model operations against the host-clock step at the dtype's peak
+   (``mfu``), printed with no gate; then GPipe: full-width OLMo-1B (bf16)
+   in 2 stages of 8 blocks, a 4 x 512 prefill wave as 4 microbatches, a
+   CUDA stream a stage: logits bitwise the unpipelined forward, launches
+   on the kernels only, the overlap against the schedule's bubble
+   printed.
 
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
@@ -3366,6 +3381,7 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     numbers; returns the trainer's launches."""
     import shutil
     import torch
+    import dataclasses
     from repro_torch.core import tree
     from repro_torch.core.engine import Engine
     from repro_torch.core.schedule import LayerSchedule
@@ -3406,7 +3422,7 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     torch.cuda.synchronize()
     reset_counters()
     t0 = time.perf_counter()
-    with eng.tracing() as tr, SSDCapture() as ssd:
+    with eng.tracing() as tr, SSDCapture() as ssd, MatmulShapes() as calls:
         run = trainer.run(cfg, tc, ckpt_dir=str(ckpt_dir) if ckpt else None,
                           ckpt_every=TRAIN_CKPT, train_step_fn=stepping,
                           state=pending.pop(), data=data, log_every=1,
@@ -3414,6 +3430,7 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     c = counters()
+    mm_flops = step_matmul_flops(path, calls, c, steps)
     if frontend:
         recs = meta_train_records(cfg, tc, eng.policy)
         groups = train_groups(cfg, recs=recs)
@@ -3459,7 +3476,10 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
                   trainer_step_seconds=run.step_seconds,
                   trainer_step_s_median=statistics.median(
                       run.step_seconds[1:]),
-                  state_bytes=state_bytes)
+                  state_bytes=state_bytes,
+                  batch_bytes=nbytes(*data.batch_at(0).values()),
+                  matmul_flops_per_step=mm_flops,
+                  train_config=dataclasses.asdict(tc))
     if cfg.ssm is not None:
         st = ssd.stats
         if st is None:
@@ -3586,6 +3606,25 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
         f"{by_role['dx']:.2f}, dw {by_role['dw']:.2f}; flash forward "
         f"{flash_ms:.3f}; {name}: {detail['seconds']:.1f} s")
     return c
+
+
+def step_matmul_flops(path: str, calls: "MatmulShapes", c: dict,
+                      steps: int) -> int:
+    """One train step's operations on the matmul kernels (B1, B4): the sum
+    of ``2 m n k`` over the launches captured through ``steps`` steps,
+    whose number per kernel must equal the wrappers' launch counts ``c``;
+    every step makes the same launches."""
+    from collections import Counter
+    seen = Counter(kernel for kernel, *_ in calls.launches)
+    for k in ("sa_fc_matmul", "sa_conv_matmul"):
+        if DEVICE != "cpu" and seen.get(k, 0) != c[k]:
+            raise AssertionError(f"{path}: {seen.get(k, 0)} captured "
+                                 f"launches of {k}, {c[k]} counted")
+    total = sum(2 * m * k * n for _, m, k, n in calls.launches)
+    if total % steps:
+        raise AssertionError(f"{path}: {total} matmul operations over "
+                             f"{steps} steps")
+    return total // steps
 
 
 def train_phase(rep: Report, smi: str, cfg=None) -> dict:
@@ -4922,6 +4961,32 @@ def rel_overflow(dt, a, chunk: int) -> dict:
                 heads=H, chunk=chunk)
 
 
+class MatmulShapes:
+    """Inside ``with``: ``(kernel, m, k, n)`` of every call the engine's
+    kernel operator makes to SA-FC or the SA-CONV GEMM on data (a meta
+    call launches nothing), as ``launches``."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self._orig = orig = (engine.sa_fc_matmul, engine.sa_conv_matmul)
+        self.launches = []
+
+        def capturing(fn):
+            def call(x, w, *args, **kw):
+                if x.device.type != "meta":
+                    self.launches.append((fn.__name__, *x.shape,
+                                          w.shape[1]))
+                return fn(x, w, *args, **kw)
+            return call
+
+        engine.sa_fc_matmul, engine.sa_conv_matmul = map(capturing, orig)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        engine.sa_fc_matmul, engine.sa_conv_matmul = self._orig
+
+
 class SSDCapture:
     """Inside ``with``: :func:`rel_overflow` of the first call of
     :func:`repro_torch.models.ssm.ssd_chunked` on data (the first Mamba
@@ -5297,6 +5362,191 @@ def frontend_train_phase(rep: Report, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run against the card's train steps; GPipe on the card
+# ---------------------------------------------------------------------------
+#: phase 16's pipeline: OLMo-1B (bf16) in PIPE_STAGES stages of its 16
+#: blocks, a PIPE_MICRO x PIPE_SEQ prefill wave as PIPE_MICRO microbatches
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 2, 4, 512
+
+
+def trained_paths() -> dict:
+    """Phases 10, 14 and 15's trained paths: {path: (rep.detail key,
+    config)}."""
+    out = {"trainer.run": ("train", olmo_bf16_config())}
+    out.update({f"trainer.run {n}": (f"family_{n}", c)
+                for n, c in rest_configs().items()})
+    out.update({f"trainer.run {n}": (f"frontend_train_{n}", c)
+                for n, c in frontend_configs().items()})
+    return out
+
+
+def dryrun_rows(rep: Report, smi: str) -> list[dict]:
+    """Phase 16 (a): each trained path dry-run on a 1 x 1 mesh
+    (``launch/dryrun.py``'s ``trace_train``, meta tensors, the phase's own
+    TrainConfig, batch shapes and donation) and held against what its
+    phase measured: the argument bytes (state and batch) equal the card's
+    tensors' bytes, and the operations of the traced matmul kernel calls
+    equal the sum of 2 m n k over one step's B1 and B4 launches, both
+    exactly; the predicted peak against ``max_memory_allocated`` as a
+    ratio (no gate).  Then ``roofline_fraction`` (the H100 bound over the
+    measured device time of a step; its memory term counts op-level
+    traffic, an upper bound on traffic, so it flatters a memory-bound
+    step), ``compulsory_fraction`` (the same with the memory term at the
+    compulsory traffic: state, gradients and block inputs moved once) and
+    ``mfu`` (model operations, 6 N tokens, over the host-clock step at the
+    dtype's peak), from the phases' numbers: no step runs again."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.accelerator import H100_SXM
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch import dryrun as D
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    rows = []
+    for path, (key, cfg) in trained_paths().items():
+        d = rep.detail[key]
+        tc = TrainConfig(**d["train_config"])
+        batch = SyntheticLM(DataConfig(cfg.vocab_size, tc.seq_len,
+                                       tc.global_batch, seed=tc.seed),
+                            cfg).batch_at(0)
+        seq = tc.seq_len + (cfg.vision_tokens if "vision_embeds" in batch
+                            else 0)
+        t0 = time.perf_counter()
+        tr = D.trace_train(cfg, ShapeConfig(path, seq, tc.global_batch,
+                                            "train"), mesh, tc=tc,
+                           batch=batch, donate=d["donated"])
+        rec = D.record(tr, 1, H100_SXM)
+        trace_s = time.perf_counter() - t0
+        card_args = d["state_bytes"] + d["batch_bytes"]
+        flops = tr.count.kernel_flops()
+        if rec["argument_bytes"] != card_args or \
+                rec["state_bytes"] != d["state_bytes"]:
+            raise AssertionError(
+                f"{path}: dry-run arguments {rec['argument_bytes']} "
+                f"(state {rec['state_bytes']}) != the card's {card_args} "
+                f"(state {d['state_bytes']})")
+        if flops != d["matmul_flops_per_step"] or \
+                rec["matmul_flops_per_chip"] != flops:
+            raise AssertionError(
+                f"{path}: dry-run matmul operations {flops} != the card's "
+                f"{d['matmul_flops_per_step']} a step")
+        dev_ms = d["device"]["device_ms"]
+        bound_ms = rec["bound_s"] * 1e3
+        floor_ms = rec["compulsory_bound_s"] * 1e3
+        peak = PEAK_FP32_FLOPS if cfg.compute_dtype == "float32" else \
+            PEAK_BF16_FLOPS
+        row = dict(
+            path=path, card=smi, batch=tc.global_batch, seq=tc.seq_len,
+            args_gb=rec["argument_bytes"] / 1e9,
+            card_args_gb=card_args / 1e9,
+            peak_gb=rec["peak_bytes_per_chip"] / 1e9,
+            card_peak_gb=d["peak_bytes"] / 1e9,
+            peak_ratio=rec["peak_bytes_per_chip"] / d["peak_bytes"],
+            matmul_tflop=flops / 1e12,
+            flops_tflop=rec["flops_per_chip"] / 1e12,
+            hbm_gb=rec["hbm_bytes_per_chip"] / 1e9,
+            bound_ms=bound_ms, dominant=rec["dominant"],
+            device_ms=dev_ms, host_ms=d["step_s_median"] * 1e3,
+            roofline_fraction=None if not dev_ms else bound_ms / dev_ms,
+            compulsory_gb=rec["compulsory_bytes_per_chip"] / 1e9,
+            compulsory_bound_ms=floor_ms,
+            compulsory_fraction=None if not dev_ms else floor_ms / dev_ms,
+            model_tflop=rec["model_flops"] / 1e12,
+            mfu=rec["model_flops"] / (d["step_s_median"] * peak),
+            trace_s=trace_s, kernel_calls=rec["kernel_calls"],
+            top_bytes=rec["top_bytes"][:4])
+        rows.append(row)
+        rf, cf = ("not measured" if row[k] is None else f"{row[k]:.3f}"
+                  for k in ("roofline_fraction", "compulsory_fraction"))
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.1f} ms"
+        log(f"  [{smi}] {path} ({tc.global_batch} x {tc.seq_len}, traced in "
+            f"{trace_s:.1f} s): arguments {row['args_gb']:.3f} GB == the "
+            f"card's {row['card_args_gb']:.3f} GB; matmul kernels "
+            f"{row['matmul_tflop']:.4f} TFLOP == the card's B1 + B4 "
+            f"launches' a step; all ops {row['flops_tflop']:.4f} TFLOP, "
+            f"{row['hbm_gb']:.2f} GB op-level; peak {row['peak_gb']:.2f} GB "
+            f"predicted vs {row['card_peak_gb']:.2f} GB max_memory_allocated"
+            f" (ratio {row['peak_ratio']:.3f}); bound {bound_ms:.2f} ms "
+            f"({row['dominant']}, op-level traffic) vs device {dev}: "
+            f"roofline_fraction {rf}; compulsory bound {floor_ms:.2f} ms "
+            f"({row['compulsory_gb']:.2f} GB): compulsory_fraction {cf}; "
+            f"host {row['host_ms']:.1f} ms: mfu {row['mfu']:.4f}")
+    return rows
+
+
+def pipeline_check(rep: Report, smi: str) -> dict:
+    """Phase 16 (b): full-width OLMo-1B (bf16) in PIPE_STAGES stages
+    (``distributed/pipeline.py``'s ``lm_stages``), a PIPE_MICRO x PIPE_SEQ
+    prefill wave through ``pipelined_forward`` as PIPE_MICRO microbatches,
+    each stage on its own stream: the logits bitwise the unpipelined
+    forward of the wave, on the kernels (none of their plain versions);
+    then the pipelined time against the same slots run one after another
+    on one stream (median of 5), the measured overlap (1 - pipelined /
+    sequential) beside the GPipe bubble (no speed gate)."""
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.distributed.pipeline import (PipeSchedule, lm_stages,
+                                                  pipelined_forward)
+    from repro_torch.models import transformer as T
+    cfg = olmo_bf16_config()
+    params = T.init_params(cfg, SEED, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    tok = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, PIPE_SEQ),
+                        generator=gen, device=DEVICE)
+    stages = lm_stages(cfg, params, PIPE_STAGES)
+    eng = Engine(backend="kernels")
+    with eng.activate():
+        want = T.forward(cfg, params, {"tokens": tok})[0]
+        torch.cuda.synchronize()
+        reset_counters()
+        got = pipelined_forward(stages, tok[:, None])
+        torch.cuda.synchronize()
+        c = counters()
+        exact("GPipe logits against the unpipelined forward", got[:, 0],
+              want)
+        del got, want
+        if any(v for k, v in c.items() if k.startswith("plain.")) or \
+                not c["sa_conv_matmul"] or not c["flash_attention"]:
+            raise AssertionError(f"GPipe launches {c}")
+
+        def sequential():
+            return [stages[1](stages[0](m[None])) for m in tok]
+
+        pipe_ms = timed(lambda: pipelined_forward(stages, tok[:, None]),
+                        runs=5, warmup=1)
+        seq_ms = timed(sequential, runs=5, warmup=1)
+    bubble = PipeSchedule(PIPE_STAGES, PIPE_MICRO).bubble_fraction
+    out = dict(card=smi, stages=PIPE_STAGES, microbatches=PIPE_MICRO,
+               seq=PIPE_SEQ, launches=c, pipelined_ms=pipe_ms,
+               sequential_ms=seq_ms, overlap=1 - pipe_ms / seq_ms,
+               bubble_fraction=bubble)
+    log(f"  [{smi}] GPipe, OLMo-1B bf16 in {PIPE_STAGES} stages of "
+        f"{cfg.n_layers // PIPE_STAGES} blocks, {PIPE_MICRO} x {PIPE_SEQ} "
+        f"tokens as {PIPE_MICRO} microbatches on {PIPE_STAGES} streams: "
+        f"logits bitwise the unpipelined forward; launches {c}; pipelined "
+        f"{pipe_ms:.2f} ms vs the slots on one stream {seq_ms:.2f} ms: "
+        f"overlap {out['overlap']:.3f} (the schedule's bubble fraction "
+        f"{bubble})")
+    del params, stages
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(rep: Report, smi: str) -> dict:
+    """Phase 16: :func:`dryrun_rows` and :func:`pipeline_check`."""
+    import torch
+    t_phase = time.perf_counter()
+    with torch.enable_grad():
+        rows = dryrun_rows(rep, smi)
+    with torch.no_grad():
+        pipe = pipeline_check(rep, smi)
+    out = dict(rows=rows, pipeline=pipe,
+               seconds=time.perf_counter() - t_phase)
+    rep.detail["dryrun_phase"] = out
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
                  lm_bf16: dict, zoo: dict, cnn_bf16: dict,
                  fleet: dict, train: dict, rest: dict,
@@ -5565,6 +5815,11 @@ def main() -> int:
         f"llava-next-34b at full width cut to {LLAVA_LAYERS} layers (bf16)")
     with torch.enable_grad():
         frontend_train = frontend_train_phase(rep, smi)
+
+    log("== phase 16: the dry run (launch/dryrun.py, meta tensors) against "
+        "phases 10, 14 and 15's train steps; GPipe over full-width "
+        f"OLMo-1B on {PIPE_STAGES} streams")
+    dryrun_phase(rep, smi)
 
     line = kernels_line(rep, served["launches"], shapes["declined_launches"],
                         lm_served["launches"], bf16_served["launches"], zoo,

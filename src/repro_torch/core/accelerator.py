@@ -9,6 +9,9 @@ Three machines appear in the port:
   port's plans (regime, pool fusion, serving micro-batch) equal the
   reference's field for field.  They describe no property of the card the
   port runs on; re-planning for that card is later work.
+* :data:`H100_SXM` — the card's data-sheet rates, which the roofline of
+  a whole step (:mod:`repro_torch.core.roofline`) and the dry run
+  (:mod:`repro_torch.launch.dryrun`) divide by.
 * :func:`gpu_card` — what the CUDA device actually is, read from
   ``torch.cuda.get_device_properties`` at run time.
 """
@@ -91,9 +94,58 @@ class TPUChip:
         (:func:`repro_torch.core.perf_model.sharded_wave_cost`) reads it."""
         return 2 * self.ici_links * self.ici_link_bandwidth
 
+    def peak_flops(self, dtype: str = "bfloat16") -> float:
+        """The roofline's compute rate: the reference's model has one
+        (bf16) for every dtype."""
+        return self.peak_flops_bf16
+
+    def link_bandwidth(self, mesh=None, axis: str | None = None) -> float:
+        """Wire rate of one mesh axis: one ICI link for every axis."""
+        return self.ici_link_bandwidth
+
+
+@dataclass(frozen=True)
+class GPUChip:
+    """A GPU's rates for the roofline of a whole step.  Every field is a
+    data-sheet figure except ``internode_bandwidth``, which is an
+    assumption about the cluster, not the card."""
+    name: str
+    peak_flops_bf16: float            # dense tensor-core bf16, FLOP/s
+    peak_flops_fp32: float            # fp32 (no TF32), FLOP/s
+    hbm_bandwidth: float              # B/s
+    hbm_bytes: int
+    nvlink_bandwidth: float           # B/s per direction per GPU
+    node_gpus: int                    # GPUs one NVLink switch joins
+    internode_bandwidth: float        # B/s per GPU between nodes
+
+    def peak_flops(self, dtype: str = "bfloat16") -> float:
+        return self.peak_flops_fp32 if dtype == "float32" else \
+            self.peak_flops_bf16
+
+    def link_bandwidth(self, mesh=None, axis: str | None = None) -> float:
+        """Wire rate of one axis of ``mesh`` (the last axis fastest, as
+        devices are numbered): NVLink where the axis and every axis inside
+        it fit one node, else the inter-node rate (also without a mesh)."""
+        if mesh is None or axis is None:
+            return self.internode_bandwidth
+        names = list(mesh.axis_names)
+        inner = 1
+        for a in names[names.index(axis):]:
+            inner *= mesh.shape[a]
+        return self.nvlink_bandwidth if inner <= self.node_gpus else \
+            self.internode_bandwidth
+
 
 MPNA_PAPER = MPNAConfig()
 TPU_V5E = TPUChip()
+#: NVIDIA H100 SXM5 80 GB, the data sheet's dense figures: 989 TFLOP/s
+#: bf16 and 67 TFLOP/s fp32, 3.35 TB/s of HBM3, 80 GB, NVLink 4 at 900
+#: GB/s both ways (450e9 B/s each way) among the 8 GPUs of an HGX node;
+#: between nodes the assumption of one 400 Gb/s NIC per GPU (50e9 B/s)
+H100_SXM = GPUChip(name="H100 SXM", peak_flops_bf16=989e12,
+                   peak_flops_fp32=67e12, hbm_bandwidth=3.35e12,
+                   hbm_bytes=80 * 10**9, nvlink_bandwidth=450e9,
+                   node_gpus=8, internode_bandwidth=50e9)
 
 
 @dataclass(frozen=True)

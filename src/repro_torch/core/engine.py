@@ -33,6 +33,14 @@ and v (the reference's flash kernel has no VJP; it trains on XLA, whose
 attention is that plain version).  Backward launches are not recorded in
 the trace.  ``conv2d`` and ``pool`` refuse inputs that require grad: the
 JAX package has no backward for them.
+
+The kernels backend reaches the matmul and flash kernels through two
+PyTorch operators, ``repro_torch::kernel_matmul`` and
+``repro_torch::kernel_flash`` (:func:`kernel_matmul`, :func:`kernel_flash`):
+each launches its kernel, and on ``meta`` tensors returns an empty output
+of the kernel's shape.  Each carries the op's name and its role as labels,
+so a dispatch mode sees every kernel call with its shape: the dry run's
+count (:class:`repro_torch.core.roofline.MetaCount`) costs them there.
 """
 from __future__ import annotations
 
@@ -261,13 +269,50 @@ def _refuse_grad(name: str, *tensors) -> None:
 # the SA-FC ``dx`` stream (``_fc_dx_plan``); the port's SA-FC picks its own
 # tiles from the launch's shape, so there is nothing to plan here.
 # ---------------------------------------------------------------------------
-def _kernel_matmul(regime: str, x2d: torch.Tensor, w: torch.Tensor,
-                   bias: torch.Tensor | None = None, *, act: str = "none",
-                   w_scale: torch.Tensor | None = None,
-                   out_dtype=None) -> torch.Tensor:
+@torch.library.custom_op(
+    "repro_torch::kernel_matmul", mutates_args=(),
+    schema="(Tensor x2d, Tensor w, Tensor? bias, Tensor? w_scale, str act, "
+           "str regime, ScalarType? out_dtype, str name, str role) -> Tensor")
+def kernel_matmul(x2d, w, bias, w_scale, act, regime, out_dtype, name, role):
+    """One call of SA-FC (``regime == "sa_fc"``) or the SA-CONV GEMM:
+    ``act(x2d @ w * w_scale + bias)``.  ``name`` (the engine's op) and
+    ``role`` (``forward``; ``pre``, the pre-activation recomputed in the
+    backward; ``dx``; ``dw``) are labels for a dispatch mode: the kernel
+    does not read them."""
     kernel = sa_fc_matmul if regime == "sa_fc" else sa_conv_matmul
     return kernel(x2d, w, bias, act=act, w_scale=w_scale,
                   out_dtype=out_dtype)
+
+
+@kernel_matmul.register_fake
+def _(x2d, w, bias, w_scale, act, regime, out_dtype, name, role):
+    return x2d.new_empty((x2d.shape[0], w.shape[1]),
+                         dtype=out_dtype or x2d.dtype)
+
+
+@torch.library.custom_op(
+    "repro_torch::kernel_flash", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float softcap, float? scale, str name) -> Tensor")
+def kernel_flash(q, k, v, causal, window, softcap, scale, name):
+    """One call of the flash kernel; ``name`` labels it, as in
+    :func:`kernel_matmul`."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)
+
+
+@kernel_flash.register_fake
+def _(q, k, v, causal, window, softcap, scale, name):
+    return torch.empty_like(q)
+
+
+def _kernel_matmul(regime: str, x2d: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor | None = None, *, act: str = "none",
+                   w_scale: torch.Tensor | None = None,
+                   out_dtype=None, name: str = "",
+                   role: str = "forward") -> torch.Tensor:
+    return kernel_matmul(x2d, w, bias, w_scale, act, regime, out_dtype,
+                         name, role)
 
 
 def _act_grad(pre: torch.Tensor, act: str) -> torch.Tensor:
@@ -291,26 +336,30 @@ class _MatmulFn(torch.autograd.Function):
     and bias (``bias`` may be None)."""
 
     @staticmethod
-    def forward(ctx, x2d, w, bias, act, regime, out_dtype):
+    def forward(ctx, x2d, w, bias, act, regime, out_dtype, name):
         ctx.save_for_backward(x2d, w, bias)
-        ctx.act, ctx.regime = act, regime
+        ctx.act, ctx.regime, ctx.name = act, regime, name
         return _kernel_matmul(regime, x2d, w, bias, act=act,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, name=name)
 
     @staticmethod
     def backward(ctx, g):
         x2d, w, bias = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        name = ctx.name
         dpre = _dpre(g, ctx.act, lambda: _kernel_matmul(
-            ctx.regime, x2d, w, bias)).to(x2d.dtype).contiguous()
+            ctx.regime, x2d, w, bias, name=name,
+            role="pre")).to(x2d.dtype).contiguous()
         dx = dw = db = None
         if need_x:
-            dx = _kernel_matmul(ctx.regime, dpre, w.t().contiguous())
+            dx = _kernel_matmul(ctx.regime, dpre, w.t().contiguous(),
+                                name=name, role="dx")
         if need_w:
-            dw = sa_conv_matmul(x2d.t().contiguous(), dpre).to(w.dtype)
+            dw = _kernel_matmul("sa_conv", x2d.t().contiguous(), dpre,
+                                name=name, role="dw").to(w.dtype)
         if need_b and bias is not None:
             db = dpre.to(torch.float32).sum(0).to(bias.dtype)
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 class _QuantMatmulFn(torch.autograd.Function):
@@ -319,25 +368,28 @@ class _QuantMatmulFn(torch.autograd.Function):
     the cotangent and streams the raw int8 ``q.T`` (1 byte a weight)."""
 
     @staticmethod
-    def forward(ctx, x2d, bias, q, w_scale, act, regime, out_dtype):
+    def forward(ctx, x2d, bias, q, w_scale, act, regime, out_dtype, name):
         ctx.save_for_backward(x2d, bias, q, w_scale)
-        ctx.act, ctx.regime = act, regime
+        ctx.act, ctx.regime, ctx.name = act, regime, name
         return _kernel_matmul(regime, x2d, q, bias, act=act,
-                              w_scale=w_scale, out_dtype=out_dtype)
+                              w_scale=w_scale, out_dtype=out_dtype,
+                              name=name)
 
     @staticmethod
     def backward(ctx, g):
         x2d, bias, q, w_scale = ctx.saved_tensors
         dpre = _dpre(g, ctx.act, lambda: _kernel_matmul(
-            ctx.regime, x2d, q, bias, w_scale=w_scale))
+            ctx.regime, x2d, q, bias, w_scale=w_scale, name=ctx.name,
+            role="pre"))
         dx = db = None
         if ctx.needs_input_grad[0]:
             scaled = (dpre * w_scale.reshape(1, -1).to(torch.float32)
                       ).to(x2d.dtype).contiguous()
-            dx = _kernel_matmul(ctx.regime, scaled, q.t().contiguous())
+            dx = _kernel_matmul(ctx.regime, scaled, q.t().contiguous(),
+                                name=ctx.name, role="dx")
         if ctx.needs_input_grad[1] and bias is not None:
             db = dpre.sum(0).to(bias.dtype)
-        return dx, db, None, None, None, None, None
+        return dx, db, None, None, None, None, None, None
 
 
 class _FlashFn(torch.autograd.Function):
@@ -345,11 +397,12 @@ class _FlashFn(torch.autograd.Function):
     the plain :func:`ref.attention` recomputed from the saved q, k, v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale, name):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         scale=scale)
-        return flash_attention(q, k, v, **ctx.opts)
+        return kernel_flash(q, k, v, causal, window, softcap, scale,
+                            name)
 
     @staticmethod
     def backward(ctx, g):
@@ -361,7 +414,7 @@ class _FlashFn(torch.autograd.Function):
             grads = iter(torch.autograd.grad(
                 out, [t for t in qkv if t.requires_grad], g))
         return (*(next(grads) if n else None for n in need),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -577,10 +630,11 @@ class Engine:
         if self.backend == "kernels":
             if w_scale is not None:
                 out = _QuantMatmulFn.apply(x2d.contiguous(), bias, wq,
-                                           w_scale, act, plan.regime, out_dt)
+                                           w_scale, act, plan.regime, out_dt,
+                                           name)
             else:
                 out = _MatmulFn.apply(x2d.contiguous(), wq, bias, act,
-                                      plan.regime, out_dt)
+                                      plan.regime, out_dt, name)
         else:
             out = ref.matmul_bias_act(x2d, wq, bias, act=act,
                                       out_dtype=out_dt, w_scale=w_scale)
@@ -668,7 +722,8 @@ class Engine:
                     n=k.shape[1], k=q.shape[-1], case=0,
                     backend=self.backend, dtype=dtype_name(q.dtype))
         if self.backend == "kernels":
-            return _FlashFn.apply(q, k, v, causal, window, softcap, scale)
+            return _FlashFn.apply(q, k, v, causal, window, softcap, scale,
+                                  name)
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
 

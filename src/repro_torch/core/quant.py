@@ -35,6 +35,28 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (qt.q.to(torch.float32) * qt.scale).to(dtype)
 
 
+_WEIGHT_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "w1", "w2",
+                  "in_proj", "out_proj", "head", "frontend", "w")
+
+
+def quantize_params(params):
+    """Quantize every matmul weight leaf of an LM tree (2-D or stacked, fp32
+    or bf16, outside norms; the reference's ``_is_weight``), stacked and
+    per-expert dims kept in the scale; embeddings, norms and the port's
+    ``embed_t`` stay as they are."""
+    from repro_torch.core import tree
+
+    def one(path, leaf):
+        names = path.split(".")
+        in_norm = any(n.startswith("ln") or "norm" in n for n in names[:-1])
+        if (leaf.dim() >= 2 and not in_norm and names[-1] in _WEIGHT_LEAVES
+                and leaf.dtype in (torch.bfloat16, torch.float32)):
+            return quantize(leaf, batch_dims=max(0, leaf.dim() - 2))
+        return leaf
+    return tree.unflatten(params, [one(p, l) for p, l
+                                   in tree.flatten_with_paths(params)])
+
+
 def quantize_cnn_params(params: list) -> list:
     """Quantize a CNN parameter list (:func:`repro_torch.models.cnn.init_cnn`
     layout): every conv filter ``f`` and FC weight ``w`` becomes an int8

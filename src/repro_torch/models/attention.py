@@ -7,16 +7,24 @@ Train/prefill attention goes through the active
 version).  Decode attends one query token against the cache with an
 explicit validity mask (plain PyTorch, fp32 accumulation): global layers
 keep a full-length cache, ``ATTN_LOCAL`` layers a ring of ``window`` slots,
-and cross-attention attends the encoder's precomputed K/V.  The
-reference's head padding and sharding constraints, which do nothing
-without a device mesh (ROADMAP A.3, the XLA and multi-pod tools), are not
-ported.
+and cross-attention attends the encoder's precomputed K/V.
+
+The reference's sharding constraints sit at the same sites
+(:func:`repro_torch.distributed.sharding.constrain`: the port has no
+partitioner, so they return their input), and inside an activation mesh
+with a model axis the query heads are padded to a multiple of its size
+as the reference pads them (:func:`_pad_heads`): the dry run traces that
+layout.  Outside a mesh nothing of this runs.
 """
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.core import engine
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import dense_init, rope
 
 
@@ -45,7 +53,57 @@ def _proj_qkv(cfg, p: dict, x: torch.Tensor,
         b, skv, cfg.n_kv_heads, hd)
     v = eng.matmul(xkv, p["wv"], name="attn.v").reshape(
         b, skv, cfg.n_kv_heads, hd)
+    # pin head sharding across the reshape (see sharding.constrain)
+    q = _constrain_q(cfg, q)
+    k = _constrain_kv(cfg, k)
+    v = _constrain_kv(cfg, v)
     return q, k, v
+
+
+def _pad_heads(cfg, q: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Inside an activation mesh, pad the query heads with zero heads to a
+    multiple of the TP degree (llava: 56 -> 64, llama4: 40 -> 48) so the
+    head axis shards; the padded heads' outputs are sliced off before
+    ``wo``.  The GQA group stays integral because hkv divides the padded
+    count (else no padding).  Returns (q, the real head count)."""
+    mesh = SH.active_mesh()
+    hq = q.shape[2]
+    if mesh is None:
+        return q, hq
+    tp = SH.tp_size(mesh)
+    if hq % tp == 0 or tp == 1:
+        return q, hq
+    hpad = ((hq + tp - 1) // tp) * tp
+    hkv = cfg.n_kv_heads
+    if hkv and hpad % hkv != 0:
+        hpad = ((hpad + hkv - 1) // hkv) * hkv     # keep GQA group integral
+        if hpad % tp:
+            return q, hq                           # give up: fall back
+    return F.pad(q, (0, 0, 0, hpad - hq)), hq
+
+
+def _constrain_q(cfg, q: torch.Tensor) -> torch.Tensor:
+    """Heads over TP when divisible; else the query sequence over TP
+    (context parallelism)."""
+    mesh = SH.active_mesh()
+    if mesh is None:
+        return q
+    tp = SH.tp_size(mesh)
+    if q.shape[2] % tp == 0:
+        return constrain(q, ("dp", None, "tp", None))
+    if q.shape[1] % tp == 0 and q.shape[1] > 1:
+        return constrain(q, ("dp", "tp", None, None))
+    return constrain(q, ("dp", None, None, None))
+
+
+def _constrain_kv(cfg, k: torch.Tensor) -> torch.Tensor:
+    mesh = SH.active_mesh()
+    if mesh is None:
+        return k
+    tp = SH.tp_size(mesh)
+    if k.shape[2] % tp == 0:
+        return constrain(k, ("dp", None, "tp", None))
+    return constrain(k, ("dp", None, None, None))
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,7 +155,11 @@ def attn_forward(cfg, p: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
                  torch.arange(x_kv.shape[1], device=x.device),
                  cfg.rope_theta)
     sc = cfg.attn_softcap if softcap is None else softcap
+    q, hq = _pad_heads(cfg, q)
+    q = _constrain_q(cfg, q)
     out = eng.attention(q, k, v, causal=causal, window=window, softcap=sc)
+    if out.shape[2] != hq:
+        out = out[:, :, :hq, :]                  # drop padded heads
     out = eng.matmul(out.reshape(b, s, -1), p["wo"], name="attn.o")
     if return_kv:
         return out, (k, v)

@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.core import dataflow, engine
 from repro_torch.core.quant import QTensor, dequantize
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.ref import apply_act
 from repro_torch.models.layers import dense_init, truncated_normal
 from repro_torch.models.mlp import init_mlp, mlp
@@ -118,6 +120,8 @@ def _experts(cfg, p: dict, xe: torch.Tensor, spec: str) -> torch.Tensor:
     g = torch.einsum(f"{spec}cd,edf->{spec}cf", xe, _w(p, "wg", cd))
     u = torch.einsum(f"{spec}cd,edf->{spec}cf", xe, _w(p, "wu", cd))
     h = apply_act(g.to(torch.float32), act).to(cd) * u
+    if spec == "ge":                 # the grouped buffer: ff over TP
+        h = constrain(h, ("dp", None, None, "tp"))
     return torch.einsum(f"{spec}cf,efd->{spec}cd", h, _w(p, "wd", cd))
 
 
@@ -163,7 +167,8 @@ def _moe_scatter_grouped(cfg, p: dict, xg: torch.Tensor, vals: torch.Tensor,
     mode="fill")``).  Every kept (token, choice) owns its slot, so each
     slot row receives at most one addition (the dropped pairs all land on
     the discarded extra row): ``index_add_``'s atomics on CUDA still give
-    one deterministic result.  On one card G is 1 (:func:`_n_groups`)."""
+    one deterministic result.  G is 1 outside a data-parallel activation
+    mesh (:func:`_n_groups`)."""
     m = cfg.moe
     G, Tg, d = xg.shape
     E, k = m.n_experts, m.top_k
@@ -176,10 +181,12 @@ def _moe_scatter_grouped(cfg, p: dict, xg: torch.Tensor, vals: torch.Tensor,
     x_rep = xg[:, :, None, :].expand(G, Tg, k, d).reshape(G * Tg * k, d)
     buf = torch.zeros((G * EC + 1, d), dtype=cd, device=xg.device)
     buf.index_add_(0, dest, x_rep)
-    xe = buf[:G * EC].reshape(G, E, C, d)
+    xe = constrain(buf[:G * EC].reshape(G, E, C, d),
+                   ("dp", None, None, None))
 
     _record_experts(name, p, C, d)
-    ye = _experts(cfg, p, xe, "ge").reshape(G * EC, d)
+    ye = constrain(_experts(cfg, p, xe, "ge"), ("dp", None, None, None))
+    ye = ye.reshape(G * EC, d)
 
     back = torch.cat([ye, ye.new_zeros((1, d))])[dest]
     back = back.reshape(G, Tg, k, d)
@@ -187,11 +194,16 @@ def _moe_scatter_grouped(cfg, p: dict, xg: torch.Tensor, vals: torch.Tensor,
 
 
 def _n_groups(T: int, B: int) -> int:
-    """Dispatch groups.  The reference makes one group per data-parallel
-    shard of its device mesh, so tokens never cross the DP axis for
-    routing; without a mesh it makes one.  The port runs on one card with
-    no mesh (the sharding port is ROADMAP A.3), so this is 1."""
-    return 1
+    """Dispatch groups = data shards of the activation mesh, so tokens
+    never cross the DP axis for routing (the Switch per-core capacity
+    scheme); group boundaries follow the batch dim, which the DP sharding
+    slices.  One group without a mesh (every served and trained path on
+    the card), or where the batch does not divide."""
+    mesh = SH.active_mesh()
+    if mesh is None:
+        return 1
+    g = SH.dp_size(mesh)
+    return g if (g > 1 and B % g == 0 and T % g == 0) else 1
 
 
 def moe_block(cfg, p: dict, x: torch.Tensor,
@@ -203,7 +215,7 @@ def moe_block(cfg, p: dict, x: torch.Tensor,
     G = _n_groups(T, B)
     Tg = T // G
     C = _capacity(Tg, cfg)
-    xg = x.reshape(G, Tg, d)
+    xg = constrain(x.reshape(G, Tg, d), ("dp", None, None))
 
     vals, idx, aux = _route(cfg, p, xg.reshape(T, d), name)
     vals = vals.reshape(G, Tg, m.top_k)

@@ -40,9 +40,10 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA,
                                       SHARED_ATTN, ModelConfig)
-from repro_torch.core import engine
+from repro_torch.core import engine, tree
 from repro_torch.core.accelerator import resolve_device
 from repro_torch.core.quant import QTensor
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_mod
@@ -50,6 +51,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
 MODES = ("train", "prefill")
+#: sequence-shard the residual carried between periods over TP
+#: (Megatron-SP) in training: the reference's capacity lever for >100B
+#: trains, which its dry run turns on; a constraint, so on the port it
+#: only marks the site (the dry run sets it as the reference's does)
+SP_CARRY = {"on": False}
 #: ``remat`` policies: none, or each pattern period recomputed in the
 #: backward pass (the reference's ``jax.checkpoint`` of its scan body)
 REMATS = ("none", "block")
@@ -235,6 +241,8 @@ def _period(cfg, kinds, blocks: list, shared_p: dict | None,
                                 pos=pos, cache=caches[i], enc_out=enc_out)
         aux = aux + a
         new.append(nc)
+    if SP_CARRY["on"] and mode == "train" and x.shape[1] > 1:
+        x = constrain(x, ("dp", "tp", None))
     return x, aux, new
 
 
@@ -269,10 +277,14 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
     enc-dec stack cross-attends in train and prefill.  ``remat="block"`` checkpoints each period of the
     stacked part (the unstacked tail runs plainly, as in the reference).
     Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss summed
-    over the blocks (0 without MoE blocks)."""
+    over the blocks (0 without MoE blocks).  The periods run are those
+    ``params`` holds (``blocks`` stacked, ``tail``): a slice of them runs
+    a stage of the stack (:func:`repro_torch.distributed.pipeline.
+    lm_stages`)."""
     _check_remat(remat)
     kinds = cfg.block_kinds()
-    reps, rem = cfg.stack_shape()
+    reps = next((t.shape[0] for t in tree.leaves(params["blocks"])), 0)
+    rem = len(params["tail"])
     shared_p = params.get("shared")
     collected: list[list] = [[] for _ in kinds]
     aux = 0.0
@@ -353,6 +365,30 @@ def encode(cfg: ModelConfig, params: dict, audio_embeds: torch.Tensor,
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict, *,
+                 remat: str = "none"):
+    """The stack's input: the tokens' embeddings (B, S, d) in the compute
+    dtype, a vision config's projected ``vision_embeds`` in front of them;
+    an enc-dec config's encoder output from ``audio_embeds``.  Returns (x,
+    enc_out or None)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    x = L.embed(params, batch["tokens"], scale=cfg.name.startswith("gemma"),
+                d=cfg.d_model, dtype=cd)
+    enc_out = None
+    if cfg.vision_tokens and "vision_embeds" in batch:
+        x = torch.cat([frontend(cfg, params, batch["vision_embeds"]), x],
+                      dim=1)
+    if cfg.enc_dec:
+        enc_out = encode(cfg, params, batch["audio_embeds"], remat=remat)
+    return constrain(x, ("dp", None, None)), enc_out
+
+
+def output_logits(cfg: ModelConfig, params: dict,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: fp32 logits (B, S, V)."""
+    return L.unembed(cfg, params, L.norm(cfg, params["final_norm"], x))
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             mode: str = "train", remat: str = "none"):
     """batch: ``{"tokens": (B, S) integer}``, plus ``"vision_embeds"`` (B,
@@ -364,21 +400,11 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     check_supported(cfg)
-    cd = torch_dtype(cfg.compute_dtype)
-    tokens = batch["tokens"]
-    x = L.embed(params, tokens, scale=cfg.name.startswith("gemma"),
-                d=cfg.d_model, dtype=cd)
-    enc_out = None
-    if cfg.vision_tokens and "vision_embeds" in batch:
-        x = torch.cat([frontend(cfg, params, batch["vision_embeds"]), x],
-                      dim=1)
-    if cfg.enc_dec:
-        enc_out = encode(cfg, params, batch["audio_embeds"], remat=remat)
+    x, enc_out = embed_inputs(cfg, params, batch, remat=remat)
     pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux, caches = stack_apply(cfg, params, x, pos_ids, mode=mode,
                                  enc_out=enc_out, remat=remat)
-    x = L.norm(cfg, params["final_norm"], x)
-    return L.unembed(cfg, params, x), aux, caches
+    return output_logits(cfg, params, x), aux, caches
 
 
 def trainable(params: dict) -> dict:

@@ -1457,3 +1457,31 @@ def test_frontend_families_generate_on_the_card(cuda, arch):
     per = cfg.n_layers * (2 if cfg.enc_dec else 1) + cfg.n_enc_layers
     assert recs.count("attention") == 2 * per
     assert all(v == 0 for v in ref.counts().values())
+
+
+def test_pipelined_forward_two_streams_bitwise_sequential(cuda):
+    """GPipe on the card: a reduced OLMo (bf16, 4 layers) cut into 2 stages,
+    4 microbatches of one 64-token sequence, each stage on its own stream
+    (``distributed/pipeline.py``): the logits bitwise the unpipelined
+    forward of the whole wave and the stages run one after another on the
+    default stream, and the kernels ran."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.pipeline import (lm_stages,
+                                                  pipelined_forward)
+    from repro_torch.models import transformer as T
+    cfg = reduced(get_config("olmo-1b"), n_layers=4, d_model=256,
+                  n_heads=4, head_dim=64, d_ff=512)
+    p = T.init_params(cfg, 0, device=cuda)
+    tok = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    stages = lm_stages(cfg, p, 2)
+    launches = sa_conv_matmul.launches + sa_fc_matmul.launches
+    with torch.no_grad(), Engine(backend="kernels").activate():
+        want = T.forward(cfg, p, {"tokens": tok})[0]
+        seq = torch.stack([stages[1](stages[0](t[None])) for t in tok])
+        got = pipelined_forward(stages, tok[:, None])
+    torch.cuda.synchronize()
+    assert sa_conv_matmul.launches + sa_fc_matmul.launches > launches
+    assert torch.equal(got, seq)
+    assert torch.equal(got[:, 0], want)
