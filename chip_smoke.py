@@ -9,8 +9,10 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM, flash and
-   pool instantiation (none but an fp32 SA-FC one may spill);
+   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM (the fp32
+   FMA loop and the bf16 tensor-core kernel, 168 registers a thread for
+   its ``setmaxnreg``), flash and pool instantiation (none but an fp32
+   SA-FC one may spill);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
    (SA-CONV: rows of a b=64 launch equal to b=1 and b=2 launches, fp32 and
@@ -45,9 +47,12 @@ Phases (any failure raises and exits non-zero):
 7. OLMo-1B as ``configs/olmo_1b.py`` publishes it: bf16 parameters, compute
    and cache at full width and depth.  SA-FC, the SA-CONV GEMM and flash
    attention in bf16 against their plain versions at the served shapes
-   (within the reference's bf16 tolerance, and bitwise the fp32 launch on
-   the widened operands, rounded once), the bitwise batch invariants in
-   bf16, then ``ServeEngine`` serves the same 9 requests with a bf16
+   (within the reference's bf16 tolerance; SA-FC and flash bitwise the
+   fp32 launch on the widened operands, rounded once; the GEMM, on the
+   tensor cores, within k 2^-22 (|x| @ |w|) of it per output, computed in
+   fp64 (one bf16 ulp more for a bf16 output), and bitwise equal to
+   itself launched again), the bitwise batch invariants in bf16, then
+   ``ServeEngine`` serves the same 9 requests with a bf16
    cache: every matmul a schedule hit, launches per kernel equal to the
    schedules' ops per regime, no plain version called, and the
    teacher-forced logits no farther from the ``"torch"`` backend's bf16
@@ -107,8 +112,11 @@ Phases (any failure raises and exits non-zero):
    warning where it differs); every instantiation's static shared memory
    (ptxas) and spills (none) against the launch pass; each kernel's
    exported shared-memory query against the launch pass for every launch
-   of the zoo variants and the LM configs; then all five kernels at the
-   launch pass's edge geometries (partial tiles, a short last SA-FC
+   of the zoo variants and the LM configs; the GEMM's producer query
+   (TMA or cp.async) against ``tma_ok`` for every bf16-x GEMM launch,
+   aligned and one element off; then all five kernels at the
+   launch pass's edge geometries (partial tiles, the bf16 GEMM through
+   both producers and every weight type, a short last SA-FC
    segment, flat conv tiles across images and a short last band, every
    pool vector width, paired flash CTAs over an odd number of query tiles
    with and without a window), each output's block filled with NaN first,
@@ -204,6 +212,8 @@ Phases (any failure raises and exits non-zero):
    on the kernels only, the overlap against the schedule's bubble
    printed.
 
+Phases 6, 7, 10 and 12-15 print the SA-CONV GEMM's bf16-x launches per
+producer of its tensor-core kernel (TMA, cp.async) beside its launches.
 Phase 5 also holds ``conv2d_im2col`` (the patch matrix on the GEMM kernel)
 against ``conv2d_mpna`` at AlexNet conv2-conv5 (b = 64) and times it beside
 SA-CONV.
@@ -521,6 +531,11 @@ def build(rep: Report) -> None:
             f"registers, spill bytes {v['spill_bytes']}")
     if any(v["spill_bytes"] for v in gemm.values()):
         raise AssertionError("ptxas: an SA-CONV GEMM instantiation spills")
+    # setmaxnreg moves registers within the CTA's allocation, which must be
+    # 65536 / 384 rounded down to 8 (the launcher refuses any other)
+    if any(v["registers"] != 168 for k, v in gemm.items() if "x bf16" in k):
+        raise AssertionError("ptxas: a tensor-core SA-CONV GEMM "
+                             "instantiation does not use 168 registers")
     attn = flash_ptxas(_build.build_log("attention"))
     rep.detail["ptxas_attention"] = attn
     for inst, v in attn.items():
@@ -610,10 +625,11 @@ def sa_conv_ptxas(text: str) -> dict:
 
 
 def gemm_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-CONV GEMM instantiation (weight,
-    activation and output types; every one runs the 128 x 128 tile) from
-    ptxas's -v output."""
-    from repro_torch.kernels.sa_conv import BM, BN
+    """Registers and spill bytes of each SA-CONV GEMM instantiation from
+    ptxas's -v output: the FMA loop's (weight, activation and output
+    types, fp32 x; the 128 x 128 tile) and the tensor cores' (bf16 x;
+    weight type, 128 x 128, its producer)."""
+    from repro_torch.kernels.sa_conv import BM, BN, TC_BM, TC_BN
     out = {}
     for m, regs, spills in ptxas_kernels(
             text, rf"sa_conv_gemm_kernelI((?:{MANGLED_TYPE}){{3}})E"):
@@ -621,9 +637,20 @@ def gemm_ptxas(text: str) -> dict:
         key = f"{w}, {BM}x{BN}" if (x, o) == ("fp32", "fp32") else \
             f"{w}, x {x}, out {o}, {BM}x{BN}"
         out[key] = dict(registers=regs, spill_bytes=spills)
-    if len(out) != 12:
-        raise AssertionError(f"ptxas: {len(out)} SA-CONV GEMM "
-                             "instantiations, not 12")
+    fma = len(out)
+    for m, regs, spills in ptxas_kernels(
+            text, rf"sa_conv_wgmma_kernelI({MANGLED_TYPE})Lb([01])E"):
+        (w,) = type_names(m.group(1))
+        key = (f"{w}, x bf16, {TC_BM}x{TC_BN}, "
+               f"{'tma' if m.group(2) == '1' else 'cp.async'}")
+        out[key] = dict(registers=regs, spill_bytes=spills)
+    # the FMA loop: 3 weight types x fp32 x x 2 outputs; the tensor cores
+    # (either output, chosen in the epilogue): 3 weight types through
+    # cp.async, bf16 w through TMA too
+    if (fma, len(out) - fma) != (6, 4):
+        raise AssertionError(f"ptxas: {fma} FMA and {len(out) - fma} "
+                             "tensor-core SA-CONV GEMM instantiations, "
+                             "not 6 and 4")
     return out
 
 
@@ -947,9 +974,28 @@ def counters():
 
 def reset_counters() -> None:
     from repro_torch.kernels import ref
+    from repro_torch.kernels.sa_conv import reset_producers
     for fn in _wrappers().values():
         fn.launches = 0
+    reset_producers()
     ref.reset_counts()
+
+
+def note_producers(rep: Report, path: str, c: dict) -> dict:
+    """B4's bf16-x launches since the counters were reset, per producer of
+    its tensor-core kernel (TMA, cp.async), beside all of its launches
+    (``c``): logged and kept in ``rep.detail["gemm_producers"]``."""
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
+    got = dict(sa_conv_matmul.producers)
+    if sum(got.values()) > c.get("sa_conv_matmul", 0):
+        raise AssertionError(f"{path}: {got} bf16 GEMM launches by producer"
+                             f", more than the {c.get('sa_conv_matmul')} "
+                             "GEMM launches counted")
+    rep.detail.setdefault("gemm_producers", {})[path] = got
+    log(f"  {path}: SA-CONV GEMM launches on the tensor cores (bf16 x) by "
+        f"producer: TMA {got['tma']}, cp.async {got['cp.async']}, of "
+        f"{c.get('sa_conv_matmul', 0)} GEMM launches")
+    return got
 
 
 def expect_counts(c: dict, what: str, **launches: int) -> None:
@@ -1812,6 +1858,7 @@ def serve_requests(rep: Report, prefix: str, cfg, params,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     c = counters()
+    note_producers(rep, f"{prefix} ServeEngine.run", c)
     waves = lm_waves()
     want = schedule_launches(srv, cfg, waves)
     expect_counts(c, f"{prefix} ServeEngine.run", **want)
@@ -2079,13 +2126,51 @@ def check_widened(name: str, got, kern, *args, **kw) -> None:
           kern(*wide, **kw).to(got.dtype))
 
 
+def check_widened_bound(name: str, x, w) -> float:
+    """B4 with bf16 x on the tensor cores against its fp32 launch on the
+    widened operands (act none, no bias), per output and in fp64 on the
+    card: |got - fp32| <= k 2^-22 (|x| @ |w|), the worst case of two fp32
+    summation orders of k terms with truncating accumulation, for an fp32
+    output; one bf16 ulp of the fp32 launch more for a bf16 output.  The
+    FMA loop and the tensor cores sum in other orders, so the bitwise
+    check of the other bf16 kernels does not apply.  Returns the largest
+    |got - fp32| / bound of the fp32 output."""
+    import torch
+    from repro_torch.kernels.sa_conv import sa_conv_matmul
+    wide = w.float()
+    ref = sa_conv_matmul(x.float(), wide).double()
+    bound = x.shape[1] * 2.0 ** -22 * (x.double().abs() @
+                                       wide.double().abs())
+    worst = 0.0
+    for out_dtype in (torch.float32, torch.bfloat16):
+        d = (sa_conv_matmul(x, w, out_dtype=out_dtype).double() - ref).abs()
+        if out_dtype == torch.float32:
+            lim = bound
+            worst = (d / bound.clamp_min(1e-300)).max().item()
+        else:
+            lim = bound + torch.ldexp(torch.ones_like(ref),
+                                      torch.frexp(ref)[1] - 8)
+        over = int((d > lim).sum())
+        if over:
+            raise AssertionError(
+                f"{name} ({out_dtype}): {over} outputs farther than k "
+                f"2^-22 (|x| @ |w|){'' if out_dtype == torch.float32 else ' + 1 bf16 ulp'}"
+                f" from the fp32 launch on the widened operands (max |d| "
+                f"{d.max().item():.4g})")
+        del d, lim
+    del ref, bound
+    return worst
+
+
 def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
     """B4, B1 and B5 with bf16 activations at the served shapes: the
     GEMM at a full wave's four prefill shapes (bf16 weights; the head also
     with fp32 logits), SA-FC at b = 4 and m = 512 with bf16, int8 and fp32
     weights, flash at a full wave's and a lone request's prefill; each
-    against its plain version, the bitwise batch invariants, and each
-    equal to the fp32 launch on the widened operands."""
+    against its plain version and the bitwise batch invariants; SA-FC and
+    flash equal to the fp32 launch on the widened operands, the GEMM (on
+    the tensor cores) within its error bound of it and bitwise equal to
+    itself launched again."""
     import torch
     from repro_torch.core.quant import quantize
     from repro_torch.kernels.attention import flash_attention, flash_plain
@@ -2106,17 +2191,18 @@ def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
             raise AssertionError(f"{name} {label}: wrote {got.dtype}")
         e = allclose(f"{name} {label}", got,
                      sa_conv_matmul_plain(x, w, act=act), TOL_BF16)
-        check_widened(f"{name} {label}", got, sa_conv_matmul, x, w, act=act)
+        exact(f"{name} {label} launched twice", got,
+              sa_conv_matmul(x, w, act=act))
+        ratio = check_widened_bound(f"{name} {label}", x, w)
         rep.note_err(name, e)
-        log(f"  {name} {label} m={x.shape[0]}: max|d| {e:.3g}; == fp32 on "
-            "the widened operands")
+        log(f"  {name} {label} m={x.shape[0]}: max|d| {e:.3g}; twice "
+            f"bitwise; act none within the bound of the fp32 launch on the "
+            f"widened operands (largest |d| / bound {ratio:.3g})")
     label, x, w, _, _ = gemms[3]
     logits = sa_conv_matmul(x, w, out_dtype=torch.float32)
     rep.note_err(name, allclose(
         f"{name} {label} fp32 logits", logits,
         sa_conv_matmul_plain(x, w, out_dtype=torch.float32), TOL_BF16))
-    check_widened(f"{name} {label} fp32 logits", logits, sa_conv_matmul,
-                  x, w, out_dtype=torch.float32)
     del logits
     check_gemm_rows(gemms, outs)
     del outs
@@ -3430,6 +3516,7 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     c = counters()
+    note_producers(rep, path, c)
     mm_flops = step_matmul_flops(path, calls, c, steps)
     if frontend:
         recs = meta_train_records(cfg, tc, eng.policy)
@@ -3655,19 +3742,23 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
 #: what phase 11 runs of ``python -m repro_torch.analysis``
 ANALYSIS_ARGS = ("--net", "alexnet", "--net", "vgg16", "--all-zoo-variants")
 #: the kernel of each library, as ptxas names its entry functions
+#: the activation kind of bf16 (csrc/common.cuh Kind)
+X_KIND_BF16 = 2
 KERNEL_SYMBOLS = {"sa_fc": "sa_fc_kernel",
                   "sa_conv_implicit": "sa_conv_kernel",
                   "pool_act": "pool_act_kernel",
-                  "sa_conv": "sa_conv_gemm_kernel",
+                  "sa_conv": ("sa_conv_gemm_kernel", "sa_conv_wgmma_kernel"),
                   "attention": "flash_kernel"}
 
 
-def ptxas_static(text: str, symbol: str) -> list[tuple[int, int]]:
+def ptxas_static(text: str, symbol) -> list[tuple[int, int]]:
     """(static shared memory bytes, spill bytes) of every instantiation of
-    ``symbol`` in ptxas's -v output."""
+    ``symbol`` (a kernel's name, or a tuple of a library's kernels) in
+    ptxas's -v output."""
+    symbols = (symbol,) if isinstance(symbol, str) else symbol
     out = []
     for block in text.split("Compiling entry function")[1:]:
-        if symbol not in block.split("\n", 1)[0]:
+        if not any(sym in block.split("\n", 1)[0] for sym in symbols):
             continue
         used = re.search(r"Used \d+ registers[^\n]*", block)
         if used is None:
@@ -3801,6 +3892,42 @@ def edge_phase(rep: Report, launches: list) -> list[dict]:
     return rows
 
 
+def check_producers(launches: list) -> dict:
+    """The built GEMM's producer query (``sa_conv_producer``) against the
+    launch pass's producer for every distinct bf16-x GEMM of ``launches``
+    (bases 16-byte aligned), and against ``tma_ok`` with x or w one element
+    off that alignment (cp.async).  The query reads the pointers' values
+    only.  Returns the distinct launches per producer."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sa_conv import W_BYTES, tma_ok
+    lib = _build.load("sa_conv")
+    names = {1: "tma", 0: "cp.async", -1: "fma"}
+    counts = {"tma": 0, "cp.async": 0}
+    seen = set()
+    for lau in launches:
+        if lau.kernel != "sa_conv" or lau.shape[4] != X_KIND_BF16:
+            continue
+        _, n, k, w_kind, x_kind = lau.shape
+        if (n, k, w_kind) in seen:
+            continue
+        seen.add((n, k, w_kind))
+        for xo, wo in ((0, 0), (2, 0), (0, W_BYTES[w_kind])):
+            xa, wa = (1 << 20) + xo, (1 << 21) + wo
+            got = names[lib.sa_conv_producer(xa, wa, w_kind, x_kind, k, n)]
+            want = "tma" if tma_ok(k, n, w_kind, xa, wa) else "cp.async"
+            if (xo, wo) == (0, 0) and want != lau.geoms[0].producer:
+                raise AssertionError(f"{lau.op}: tma_ok says {want}, the "
+                                     f"launch pass {lau.geoms[0].producer}")
+            if got != want:
+                raise AssertionError(
+                    f"{lau.op}: the built kernel takes {got} at x + {xo} B,"
+                    f" w + {wo} B; tma_ok says {want}")
+        counts[lau.geoms[0].producer] += 1
+    log(f"  sa_conv_producer == tma_ok for {len(seen)} distinct bf16-x GEMM "
+        f"launches, aligned and one element off ({counts})")
+    return counts
+
+
 def analysis_phase(rep: Report, smi: str) -> dict:
     """Phase 11: ``python -m repro_torch.analysis`` in process (exit 0;
     ops and findings per pass), the launch pass over the LM configs, the
@@ -3887,6 +4014,8 @@ def analysis_phase(rep: Report, smi: str) -> dict:
         log(f"  {lib}: {len(vals)} distinct launches' dynamic shared memory "
             f"== the launch pass ({min(vals)}..{max(vals)} B)")
 
+    producers = check_producers(launches + L.edge_launches())
+
     sweep = {lau.op for lau in L.noncausal_edge_launches()}   # phase 13's
     edges = edge_phase(rep, [lau for lau in L.edge_launches()
                              if lau.op not in sweep])
@@ -3898,6 +4027,7 @@ def analysis_phase(rep: Report, smi: str) -> dict:
                                        max=max(v))
                              for lib, v in sorted(by_lib.items())},
                launches_checked=len(launches), edges=edges,
+               gemm_producers=producers,
                wall_s=time.perf_counter() - t0)
     rep.detail["analysis"] = out
     log(f"  [{smi}] phase 11: {ops} ops and {len(lm)} LM launches checked, "
@@ -4873,6 +5003,7 @@ def frontend_phase(rep: Report, smi: str) -> dict:
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t1
         c = counters()
+        note_producers(rep, f"{name} greedy_generate", c)
         if tuple(toks.shape) != (b, n_new) or not bool(
                 ((toks >= 0) & (toks < cfg.vocab_size)).all()):
             raise AssertionError(f"{name}: tokens {tuple(toks.shape)} out "

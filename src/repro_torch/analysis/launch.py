@@ -403,7 +403,10 @@ def lm_launches(configs: dict[str, Any] | None = None,
 
 def edge_launches() -> list[Launch]:
     """The edge geometries phase 11 of chip_smoke.py launches on the card
-    (each must pass this pass first): partial last tiles in m and n; SA-FC
+    (each must pass this pass first): partial last tiles in m and n (the
+    bf16 GEMM through both producers: TMA; cp.async with element x loads
+    and 4-byte w pieces, and with fp32 and int8 weights rounded into its
+    tiles); SA-FC
     split over k with a short, ragged last segment at b = 1 and one row
     past a 64-row tile; SA-CONV flat tiles that cross image boundaries and
     pooled bands whose last band is short; the pool at 16-, 8- and 4-byte
@@ -419,6 +422,12 @@ def edge_launches() -> list[Launch]:
                     W_KIND["float32"], f32),
         gemm_launch("edge 130x200 bf16 [sa_conv]", 130, 200, 1000,
                     W_KIND["bfloat16"], bf16),
+        gemm_launch("edge 130x202 bf16 cp.async [sa_conv]", 130, 202, 1001,
+                    W_KIND["bfloat16"], bf16),
+        gemm_launch("edge 130x200 bf16 x fp32 w [sa_conv]", 130, 200, 1000,
+                    W_KIND["float32"], bf16),
+        gemm_launch("edge 130x201 bf16 x int8 w [sa_conv]", 130, 201, 999,
+                    W_KIND["int8"], bf16),
         conv_launch("edge flat [sa_conv_implicit]", 3, 15, 15, 16, 3, 3, 40,
                     1, 0, 0, f32),
         conv_launch("edge bands [sa_conv_implicit]", 3, 25, 25, 64, 3, 3, 96,
@@ -639,23 +648,35 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
 # SA-CONV GEMM
 # ---------------------------------------------------------------------------
 def _gemm_smem(w_bytes: int, x_kind: int) -> int:
-    """A CTA's dynamic shared memory from its tile: a ring of stages of an
-    x tile and a w tile of BK k (fp32 x: 4 stages, x k-major in rows of
-    BM + 4 floats; bf16 x: 5 stages, x as it lies in rows of XRP bytes,
-    then two widened fp32 x tiles and two widened fp32 w tiles)."""
+    """A CTA's dynamic shared memory from its tile.  fp32 x (the FMA loop):
+    a ring of 4 stages of an x tile (k-major, rows of BM + 4 floats) and a
+    w tile of BK k.  bf16 x (the tensor cores): 1024 bytes to align the
+    ring to the swizzle's period, a ring of 4 stages of a bf16 x tile and
+    a bf16 w tile of TC_BK k, TC_RAW_STAGES raw w tiles for weights that
+    are not bf16, and two 8-byte mbarriers a stage."""
     g = sa_conv
-    w_tile = g.BK * g.BN * w_bytes
     if x_kind == 0:
-        return g.STAGES * (g.BK * (g.BM + 4) * 4 + w_tile)
-    return (g.STAGES_BF16 * (g.BM * g.XRP + w_tile)
-            + 2 * g.BK * (g.BM + 4) * 4 + 2 * g.BK * g.BN * 4)
+        return g.STAGES * (g.BK * (g.BM + 4) * 4 + g.BK * g.BN * w_bytes)
+    raw = 0 if w_bytes == 2 else g.TC_RAW_STAGES * g.TC_BK * g.TC_BN * w_bytes
+    return (1024 + g.TC_STAGES * 2 * g.TC_BK * (g.TC_BM + g.TC_BN) + raw
+            + 2 * g.TC_STAGES * 8)
 
 
 def check_gemm(lau: Launch) -> list[tuple[str, str]]:
     m, n, k, w_kind, x_kind = lau.shape
     (g,) = lau.geoms
-    bm, bn = sa_conv.BM, sa_conv.BN
+    bm, bn = g.bm, g.bn
     out: list[tuple[str, str]] = []
+    if g.tensor_cores != (x_kind == X_KIND["bfloat16"]):
+        where = "the tensor cores" if g.tensor_cores else "the FMA loop"
+        out.append(("order", f"out: {'bf16' if x_kind else 'fp32'} x on "
+                             f"{where} — bf16 x runs on the tensor cores, "
+                             "fp32 x (no TF32) on the FMA loop"))
+    if g.tensor_cores and g.producer != (
+            "tma" if sa_conv.tma_ok(k, n, w_kind) else "cp.async"):
+        out.append(("coverage", f"out: the {g.producer} producer where "
+                                "tma_ok says otherwise — TMA needs bf16 w and "
+                                "16-byte rows (k % 8 == 0, n % 8 == 0)"))
     origins: dict[tuple[int, int], int] = {}
     for c in range(g.ctas):
         o = g.cta_origin(c)
@@ -673,23 +694,24 @@ def check_gemm(lau: Launch) -> list[tuple[str, str]]:
                                 f"span the {len(r0s)} x {len(c0s)} grid "
                                 "of row and column tiles"))
     cells = []
-    for t in range(sa_conv.THREADS):
+    for t in range(g.threads):
         rows, cols = g.thread_outputs(t)
         cells += [r * bn + c for r in rows for c in cols]
     out += _thread_map("out", np.asarray(cells), bm * bn)
     out += _residency("sa_conv", f"{'fp32' if x_kind == 0 else 'bf16'} x",
                       _gemm_smem(KIND_BYTES[w_kind], x_kind), g.smem_bytes,
-                      per_sm=sa_conv.PER_SM)
-    # order: one thread sums every real k of an output in increasing order,
-    # the zero-filled tail after them; the launch differs by m only in its
+                      per_sm=g.per_sm)
+    # order: every real k of an output summed in increasing order (one
+    # thread's fmaf chain, or one accumulator's wgmma steps), the
+    # zero-filled tail after them; the launch differs by m only in its
     # row tiles
     order = g.k_order(k)
     pad = len(order) - k
     if order[:k] != list(range(k)) or any(v != -1 for v in order[k:]) \
-            or not 0 <= pad < sa_conv.BK:
+            or not 0 <= pad < g.bk:
         out.append(("order", f"out: k_order({k}) is not 0..{k - 1} in "
                              "increasing order followed by fewer than "
-                             f"{sa_conv.BK} zero-filled terms"))
+                             f"{g.bk} zero-filled terms"))
     for mm in range(1, m + 1):
         other = sa_conv.gemm_geometry(mm, n, k, w_kind, x_kind)
         diff = [f.name for f in dataclasses.fields(g) if f.name != "row_tiles"

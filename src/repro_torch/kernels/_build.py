@@ -30,6 +30,12 @@ SOURCES = ("sa_fc", "sa_conv_implicit", "pool_act", "sa_conv",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: further nvcc flags of one library: the SA-CONV GEMM's tensor-core
+#: instantiations made it the longest build, so its kernels are compiled
+#: in parallel (``-split-compile=0``: as many threads as the machine has;
+#: the same registers and spills as one thread gives)
+LIB_FLAGS = {"sa_conv": ("-split-compile=0",)}
+
 #: activation codes of csrc/common.cuh
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3, "gelu": 4}
 
@@ -63,6 +69,13 @@ SMEM_SIGNATURES = {
     "attention": ("flash_smem", (_I,) * 3),
 }
 
+#: further exported queries of a library, bound beside those two: the
+#: GEMM's producer for given operands (1 TMA, 0 cp.async, -1 the FMA
+#: loop), what kernels/sa_conv.py ``tma_ok`` derives
+QUERY_SIGNATURES = {
+    "sa_conv": (("sa_conv_producer", (_P, _P, _I, _I, _I, _I)),),
+}
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -81,7 +94,7 @@ def _digest(name: str) -> str:
     h = hashlib.sha256()
     for part in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LIB_FLAGS.get(name, ())).encode())
     return h.hexdigest()[:16]
 
 
@@ -109,7 +122,8 @@ def build(names=SOURCES) -> dict[str, float]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *LIB_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -135,7 +149,8 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             for fn_name, argtypes in (SIGNATURES[name],
-                                      SMEM_SIGNATURES[name]):
+                                      SMEM_SIGNATURES[name],
+                                      *QUERY_SIGNATURES.get(name, ())):
                 fn = getattr(lib, fn_name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int

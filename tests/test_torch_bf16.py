@@ -267,21 +267,28 @@ SMEM_OPTIN, SMEM_PER_SM = 232448, 233472
 
 
 @pytest.mark.parametrize("w_kind", [0, 1, 2])
-def test_bf16_gemm_shared_memory_keeps_two_ctas_per_sm(w_kind):
-    """With bf16 x the GEMM's ring holds x's rows as copied and both
-    operands widened to fp32, and still fits two CTAs on an SM."""
+def test_bf16_gemm_shared_memory_fits_one_cta_per_sm(w_kind):
+    """With bf16 x the GEMM runs on the tensor cores: a ring of at least 4
+    stages of 32 KB (bf16 x and w tiles of 64 k), raw w stages for fp32
+    and int8 weights; one CTA fits an SM, two do not."""
     from repro_torch.kernels import sa_conv as tgemm
     g = tgemm.gemm_geometry(2048, 2048, 2048, w_kind, 2)
-    assert g.smem_bytes > tgemm.gemm_geometry(2048, 2048, 2048, w_kind).smem_bytes
-    assert tgemm.PER_SM * (g.smem_bytes + 1024) <= SMEM_PER_SM
+    assert g.tensor_cores and g.per_sm == 1 and g.stages >= 4
+    assert g.smem_bytes >= 4 * 32768 and g.smem_bytes <= SMEM_OPTIN
+    assert g.smem_bytes + 1024 <= SMEM_PER_SM < 2 * (g.smem_bytes + 1024)
     assert g.smem_bytes % 16 == 0 and g.x_copy == 16
+    assert g.producer == ("tma" if w_kind == 2 else "cp.async")
 
 
-@pytest.mark.parametrize("k,x_copy", [(2048, 16), (300, 8), (302, 4),
+@pytest.mark.parametrize("k,x_copy", [(2048, 16), (300, 4), (302, 4),
                                       (301, 0)])
 def test_bf16_gemm_x_copies_narrow_for_odd_rows(k, x_copy):
+    """cp.async pieces of 16 bytes where x's rows allow, else 4 (8-byte
+    rows too), else elements; TMA only where they are 16-byte rows."""
     from repro_torch.kernels import sa_conv as tgemm
-    assert tgemm.gemm_geometry(100, 64, k, 2, 2).x_copy == x_copy
+    g = tgemm.gemm_geometry(100, 64, k, 2, 2)
+    assert g.x_copy == x_copy
+    assert g.producer == ("tma" if x_copy == 16 else "cp.async")
 
 
 def test_bf16_flash_shared_memory_is_smaller():

@@ -718,8 +718,8 @@ def test_sa_fc_bf16_odd_widths_and_unaligned_bases(cuda, k, n, wdtype):
 @pytest.mark.parametrize("out", ["bf16", "fp32"])
 def test_gemm_bf16_kernel(cuda, m, k, n, wdtype, out):
     """bf16 x against the plain version within the reference's bf16
-    tolerance; bitwise the fp32 launch on the widened operands, rounded
-    once."""
+    tolerance; within the tensor cores' error bound of the fp32 launch on
+    the widened operands."""
     out_dtype = BF16 if out == "bf16" else torch.float32
     x, w, scale, bias, wide = _bf16_operands(cuda, m, k, n, wdtype)
     got = sa_conv_matmul(x, w, bias, act="silu", w_scale=scale,
@@ -729,8 +729,56 @@ def test_gemm_bf16_kernel(cuda, m, k, n, wdtype, out):
         want = sa_conv_matmul_plain(x, w, bias, act="silu", w_scale=scale,
                                     out_dtype=out_dtype)
         torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
-    fp32 = sa_conv_matmul(x.float(), wide, bias, act="silu", w_scale=scale)
-    assert torch.equal(got, fp32.to(out_dtype))
+    _within_widened_bound(x, w, wide, out_dtype)
+
+
+def _within_widened_bound(x, w, wide, out_dtype=torch.float32):
+    """B4 with bf16 x (act none, no bias or scale) against the fp32 launch
+    on the widened operands, per output: |got - fp32| <= k 2^-22 (|x| @
+    |w|), the worst case of two fp32 summation orders of k terms with
+    truncating accumulation, plus one bf16 ulp of the fp32 launch for a
+    bf16 output.  Computed in fp64."""
+    got = sa_conv_matmul(x, w, out_dtype=out_dtype).double()
+    ref = sa_conv_matmul(x.float(), wide).double()
+    bound = x.shape[1] * 2.0 ** -22 * (x.double().abs() @ wide.double().abs())
+    if out_dtype == BF16:
+        bound += torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+    excess = ((got - ref).abs() - bound).max().item()
+    assert excess <= 0, excess
+    return got
+
+
+@pytest.mark.parametrize("m,k,n,wdtype,offset,producer", [
+    (1000, 2048, 1024, "bf16", False, "tma"),
+    (300, 296, 257, "bf16", True, "cp.async"),
+    (300, 1000, 384, "fp32", False, "cp.async"),
+    (300, 1000, 384, "int8", False, "cp.async")])
+def test_gemm_bf16_tensor_cores_bound_rows_and_determinism(
+        cuda, m, k, n, wdtype, offset, producer):
+    """bf16 x on the tensor cores, through each producer: within the error
+    bound of the fp32 launch on the widened operands, every row tested
+    bitwise its m = 1 launch, two launches bitwise equal; the producer the
+    built kernel picks is the one ``tma_ok`` derives and the wrapper
+    counts."""
+    x, w, _, _, wide = _bf16_operands(cuda, m, k, n, wdtype)
+    if offset:
+        xo = torch.empty(m * k + 1, dtype=BF16, device=cuda)[1:].view(m, k)
+        wo = torch.empty(k * n + 1, dtype=w.dtype,
+                         device=cuda)[1:].view(k, n)
+        xo.copy_(x)
+        wo.copy_(w)
+        x, w = xo, wo
+    assert tgemm.kernel_producer(x, w) == producer
+    assert tgemm.tma_ok(k, n, tgemm.W_KINDS[w.dtype], x.data_ptr(),
+                        w.data_ptr()) == (producer == "tma")
+    before = dict(sa_conv_matmul.producers)
+    got = _within_widened_bound(x, w, wide).float()
+    assert sa_conv_matmul.producers[producer] == before[producer] + 1
+    assert torch.equal(sa_conv_matmul(x, w, out_dtype=torch.float32), got)
+    for r in (0, 1, m // 2, m - 1):
+        assert torch.equal(sa_conv_matmul(x[r:r + 1].contiguous(), w,
+                                          out_dtype=torch.float32),
+                           got[r:r + 1]), r
 
 
 @pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])

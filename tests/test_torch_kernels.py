@@ -449,8 +449,9 @@ def test_sa_conv_matmul_int8_matches_reference(m, n, k, act):
 def _gemm_tile_cover() -> np.ndarray:
     """How many threads of a CTA own each output of its BM x BN tile."""
     cover = np.zeros((tgemm.BM, tgemm.BN), np.int32)
+    g = tgemm.gemm_geometry(tgemm.BM, tgemm.BN, tgemm.BK, 0)
     for t in range(tgemm.THREADS):
-        rows, cols = tgemm.GemmGeometry.thread_outputs(t)
+        rows, cols = g.thread_outputs(t)
         cover[np.ix_(rows, cols)] += 1
     return cover
 
@@ -536,14 +537,15 @@ def test_gemm_sum_order_depends_on_k_alone(k):
 
 
 def test_gemm_constants_match_the_cuda_source():
-    """kernels/sa_conv.py mirrors csrc/sa_conv.cu's tiling and ring, and the
-    ctypes signature has the launch's 15 arguments."""
+    """kernels/sa_conv.py mirrors csrc/sa_conv.cu's tiling and rings (the
+    FMA loop's and the tensor cores'), and the ctypes signature has the
+    launch's 15 arguments."""
     src = (_build.CSRC / "sa_conv.cu").read_text()
     for name, value in (("BM", tgemm.BM), ("BN", tgemm.BN),
                         ("THREADS", tgemm.THREADS), ("PER_SM", tgemm.PER_SM),
                         ("BK", tgemm.BK), ("STAGES", tgemm.STAGES),
-                        ("STAGES_BF16", tgemm.STAGES_BF16),
-                        ("XRP", tgemm.XRP)):
+                        ("TC_STAGES", tgemm.TC_STAGES),
+                        ("TC_RAW_STAGES", tgemm.TC_RAW_STAGES)):
         assert f"constexpr int {name} = {value};" in src, name
     assert "constexpr int AP = BM + 4;" in src
     name, args = _build.SIGNATURES["sa_conv"]
