@@ -922,10 +922,19 @@ def check_pool(lau: Launch) -> list[tuple[str, str]]:
 # flash attention
 # ---------------------------------------------------------------------------
 def _flash_smem(bq: int, d: int, itemsize: int) -> int:
-    """A CTA's dynamic shared memory from its tile: the Q tile in fp32 and
-    two stages of K and V in the operands' type, rows padded by 4
-    elements, and 8 warps' P slices of 2 x bq / 16 rows of 32 + 4 fp32."""
-    return (4 * bq * (d + 4) + itemsize * 2 * 2 * attention.BKV * (d + 4)
+    """A CTA's dynamic shared memory from its tile.  fp32 (the FMA loop):
+    the Q tile and two stages of K and V, rows padded by 4 floats, and 8
+    warps' P slices of 2 x bq / 16 rows of 32 + 4 floats.  bf16 (the
+    tensor cores): 1024 bytes to align to the 128-byte swizzle's period,
+    two Q tiles of bq rows and TC_STAGES stages of a K and a V tile of BKV
+    rows, every row d rounded up to whole 128-byte atoms of 64 bf16, then
+    8-byte mbarriers, a full and an empty one a stage and one a Q tile."""
+    if itemsize == 2:
+        row = -(-d // 64) * 128
+        stages = attention.TC_STAGES
+        return (1024 + 2 * bq * row + stages * 2 * attention.BKV * row
+                + (2 * stages + 2) * 8)
+    return (4 * bq * (d + 4) + 4 * 2 * 2 * attention.BKV * (d + 4)
             + 4 * 8 * (2 * bq // 16) * (32 + 4))
 
 
@@ -1001,20 +1010,24 @@ def check_flash(lau: Launch) -> list[tuple[str, str]]:
             bh, t = np.argwhere(seen > 1)[0]
             out.append(("race", f"{what}: query tile {t} of (batch, head) "
                                 f"{bh} written by more than one CTA"))
-    # each thread's (row, column) of a tile: warp w rows 2 RPT w + 2 r +
-    # half, lane x columns 4 (x + 16 c)
-    rpt, nc4 = g.bq // 16, d // 4
+    if g.tensor_cores != (itemsize == 2):
+        where = "the tensor cores" if g.tensor_cores else "the FMA loop"
+        out.append(("order", f"out: {'bf16' if itemsize == 2 else 'fp32'} "
+                             f"on {where} — bf16 runs on the tensor cores, "
+                             "fp32 (no TF32) on the FMA loop"))
+    # each thread's (row, column) of a query tile: the FMA kernel's warp
+    # and half-warp rows, or wgmma's accumulator fragment (a consumer
+    # warpgroup a 64 rows), as the kernel that runs stores them
     cells = []
-    for t in range(256):
-        wp, lane = divmod(t, 32)
-        half, x = divmod(lane, 16)
-        for r in range(rpt):
-            row = wp * 2 * rpt + 2 * r + half
-            for cc in range(-(-nc4 // 16)):
-                if x + 16 * cc < nc4:
-                    cells += [row * d + 4 * (x + 16 * cc) + e
-                              for e in range(4)]
-    out += _thread_map("out", np.asarray(cells), g.bq * d)
+    for t in range(g.threads):
+        rows, cols = g.thread_outputs(t, d)
+        cells += [r * d + c for r in rows for c in cols]
+    cells = np.asarray(cells)
+    if len(cells) and (cells.min() < 0 or cells.max() >= g.bq * d):
+        out.append(("coverage", f"out: a thread stores past its {g.bq} x "
+                                f"{d} query tile"))
+        cells = cells[(cells >= 0) & (cells < g.bq * d)]
+    out += _thread_map("out", cells, g.bq * d)
     out += _residency("attention", f"{g.bq}-row tiles, d {d}",
                       _flash_smem(g.bq, d, itemsize), g.smem_bytes)
     # coverage of keys and order: each row sums the same kv tiles in the

@@ -111,7 +111,8 @@ def build_log(name: str) -> str:
 
 def build(names=SOURCES) -> dict[str, float]:
     """Build the named libraries that are missing, one ``nvcc`` process per
-    source, all started together; returns seconds per library built."""
+    source, all started together; returns the seconds each library took to
+    build, from the common start to its own process's end."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -122,20 +123,27 @@ def build(names=SOURCES) -> dict[str, float]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = out.with_name(f"{out.name}.{os.getpid()}.log.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *LIB_FLAGS.get(name, ()), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT),
+                           tmp, out, log)
     seconds, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
+    while len(seconds) < len(procs):
+        for name, (proc, tmp, out, log) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            text = log.read_text()
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{text}")
+                continue
+            out.with_suffix(".log").write_text(text)
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds

@@ -90,7 +90,6 @@
 // after every real term.  The epilogue applies scale, then bias, then the
 // activation once per output, in fp32, in the plain version's order.
 #include <atomic>
-#include <cuda.h>
 
 #include "common.cuh"
 
@@ -389,46 +388,11 @@ struct TcRing {
   static constexpr int SMEM = TC_ALIGN + TC_STAGES * STAGE_BYTES + RAW + 2 * TC_STAGES * 8;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset o of a 1024-byte-aligned block of 128-byte rows, as the
 // 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout 1)
 // places it: the 16-byte chunk of a row XOR the row's index mod 8.
 __device__ __forceinline__ unsigned sw128(unsigned o) { return o ^ (((o >> 7) & 7u) << 4); }
 
-__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Wait until the barrier's phase of parity `parity` has completed.  A wait
-// that lasts 10 s traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned long long t0 = 0;
-  for (unsigned i = 0;; ++i) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((i & 1023u) == 0) {
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (i == 0) t0 = now;
-      else if (now - t0 > 10000000000ull) __trap();
-    }
-  }
-}
 __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar, int c0,
                                          int c1) {
   asm volatile(
@@ -443,14 +407,6 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void producer_sync() {   // the producer warpgroup's 128 threads
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
-// A wgmma shared-memory descriptor, 128-byte swizzle: the start address,
-// the leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
-         (static_cast<unsigned long long>(lbo >> 4) << 16) |
-         (static_cast<unsigned long long>(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // d += A (64 x 16, K-major) @ B (16 x 128, MN-major), fp32 accumulators.
@@ -477,12 +433,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long l
         "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
-// Keep the accumulators in their registers across the asynchronous products.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // R rows of ROW_BYTES bytes of a row-major matrix (rows `stride` elements
 // apart) into a stage by the producer warpgroup's 128 threads (pt): V
 // bytes per cp.async (0: element loads), consecutive threads on
@@ -763,28 +713,6 @@ cudaError_t launch(const Args& a) {
       static_cast<const XT*>(a.x), static_cast<const WT*>(a.w), a.scale, a.bias,
       static_cast<OT*>(a.out), a.m, a.n, a.k, row_tiles, a.wvec, a.act);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (nothing
-// more is linked); null if the driver has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
 }
 
 // The tensor map of a row-major bf16 (rows, cols) matrix read in boxes of

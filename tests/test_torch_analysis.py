@@ -736,6 +736,78 @@ def test_launch_catches_a_fault_in_a_noncausal_flash_launch(monkeypatch,
         assert "written by no CTA" in msgs or "query tiles" in msgs, msgs
 
 
+def test_launch_pass_clean_on_every_bf16_flash_launch():
+    """Every flash launch of a served or trained bf16 path runs the
+    tensor-core kernel, its wgmma fragment map covering each query tile
+    once and its shared memory within the card's: OLMo-1B's causal d 128,
+    zamba2's d 80, seamless's non-causal d 64 encoder and cross-attention,
+    llava's GQA group of 7 at d 128.  No finding."""
+    configs = {k: v for k, v in tlaunch.lm_configs().items()
+               if k in ("olmo-1b", "zamba2-2.7b", "seamless-m4t-large-v2",
+                        "llava-next-34b")}
+    flash = [lau for lau in tlaunch.lm_launches(configs)
+             if lau.kernel == "attention"]
+    assert flash and all(lau.shape[-1] == 2 for lau in flash)
+    assert all(lau.geoms[0].tensor_cores and lau.geoms[0].threads ==
+               2 * lau.geoms[0].bq for lau in flash)
+    shapes = {lau.shape for lau in flash}
+    for want in ((4, 512, 512, 16, 16, 128, True, 0, 2),
+                 (4, 1024, 1024, 16, 16, 64, False, 0, 2),
+                 (4, 16, 1024, 16, 16, 64, False, 0, 2),
+                 (2, 608, 608, 56, 8, 128, True, 0, 2)):
+        assert want in shapes, want
+    assert any(s[5] == 80 for s in shapes)
+    for lau in flash:
+        b, sq, skv, hq, hkv, d, causal, window, itemsize = lau.shape
+        assert lau.geoms[0].smem_bytes == tattn.smem_bytes(
+            lau.geoms[0].bq, d, 2) <= tlaunch.SMEM_OPTIN
+    report = tlaunch.verify_launches(flash)
+    assert report.ok and report.findings == [], report.summary()
+
+
+@pytest.mark.parametrize("fault", ["a warpgroup short", "fma loop",
+                                   "fragment rows", "shared memory"])
+def test_launch_catches_a_fault_in_a_bf16_flash_geometry(monkeypatch, fault):
+    """A bf16 launch with one consumer warpgroup too few leaves query rows
+    unwritten; one put on the FMA loop breaks the dtype's kernel; a
+    fragment map that misses the accumulator's rows + 8 races and leaves
+    rows unwritten; a shared-memory figure that misses the Q tiles' second
+    buffer disagrees with the launch."""
+    lau = _edge("edge non-causal sq==skv paired g7 d128 bf16 [attention]")
+    g = lau.geoms[0]
+    assert g.tensor_cores and g.bq == 128 and tlaunch.check_launch(lau) == []
+    if fault == "a warpgroup short":
+        monkeypatch.setattr(tattn.FlashGeometry, "threads",
+                            property(lambda self: 2 * self.bq - 128))
+        bad = g
+    elif fault == "fma loop":
+        bad = dataclasses.replace(g, tensor_cores=False)
+    elif fault == "shared memory":
+        bad = dataclasses.replace(g, smem_bytes=g.smem_bytes - 2 * 128 * 128)
+    else:
+        real = tattn.FlashGeometry.thread_outputs
+
+        def fragment(self, t, d):
+            # the accumulator's rows + 8 forgotten: each row the map gives
+            # stored twice, rows 8..15 of each warp never
+            rows, cols = real(self, t, d)
+            return [rows[0], rows[0]], cols
+        monkeypatch.setattr(tattn.FlashGeometry, "thread_outputs", fragment)
+        bad = g
+    msgs = _only(dataclasses.replace(lau, geoms=(bad,)))
+    if fault == "a warpgroup short":
+        assert "attention coverage: out: 8192 outputs of the CTA's tile " \
+            "owned by no thread" in msgs, msgs
+    elif fault == "fma loop":
+        assert "attention order: out: bf16 on the FMA loop" in msgs, msgs
+    elif fault == "shared memory":
+        assert "attention residency: " in msgs
+        assert "launch and geometry disagree" in msgs, msgs
+    else:
+        assert "attention coverage: out:" in msgs, msgs
+        assert "attention race: out:" in msgs, msgs
+
+
 def test_launch_pass_clean_on_the_declined_pool_and_strips():
     """A pool the planner declines runs on the pool kernel (checked at
     every vector width a pointer may give it), and a pool window wider

@@ -292,12 +292,20 @@ def test_bf16_gemm_x_copies_narrow_for_odd_rows(k, x_copy):
 
 
 def test_bf16_flash_shared_memory_is_smaller():
-    """bf16 K and V tiles take half the bytes; Q and P stay fp32."""
+    """bf16 runs on the tensor cores: two Q tiles and a 3-stage K/V ring in
+    bf16 rows of d rounded up to 64 (128-byte swizzle atoms), 1024 bytes of
+    alignment and 8 mbarriers, no fp32 Q or P.  At the served head dims 64
+    and 128 a CTA takes less than fp32's; every tiling fits a Hopper CTA."""
     from repro_torch.kernels import attention as tattn
     for d in tattn.HEAD_DIMS:
+        dp = 64 if d <= 64 else 128
         for bq in tattn.BQ:
-            assert tattn.smem_bytes(bq, d, 2) == tattn.smem_bytes(bq, d) - \
-                2 * 4 * tattn.BKV * (d + 4)
+            assert tattn.smem_bytes(bq, d, 2) == 1024 + 4 * bq * dp + \
+                3 * 4 * tattn.BKV * dp + 8 * 8 <= SMEM_OPTIN
+            if d in (64, 128):
+                assert tattn.smem_bytes(bq, d, 2) < tattn.smem_bytes(bq, d)
     full = tattn.flash_geometry(4, 512, 512, 16, 16, 128, True, 0, 2)
-    assert full.smem_bytes <= SMEM_OPTIN and (full.bq, full.paired) == \
-        (128, True)
+    assert full.smem_bytes <= SMEM_OPTIN and full.tensor_cores
+    assert (full.bq, full.paired, full.threads) == (128, True, 256)
+    lone = tattn.flash_geometry(1, 512, 512, 16, 16, 128, True, 0, 2)
+    assert (lone.bq, lone.paired, lone.threads) == (64, False, 128)

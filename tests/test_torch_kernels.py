@@ -8,6 +8,8 @@ tests/test_conv_dispatch.py, tests/test_fused_pool.py, tests/test_kernels.py).
 """
 from __future__ import annotations
 
+import textwrap
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -735,6 +737,101 @@ def test_flash_shared_memory_fits_every_head_dim(d):
         assert tattn.smem_bytes(bq, d) <= SMEM_OPTIN
 
 
+def _tensor_core_numerics(q, k, v, *, causal, window, softcap):
+    """bf16 flash as csrc/attention.cu's tensor-core kernel orders it, in
+    plain fp32 on the CPU: each score summed over 16-column steps of d,
+    the online softmax in base 2 over kv tiles of 64, P split into hi =
+    bf16(p) and lo = bf16(p - hi) for P V, the output rounded once."""
+    b, sq, hq, d = q.shape
+    skv, g = k.shape[1], hq // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (ref.repeat_kv(t, g).float().permute(0, 2, 1, 3) for t in (k, v))
+    scale2 = d ** -0.5 * 1.4426950408889634
+    qpos = torch.arange(sq)[:, None] + skv - sq
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    for k0 in range(0, skv, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = torch.zeros((b, hq, sq, kt.shape[2]))
+        for c in range(0, d, 16):
+            s = s + qf[..., c:c + 16] @ kt[..., c:c + 16].transpose(-1, -2)
+        if softcap > 0:
+            t = softcap * torch.tanh(s * d ** -0.5 / softcap) \
+                * 1.4426950408889634
+        else:
+            t = s * scale2
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        t = torch.where(ok, t, torch.tensor(-1e30))
+        mnew = torch.maximum(m, t.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - mnew)
+        p = torch.where(ok, torch.exp2(t - mnew), torch.tensor(0.0))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        acc = acc * alpha + hi @ vt + lo @ vt
+        m = mnew
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [
+    dict(b=1, sq=70, skv=70, hq=4, hkv=2, d=80, window=0, softcap=0.0),
+    dict(b=1, sq=100, skv=100, hq=2, hkv=2, d=128, window=40, softcap=0.0)])
+def test_flash_widened_bound_covers_the_tensor_core_numerics(case):
+    """``widened_bound`` holds for bf16 flash computed as the tensor-core
+    kernel orders it (16-wide d steps, kv tiles of 64, P split into two
+    bf16 terms) against the fp32 function on the widened operands."""
+    c = dict(case)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(
+        c["b"], c["sq"], c["skv"], c["hq"], c["hkv"], c["d"]))
+    kw = dict(causal=True, window=c["window"], softcap=c["softcap"])
+    wide = ref.attention(q.float(), k.float(), v.float(), **kw)
+    got = _tensor_core_numerics(q, k, v, **kw)
+    bound = tattn.widened_bound(q, k, v, wide, **kw)
+    assert bound.shape == wide.shape and (bound > 0).all()
+    d = (got.double() - wide.double()).abs()
+    assert (d <= bound).all(), (d / bound).max().item()
+
+
+#: the bf16 kernel's dynamic shared memory by padded row (64 or 128
+#: columns) and tile height: 1024 B of alignment, two Q tiles, three
+#: stages of K and V, eight mbarriers
+BF16_FLASH_SMEM = {64: {64: 66624, 128: 83008}, 128: {64: 132160, 128: 164928}}
+
+
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
+def test_flash_bf16_geometry_and_shared_memory_at_every_head_dim(d):
+    """bf16 launches run the tensor-core kernel at either tile height: one
+    consumer warpgroup a 64 rows, rows padded to 64 or 128 columns, the
+    shared memory pinned and under the 227 KB a CTA may opt into; its
+    fragment map stores every (row, column) of a query tile once."""
+    dp = tattn.padded_dim(d)
+    assert dp == (64 if d <= 64 else 128)
+    for bq in tattn.BQ:
+        assert tattn.smem_bytes(bq, d, 2) == BF16_FLASH_SMEM[dp][bq] \
+            <= SMEM_OPTIN
+        g = tattn.FlashGeometry(bq, False, 1, 1, tattn.smem_bytes(bq, d, 2),
+                                0.0, tensor_cores=True)
+        seen = np.zeros((bq, d), np.int32)
+        for t in range(g.threads):
+            rows, cols = g.thread_outputs(t, d)
+            for r in rows:
+                seen[r, cols] += 1
+        assert (seen == 1).all()
+    for shape in ((4, 512, 512, 16, 16, d, True, 0),
+                  (1, 512, 512, 16, 16, d, True, 0),
+                  (4, 1024, 1024, 16, 16, d, False, 0)):
+        g = tattn.flash_geometry(*shape, 2)
+        assert g.tensor_cores and g.threads == 2 * g.bq
+        assert g.smem_bytes == BF16_FLASH_SMEM[dp][g.bq]
+
+
 def test_engine_attention_records_and_routes():
     q, k, v = _qkv(2, 24, 24, 4, 2, 16)
     reng = REngine(backend="pallas", interpret=True)
@@ -896,6 +993,31 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["pool_act"])
+
+
+def test_build_times_each_library_by_its_own_process(monkeypatch, tmp_path):
+    """The libraries build in parallel, and each one's seconds end when its
+    own nvcc does (not when the slowest ahead of it in the list does); its
+    output lands as its build log."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(textwrap.dedent("""\
+        #!/bin/sh
+        out=""; prev=""
+        for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+        case "$a" in *sa_fc.cu) sleep 1.5;; esac
+        echo "ptxas info    : Used 32 registers ($a)"
+        : > "$out"
+        """))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    seconds = _build.build(["sa_fc", "pool_act"])
+    assert set(seconds) == {"sa_fc", "pool_act"}
+    assert seconds["pool_act"] < 1.0 < 1.5 <= seconds["sa_fc"]
+    for name in seconds:
+        assert _build.library_path(name).exists()
+        assert f"{name}.cu)" in _build.build_log(name)
+    assert not list((tmp_path / "build").glob("*.tmp"))
 
 
 def test_launch_error_raises():
