@@ -9,10 +9,11 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC, SA-CONV, SA-CONV GEMM (the fp32
-   FMA loop and the bf16 tensor-core kernel, 168 registers a thread for
-   its ``setmaxnreg``), flash (the fp32 FMA loop and the bf16 tensor-core
-   kernel) and pool instantiation (none but an fp32 SA-FC one may spill);
+   registers and spills of every SA-FC, SA-CONV and SA-CONV GEMM (each the
+   fp32 FMA loop and the bf16 tensor-core kernel, 168 registers a thread
+   for its ``setmaxnreg``), flash (the fp32 FMA loop and the bf16
+   tensor-core kernel) and pool instantiation (none but an fp32 SA-FC one
+   may spill);
    the build time of each library;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    full-width AlexNet serving gives them, plus the bitwise invariants
@@ -64,12 +65,15 @@ Phases (any failure raises and exits non-zero):
 8. the model zoo, ``ModelZooServer`` over ``build_zoo(("alexnet", "vgg16",
    "alexnet-int8"))`` at full width and native resolution (227² and
    224², waves of 64), and bf16 activations in SA-CONV implicit and the
-   pool (C6).  First SA-CONV in bf16 at AlexNet conv1-conv5 and VGG-16
-   conv1_2, conv3_3 and conv5_3 (b = 64, fp32 and int8 filters, pools
-   fused and unfused) and the pool in bf16 at the ``POOL_SWEEP`` maps:
-   within the bf16 tolerance of the plain versions, bitwise the fp32
-   launch on the widened operands rounded once, fused == conv -> pool and
-   rows == b = 1 bitwise; AlexNet's forward with bf16 activations and the
+   pool (C6).  First SA-CONV in bf16 (the tensor cores) at AlexNet
+   conv1-conv5 and VGG-16 conv1_2, conv3_3 and conv5_3 (b = 64, fp32 and
+   int8 filters, pools fused and unfused) and the pool in bf16 at the
+   ``POOL_SWEEP`` maps: within the bf16 tolerance of the plain versions;
+   SA-CONV within ``kernels/sa_conv_implicit.py::widened_bound`` of the
+   fp32 launch on the widened operands (per output, in fp64; the largest
+   |d| / bound reported) and bitwise: the bf16 output == the launch's fp32
+   output rounded once, two launches, fused == conv -> pool and rows == b
+   = 1; the pool bitwise; AlexNet's forward with bf16 activations and the
    declined-fusion dispatch in bf16, launches counted.  Then the
    reference example's three-tenant trace (64 requests a tenant) under
    fifo, smf and edf: every request served once, its logits bitwise its
@@ -120,8 +124,9 @@ Phases (any failure raises and exits non-zero):
    aligned and one element off; then all five kernels at the
    launch pass's edge geometries (partial tiles, the bf16 GEMM through
    both producers and every weight type, a short last SA-FC
-   segment, flat conv tiles across images and a short last band, every
-   pool vector width, paired flash CTAs over an odd number of query tiles
+   segment, flat conv tiles across images and a short last band in fp32
+   and bf16 (the bf16 ones on the tensor cores: both tiles, ragged co, ci
+   = 3 and 5), every pool vector width, paired flash CTAs over an odd number of query tiles
    with and without a window), each output's block filled with NaN first,
    against the plain versions (the pool bitwise) with no NaN left;
 12. the decoder-only rest of the LM stack: ``ServeEngine`` serves the same
@@ -245,7 +250,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 operands: the tensor cores' dense rate, the least time the card
-# could take for a bf16 product (the bf16 kernels here use the CUDA cores)
+# could take for a bf16 product
 PEAK_BF16_FLOPS = 989e12
 
 # Tolerances (allclose: |got - want| <= atol + rtol * |want|), from the
@@ -526,10 +531,16 @@ def build(rep: Report) -> None:
     conv = sa_conv_ptxas(_build.build_log("sa_conv_implicit"))
     rep.detail["ptxas_sa_conv_implicit"] = conv
     for inst, v in conv.items():
-        log(f"  ptxas sa_conv_kernel<{inst}>: {v['registers']} registers, "
+        kern = "sa_conv_wgmma_kernel" if "tensor cores" in inst else \
+            "sa_conv_kernel"
+        log(f"  ptxas {kern}<{inst}>: {v['registers']} registers, "
             f"spill bytes {v['spill_bytes']}")
     if any(v["spill_bytes"] for v in conv.values()):
         raise AssertionError("ptxas: an SA-CONV instantiation spills")
+    if any(v["registers"] != 168 for k, v in conv.items()
+           if "tensor cores" in k):
+        raise AssertionError("ptxas: a tensor-core SA-CONV instantiation "
+                             "does not use 168 registers")
     gemm = gemm_ptxas(_build.build_log("sa_conv"))
     rep.detail["ptxas_sa_conv_gemm"] = gemm
     for inst, v in gemm.items():
@@ -611,24 +622,31 @@ def sa_fc_ptxas(text: str) -> dict:
 
 
 def sa_conv_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-CONV instantiation (activation
-    type, "bf16 x, " before the key where it is bf16; filter rows, columns
-    and stride, 0 for the generic one; pixels x channels per thread;
-    channels per CTA; channels per staged group) from ptxas's -v output."""
+    """Registers and spill bytes of each SA-CONV instantiation from ptxas's
+    -v output: the FMA loop's, fp32 x (filter rows, columns and stride, 0
+    for the generic one; pixels x channels per thread; channels per CTA;
+    channels per staged group), and the tensor cores', bf16 x (m64 blocks
+    a consumer warpgroup, so the tile; the gather's piece bytes)."""
     out = {}
     for m, regs, spills in ptxas_kernels(
-            text, rf"sa_conv_kernelI({MANGLED_TYPE})Li(\d+)ELi(\d+)ELi(\d+)"
-                  r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"):
-        (x,) = type_names(m.group(1))
-        p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups()[1:])
+            text, r"sa_conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                  r"ELi(\d+)ELi(\d+)E"):
+        p, q, s, tpx, tco, g, cpg = (int(v) for v in m.groups())
         shape = f"{p}x{q}/{s}" if p else "generic"
-        out[f"{'' if x == 'fp32' else 'bf16 x, '}{shape}, {tpx}x{tco} per "
-            f"thread, {tco * g} channels, cpg {cpg}"] = dict(
-                registers=regs, spill_bytes=spills)
-    # fp32 x: 11; bf16 x: the same less the 8 x 16 tile's three
-    if len(out) != 11 + 8:
-        raise AssertionError(f"ptxas: {len(out)} SA-CONV instantiations, "
-                             "not 19")
+        out[f"{shape}, {tpx}x{tco} per thread, {tco * g} channels, "
+            f"cpg {cpg}"] = dict(registers=regs, spill_bytes=spills)
+    fma = len(out)
+    for m, regs, spills in ptxas_kernels(
+            text, r"sa_conv_wgmma_kernelILi(\d+)ELi(\d+)E"):
+        mb = int(m.group(1))
+        out[f"bf16 x, tensor cores, {128 * mb}x{256 // mb}, "
+            f"{m.group(2)}-byte gathers"] = dict(registers=regs,
+                                                  spill_bytes=spills)
+    # fp32 x: 11; bf16 x: 2 tiles x 2 gather widths
+    if (fma, len(out) - fma) != (11, 4):
+        raise AssertionError(f"ptxas: {fma} FMA and {len(out) - fma} "
+                             "tensor-core SA-CONV instantiations, not 11 "
+                             "and 4")
     return out
 
 
@@ -2179,6 +2197,38 @@ def check_widened_bound(name: str, x, w) -> float:
     return worst
 
 
+def check_conv_widened_bound(name: str, got, wide, x, f, bias,
+                             **kw) -> float:
+    """B2 with bf16 x on the tensor cores against ``wide``, its fp32 launch
+    on the widened operands (the FMA loop), per output and in fp64 on the
+    card: within ``kernels/sa_conv_implicit.py::widened_bound`` (the two
+    kernels' summation orders, the epilogue's roundings, the pool's max,
+    the act's slope, one bf16 ulp for a bf16 output; derived in its
+    docstring), NaN exactly where the fp32 launch has NaN.  The FMA loop
+    and the tensor cores sum in other orders, so the bitwise check of the
+    FMA loop's bf16 instantiations no longer applies.  Returns the largest
+    |got - wide| / bound."""
+    import torch
+    from repro_torch.kernels.sa_conv_implicit import widened_bound
+    bound = widened_bound(x, f, bias, wide, out_dtype=got.dtype, **kw)
+    g, w = got.double(), wide.double()
+    nan = torch.isnan(g)
+    if not torch.equal(nan, torch.isnan(w)):
+        raise AssertionError(f"{name}: NaN where the fp32 launch on the "
+                             "widened operands has none, or the reverse")
+    d = (g - w).abs().masked_fill(nan, 0.0)
+    over = int((d > bound).sum())
+    if over:
+        raise AssertionError(
+            f"{name}: {over} outputs farther than the derived bound from "
+            f"the fp32 launch on the widened operands (max |d| "
+            f"{d.max().item():.4g}, max |d| / bound "
+            f"{(d / bound.clamp_min(1e-300)).max().item():.4g})")
+    ratio = (d / bound.clamp_min(1e-300)).max().item()
+    del bound, g, w, d
+    return ratio
+
+
 def check_flash_widened_bound(name: str, got, q, k, v, **kw) -> float:
     """B5 with bf16 operands on the tensor cores against its fp32 launch on
     the widened operands, per output and in fp64 on the card: within
@@ -2467,12 +2517,15 @@ def zoo_launches(decisions) -> dict:
 
 
 def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
-    """C6 on the card: SA-CONV implicit in bf16 at AlexNet conv1-conv5 and
-    VGG-16 conv1_2, conv3_3, conv5_3 (b = 64, fp32 and int8 filters, pools
-    fused and unfused), the pool in bf16 at every ``POOL_SWEEP`` map.  Each
-    within TOL_BF16 of its plain version and bitwise the fp32 launch on
-    the widened operands, rounded once; fused == conv -> pool kernel and
-    rows of b = 64 == b = 1, bitwise.  Then the two bf16 paths the kernels
+    """C6 on the card: SA-CONV implicit in bf16 (the tensor cores) at
+    AlexNet conv1-conv5 and VGG-16 conv1_2, conv3_3, conv5_3 (b = 64, fp32
+    and int8 filters, pools fused and unfused), the pool in bf16 at every
+    ``POOL_SWEEP`` map.  Each conv within TOL_BF16 of its plain version and
+    within the derived bound of the fp32 launch on the widened operands
+    (bf16 and fp32 outputs; the largest |d| / bound in
+    ``rep.detail["bf16_conv_bound_ratio"]``); bitwise: the bf16 output ==
+    the same launch's fp32 output rounded once, two launches of one call,
+    fused == conv -> pool kernel and rows of b = 64 == b = 1.  Then the two bf16 paths the kernels
     line reads: AlexNet's forward with bf16 activations (b = 64; its
     fc1-fc3 within TOL_BF16 of sa_fc_plain and bitwise the fp32 launch on
     the widened operands, its logits within TOL_BF16 of the torch
@@ -2492,6 +2545,7 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
     conv_name = CNN_BF16_KERNELS["sa_conv_implicit"]
     pool_name = CNN_BF16_KERNELS["maxpool_act"]
     out: dict = {"conv": [], "pool": None}
+    worst: dict = {"fp32 out": {}, "bf16 out": {}}
     for net, layers in BF16_CONV_LAYERS.items():
         chain, _, _ = layer_chain(net, models[net].params, images[net])
         for label, xin, p, _, conv_kw in chain:
@@ -2518,9 +2572,20 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
                         what, got.float(), sa_conv_plain(
                             xb, f, p["b"], w_scale=scale, **k).float(),
                         TOL_BF16))
-                    exact(f"{what} == fp32 on the widened operands",
-                          got, sa_conv_implicit(xb.float(), wide, p["b"],
-                                                w_scale=scale, **k).to(bf16))
+                    got32 = sa_conv_implicit(xb, f, p["b"], w_scale=scale,
+                                             out_dtype=torch.float32, **k)
+                    exact(f"{what}: the bf16 output == the fp32 output "
+                          "rounded once", got, got32.to(bf16))
+                    exact(f"{what}: two launches", got, sa_conv_implicit(
+                        xb, f, p["b"], w_scale=scale, **k))
+                    fp32 = sa_conv_implicit(xb.float(), wide, p["b"],
+                                            w_scale=scale, **k)
+                    for o, od in ((got32, "fp32 out"), (got, "bf16 out")):
+                        ratio = check_conv_widened_bound(
+                            f"{what} ({od})", o, fp32, xb, f, p["b"],
+                            w_scale=scale, **k)
+                        worst[od][what] = ratio
+                    del got32, fp32
                     for lo, hi in ((0, 1), (63, 64)):
                         exact(f"{what} rows {lo}:{hi} of b=64 == b=1",
                               got[lo:hi], sa_conv_implicit(
@@ -2539,14 +2604,26 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
                         out["pool"] = unfused
             if net == "alexnet":
                 out["conv"].append((label, xb, p, None, conv_kw))
+            layer_worst = {od: max(v for kk, v in w.items()
+                                   if kk.startswith(f"{net} {label} "))
+                           for od, w in worst.items()}
             log(f"  {net} {label} bf16, in {tuple(xb.shape)}: fp32 and int8 "
                 f"filters{', pool fused and unfused' if pool else ''}: "
-                "within TOL_BF16 of the plain version; == the fp32 launch "
-                "on the widened operands, rows == b=1"
+                "within TOL_BF16 of the plain version; within the derived "
+                "bound of the fp32 launch on the widened operands (largest "
+                f"|d| / bound {layer_worst['fp32 out']:.4g} writing fp32, "
+                f"{layer_worst['bf16 out']:.4g} writing bf16); bf16 out == "
+                "fp32 out rounded, two launches, rows == b=1"
                 f"{', fused == conv -> pool' if pool else ''}, bitwise")
             del xb
         del chain
         torch.cuda.empty_cache()
+
+    rep.detail["bf16_conv_bound_ratio"] = worst
+    log("  bf16 SA-CONV: largest |d| / derived bound over every layer "
+        f"{max(worst['fp32 out'].values()):.4g} writing fp32 (the sums' "
+        f"orders), {max(worst['bf16 out'].values()):.4g} writing bf16 (the "
+        "output's rounding dominates)")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for label, hw, c, window, dtype in POOL_SWEEP:
@@ -3796,6 +3873,7 @@ ANALYSIS_ARGS = ("--net", "alexnet", "--net", "vgg16", "--all-zoo-variants")
 X_KIND_BF16 = 2
 KERNEL_SYMBOLS = {"sa_fc": "sa_fc_kernel",
                   "sa_conv_implicit": "sa_conv_kernel",
+                  "sa_conv_implicit[tc]": "sa_conv_wgmma_kernel",
                   "pool_act": "pool_act_kernel",
                   "sa_conv": ("sa_conv_gemm_kernel", "sa_conv_wgmma_kernel"),
                   "attention": "flash_kernel"}
@@ -3881,14 +3959,15 @@ def edge_call(lau, gen):
         tol = TOL_FC if x_kind == 0 else TOL_BF16
         return (lambda: kern(x, w, bias, **kw)), plain(x, w, bias, **kw), tol
     if lau.kernel == "sa_conv_implicit":
-        batch, h, w, ci, p, q, co, stride, _ = lau.shape
-        x = randn(batch, h, w, ci)
+        batch, h, w, ci, p, q, co, stride, x_kind = lau.shape
+        x = randn(batch, h, w, ci, dtype=types[x_kind])
         f = randn(p, q, ci, co) * (p * q * ci) ** -0.5
         bias = randn(co)
         kw = dict(stride=stride, act="relu", pool_window=lau.pool[0],
                   pool_stride=lau.pool[1])
         return ((lambda: sa_conv_implicit(x, f, bias, **kw)),
-                sa_conv_plain(x, f, bias, **kw), TOL_CONV)
+                sa_conv_plain(x, f, bias, **kw),
+                TOL_CONV if x_kind == 0 else TOL_BF16)
     if lau.kernel == "pool_act":
         n, h, w, c, itemsize, window, stride = lau.shape
         x = randn(n, h, w, c, dtype=torch.float32 if itemsize == 4
@@ -4031,7 +4110,7 @@ def analysis_phase(rep: Report, smi: str) -> dict:
 
     static, faults = {}, []
     for lib, symbol in KERNEL_SYMBOLS.items():
-        insts = ptxas_static(_build.build_log(lib), symbol)
+        insts = ptxas_static(_build.build_log(lib.split("[")[0]), symbol)
         want = (L.STATIC_SMEM[lib], 0)
         found = sorted(set(insts))
         static[lib] = dict(instantiations=len(insts),

@@ -85,6 +85,8 @@ STATIC_SMEM = {
     "sa_conv": 0,
     "sa_conv_implicit": _static(4 * (conv.MAX_ROWS
                                      + SG_FIELDS * conv.MAX_SEGMENTS + 3)),
+    # bf16 x's tensor-core kernel keeps its tables in dynamic memory
+    "sa_conv_implicit[tc]": 0,
     "pool_act": 0,
     "attention": 0,
 }
@@ -409,7 +411,9 @@ def edge_launches() -> list[Launch]:
     tiles); SA-FC
     split over k with a short, ragged last segment at b = 1 and one row
     past a 64-row tile; SA-CONV flat tiles that cross image boundaries and
-    pooled bands whose last band is short; the pool at 16-, 8- and 4-byte
+    pooled bands whose last band is short, fp32 and bf16 (the tensor cores:
+    ragged co, both tiles, 16-byte gathers and, at ci = 3 and ci = 5, the
+    channels padded to 4 and 8 first); the pool at 16-, 8- and 4-byte
     vectors and a single bf16 element; flash with paired CTAs over an odd
     number of query tiles (a partial last one), without and with a window
     that kills each tile's leading kv tiles; and the non-causal flash sweep
@@ -432,6 +436,18 @@ def edge_launches() -> list[Launch]:
                     1, 0, 0, f32),
         conv_launch("edge bands [sa_conv_implicit]", 3, 25, 25, 64, 3, 3, 96,
                     1, 3, 2, f32),
+        conv_launch("edge flat bf16 [sa_conv_implicit]", 3, 15, 15, 16, 3, 3,
+                    40, 1, 0, 0, bf16),
+        conv_launch("edge bands bf16 [sa_conv_implicit]", 3, 25, 25, 64, 3,
+                    3, 96, 1, 3, 2, bf16),
+        conv_launch("edge bands 512 bf16 [sa_conv_implicit]", 2, 31, 31, 24,
+                    5, 5, 40, 1, 3, 2, bf16),
+        conv_launch("edge ci=3 stride 4 bf16 [sa_conv_implicit]", 3, 47, 47,
+                    3, 11, 11, 24, 4, 3, 2, bf16),
+        conv_launch("edge ci=3 flat 512 bf16 [sa_conv_implicit]", 3, 33, 33,
+                    3, 3, 3, 24, 1, 0, 0, bf16),
+        conv_launch("edge ci=5 flat bf16 [sa_conv_implicit]", 3, 13, 13, 5, 3,
+                    3, 24, 1, 0, 0, bf16),
         pool_launch("edge 16 B [pool_act]", 2, 13, 13, 64, 4, 3, 2),
         pool_launch("edge 8 B [pool_act]", 2, 13, 13, 66, 4, 3, 2),
         pool_launch("edge 4 B [pool_act]", 2, 13, 13, 65, 4, 3, 2),
@@ -726,13 +742,29 @@ def check_gemm(lau: Launch) -> list[tuple[str, str]]:
 # ---------------------------------------------------------------------------
 # SA-CONV implicit
 # ---------------------------------------------------------------------------
+#: ring stages of the tensor-core tiles by their pixel slots
+#: (csrc/sa_conv_implicit.cu TcTile)
+TC_STAGES = {256: 4, 512: 3}
+
+
 def _conv_smem(g, w: int, ci: int, p: int, q: int, stride: int) -> int:
-    """A CTA's dynamic shared memory from its tile: the larger of the
-    staging ring (one stage, or two when ci takes several chunks; a stage
-    is ng groups of rin staged rows of wst pixels of 16 bytes, and of the
-    filter's taps x cpg channels x bco output channels plus a quarter of
-    that for int8's copies) and the epilogue's tile (pixels x bco + 1
-    floats)."""
+    """A CTA's dynamic shared memory from its tile.  The FMA loop: the
+    larger of the staging ring (one stage, or two when ci takes several
+    chunks; a stage is ng groups of rin staged rows of wst pixels of 16
+    bytes, and of the filter's taps x cpg channels x bco output channels
+    plus a quarter of that for int8's copies) and the epilogue's tile
+    (pixels x bco + 1 floats).  The tensor cores: 1024 bytes to align the
+    ring, the ring (a stage: 64 k of bf16 for each pixel slot and each
+    channel), a long long a slot, the segment table (SG_FIELDS ints a
+    segment), 16 bytes of counts and two 8-byte mbarriers a stage; the
+    parked tile (pixels x bco + 4 floats) must fit the ring."""
+    if g.mb:
+        stages = TC_STAGES[g.pixels]
+        ring = stages * 64 * 2 * (g.pixels + g.bco)
+        if g.pixels * (g.bco + 4) * 4 > ring:
+            return -1
+        return (1024 + ring + 8 * g.pixels + 4 * SG_FIELDS * conv.MAX_SEGMENTS
+                + 16 + 2 * 8 * stages)
     split = (p, q, stride) == (11, 11, 4)
     wst = stride * -(-w // stride) if split else w
     taps = p * q
@@ -743,9 +775,13 @@ def _conv_smem(g, w: int, ci: int, p: int, q: int, stride: int) -> int:
 
 
 def _conv_order(g, ci: int, p: int, q: int, stride: int) -> tuple:
-    """What fixes an output's summation order: channel groups of cpg in
-    order, taps in (p, q) order (by stride phase at stride 4), the group's
-    channels in order."""
+    """What fixes an output's summation order.  The FMA loop: channel
+    groups of cpg in order, taps in (p, q) order (by stride phase at stride
+    4), the group's channels in order.  The tensor cores: k = (dp q + dq)
+    cp + c in 16-wide steps, cp = ci padded by ``tc_channels``, whatever
+    the tile."""
+    if g.mb:
+        return (ci, p, q, stride, "tensor cores")
     return (ci, p, q, stride, g.cpg)
 
 
@@ -759,7 +795,9 @@ def _conv_segments(g, batch: int, pool: tuple[int, int], oh: int, ow: int,
     bad_band = None
     for tile in range(g.pixel_tiles(batch)):
         segs = conv.conv_tiles(g, batch, tile)
-        if not 1 <= len(segs) <= conv.MAX_SEGMENTS:
+        # the tensor cores' flat tiles address pixels without segments
+        if not (g.mb and not g.bands) and \
+                not 1 <= len(segs) <= conv.MAX_SEGMENTS:
             out.append(("residency", f"{what} CTA {tile}: {len(segs)} "
                                      f"segments (1..{conv.MAX_SEGMENTS} "
                                      "fit the segment table)"))
@@ -768,7 +806,7 @@ def _conv_segments(g, batch: int, pool: tuple[int, int], oh: int, ow: int,
         if pixels > g.pixels:
             out.append(("coverage", f"{what} CTA {tile}: {pixels} conv "
                                     f"pixels > its {g.pixels} slots"))
-        if staged > g.rin:
+        if not g.mb and staged > g.rin:
             out.append(("residency", f"{what} CTA {tile}: stages {staged} "
                                      f"input rows > rin {g.rin}"))
         for img, r0, nr, a, b, pr0, npr in segs:
@@ -830,21 +868,30 @@ def check_conv(lau: Launch) -> list[tuple[str, str]]:
                                     f"emitting {g.out_w} columns; the op "
                                     f"has {oh}x{ows}, {pw}/{ps}, "
                                     f"{j1 - j0}"))
-        if g.pixels != conv.THREADS // g.groups * g.tpx or \
-                g.bco != g.tco * g.groups:
+        if g.mb:
+            if (g.mb, g.bco) not in conv.TC_TILES or g.pixels != 128 * g.mb \
+                    or x_kind != X_KIND["bfloat16"]:
+                out.append(("coverage", f"{what}: {g.pixels} pixel slots x "
+                                        f"{g.bco} channels are not two "
+                                        f"warpgroups' {g.mb} m64 blocks of "
+                                        "a tensor-core tile of bf16 x"))
+        elif g.pixels != conv.THREADS // g.groups * g.tpx or \
+                g.bco != g.tco * g.groups or x_kind != X_KIND["float32"]:
             out.append(("coverage", f"{what}: {g.pixels} pixel slots x "
                                     f"{g.bco} channels are not the "
                                     f"{conv.THREADS} threads' {g.tpx} x "
-                                    f"{g.tco} in {g.groups} groups"))
+                                    f"{g.tco} in {g.groups} groups of fp32 "
+                                    "x"))
         out += _spans(f"{what} channels",
                       _tiles(co, g.bco, g.co_tiles(co)), co)
-        if g.rin > conv.MAX_ROWS:
+        if not g.mb and g.rin > conv.MAX_ROWS:
             out.append(("residency", f"{what}: rin {g.rin} > MAX_ROWS "
                                      f"{conv.MAX_ROWS}"))
         for bb in sorted({1, batch}):
             out += _conv_segments(g, bb, lau.pool, oh, ows, stride, p,
                                   f"{what} at batch {bb}")
-        out += _residency("sa_conv_implicit", what,
+        out += _residency("sa_conv_implicit[tc]" if g.mb
+                          else "sa_conv_implicit", what,
                           _conv_smem(g, ws, ci, p, q, stride), g.smem_bytes)
     # order: one grouping of channels and taps for every strip, for the
     # unfused conv, and for the launch at every batch up to the op's
@@ -1093,7 +1140,8 @@ def smem_queries(lau: Launch) -> list[tuple[str, tuple, int]]:
         out = []
         for (_, _, x0, x1), g in zip(lau.strips, lau.geoms):
             ws = w if len(lau.strips) == 1 else x1 - x0
-            tile = conv.TILES.index((g.tpx, g.tco, g.groups))
+            tile = conv.TC_TILES.index((g.mb, g.bco)) if g.mb else \
+                conv.TILES.index((g.tpx, g.tco, g.groups))
             out.append(("sa_conv_implicit",
                         (tile, x_kind, ws, ci, p, q, stride, g.rin, g.ng),
                         _conv_smem(g, ws, ci, p, q, stride)))

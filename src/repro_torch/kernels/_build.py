@@ -33,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: further nvcc flags of one library: the SA-CONV GEMM's tensor-core
 #: instantiations made it the longest build, so its kernels are compiled
 #: in parallel (``-split-compile=0``: as many threads as the machine has;
-#: the same registers and spills as one thread gives)
-LIB_FLAGS = {"sa_conv": ("-split-compile=0",)}
+#: the same registers and spills as one thread gives), and so are SA-CONV
+#: implicit's FMA and tensor-core instantiations
+LIB_FLAGS = {"sa_conv": ("-split-compile=0",),
+             "sa_conv_implicit": ("-split-compile=0",)}
 
 #: activation codes of csrc/common.cuh
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3, "gelu": 4}
@@ -49,7 +51,7 @@ SIGNATURES = {
               (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
                          (_P, _I, _I, _P, _I, _P, _P, _P) + (_I,) * 18
-                         + (_P,)),
+                         + (_P, _P, _P)),
     "pool_act": ("pool_act_launch", (_P, _P) + (_I,) * 10 + (_P,)),
     "sa_conv": ("sa_conv_launch",
                 (_P, _P, _I, _I, _I, _P, _P, _P) + (_I,) * 6 + (_P,)),

@@ -10,7 +10,10 @@ as in the TPU kernel an fp32 filter is rounded to ``x``'s dtype, the sums
 and the epilogue run in fp32, and the output is rounded once to
 ``out_dtype`` (``x``'s by default; fp32 x writes fp32).  For a CPU tensor it
 runs :func:`sa_conv_plain`; for a CUDA tensor it launches the kernel on the
-current stream, or raises.
+current stream, or raises.  fp32 x runs the FMA loop (``sa_conv_kernel``);
+bf16 x runs an implicit GEMM on the tensor cores (``sa_conv_wgmma_kernel``),
+whose sums differ from the FMA loop's by summation order only, within
+:func:`widened_bound`.
 
 The tiling the kernel runs (:func:`conv_geometry`, :func:`conv_tiles`) is
 chosen here, from the layer's shape alone — never from the batch, which
@@ -40,10 +43,17 @@ THREADS = 256
 #: 512 pixels x 32 channels, 512 x 64 and 768 x 32
 #: (csrc/sa_conv_implicit.cu::dispatch holds the same list)
 TILES = ((8, 8, 4), (8, 16, 4), (6, 16, 2))
-#: the tiles instantiated for bf16 x: not 8 x 16, whose widened pixels push
-#: the unrolled 3x3 and 5x5 bodies past 255 registers (ptxas spilled 24-180
-#: bytes on an H100 build)
-BF16_TILES = ((8, 8, 4), (6, 16, 2))
+#: the tensor-core tiles of bf16 x, as (m64 row blocks per consumer
+#: warpgroup, output channels per CTA): two consumer warpgroups, so 256
+#: pixels x 128 channels or 512 x 64, 128 fp32 sums a consumer thread
+#: either way (csrc/sa_conv_implicit.cu::TcTile holds the same)
+TC_TILES = ((2, 128), (4, 64))
+#: ring stages of each tensor-core tile (by its m64 blocks), k per stage
+#: (128 bytes of bf16 a pixel row), and the 1024-byte slack that aligns the
+#: ring to the 128-byte swizzle's period
+TC_STAGES = {2: 4, 4: 3}
+TC_BK = 64
+TC_ALIGN = 1024
 #: card time per FMA slot of a tile with 8 output channels per thread
 #: against one with 16: 8-15 % more at AlexNet's conv2-conv5 (measured on
 #: an H100 SXM), where a thread's 16 channels halve the pixel loads per FMA
@@ -60,6 +70,8 @@ SPECIALIZED = ((11, 11, 4), (5, 5, 1), (3, 3, 1))
 #: kernel's static tables)
 MAX_SEGMENTS = 32
 MAX_ROWS = 256
+#: fields of a segment (csrc/sa_conv_implicit.cu SG_*)
+SG_FIELDS = 7
 #: the kernel's static shared memory (the row and segment tables, with
 #: room for their counts), as ptxas allots it: up to the 16-byte alignment
 #: of the dynamic buffer that follows (1936 B on an H100 build, not the
@@ -79,7 +91,10 @@ NOMINAL_BATCH = 64
 
 @dataclass(frozen=True)
 class ConvGeometry:
-    """One layer's tiling (all counts, no pointers).
+    """One layer's tiling (all counts, no pointers).  ``mb`` > 0 is a
+    tensor-core tile (bf16 x): ``pixels`` = 128 ``mb`` slots by ``bco``
+    channels, no staged rows (``tpx``, ``tco``, ``groups``, ``cpg``,
+    ``rin`` and ``ng`` are 0), flat tiles of ``pixels`` pixels.
 
     ``bands == 0``: the pixel tiles run over the flattened (image, row,
     column) conv output, ``per_cta`` pixels to a CTA (``pixels``, or fewer
@@ -107,6 +122,7 @@ class ConvGeometry:
     rin: int                    # most staged input rows of a CTA
     ng: int                     # groups of GROUP channels per staged chunk
     smem_bytes: int             # dynamic shared memory
+    mb: int = 0                 # m64 blocks per consumer warpgroup; 0: FMA
 
     def band_rows(self) -> list[int]:
         """Emitted rows of each band of an image."""
@@ -157,6 +173,64 @@ def _flat_bounds(pixels: int, oh: int, ow: int, stride: int,
     return segs, rows * stride + segs * max(p - stride, 0)
 
 
+def tc_channels(ci: int) -> int:
+    """The channels a pixel of bf16 x is gathered with on the tensor cores
+    (csrc/sa_conv_implicit.cu::tc_channels): ci where ci % 8 == 0 or ci ==
+    4 (16- or 8-byte pieces of one tap), else ci padded with zeros to 4 (ci
+    < 4) or to a multiple of 8.  The summation order depends on it, so on
+    ci alone."""
+    return ci if ci % 8 == 0 or ci == 4 else 4 if ci < 4 else -(-ci // 8) * 8
+
+
+def tc_smem(mb: int, bn: int) -> int:
+    """Dynamic shared memory of a tensor-core tile: the alignment slack,
+    the ring (a stage holds 128 ``mb`` pixel rows and ``bn`` filter columns
+    of TC_BK bf16 each), the pixel table (8 bytes a pixel), the segment
+    table and its counts (16 bytes), a full and an empty mbarrier a stage.
+    The epilogue parks the tile in the ring."""
+    stages, bm = TC_STAGES[mb], 128 * mb
+    return (TC_ALIGN + stages * (bm + bn) * 2 * TC_BK + 8 * bm
+            + 4 * SG_FIELDS * MAX_SEGMENTS + 16 + 16 * stages)
+
+
+def _tc_geometry(oh: int, ow: int, pw: int, ps: int, poh: int, pow_: int,
+                 co: int, pooled: bool) -> ConvGeometry | None:
+    """The tensor-core tile of a bf16 layer: for each of :data:`TC_TILES`,
+    flat tiles of all its slots without a pool, every band height with
+    one (as many bands a CTA as its slots and the segment table hold),
+    costed at :data:`NOMINAL_BATCH` as waves of CTAs (one CTA an SM; every
+    tile does 128 x 256 slot-columns of products a k step); ties go to
+    fewer pixel slots (more channels a CTA: fewer gathers of the same
+    pixels), then more needed pixels a slot, then fewer computed pixels
+    (a recomputed halo row costs gathers and no fewer products: a CTA's
+    products cover all its slots)."""
+    best = None
+    for mb, bn in TC_TILES:
+        bm = 128 * mb
+        if pooled:
+            shapes = set()
+            for nb in range(1, poh + 1):
+                r = -(-poh // nb)
+                shapes.add((-(-poh // r), r))
+            cands = []
+            for nb, r in sorted(shapes):
+                k = min(bm // (((r - 1) * ps + pw) * ow), MAX_SEGMENTS)
+                if k:
+                    cands.append((nb, r, k))
+        else:
+            cands = [(0, 0, bm)]
+        for nb, r, k in cands:
+            g = ConvGeometry(0, 0, 0, bn, bm, 0, pw, ps, oh, ow, poh, pow_,
+                             nb, r, k, 0, 0, tc_smem(mb, bn), mb)
+            b = NOMINAL_BATCH
+            waves = -(-g.ctas(b, co) // SM_COUNT)
+            key = (waves, bm, -g.needed_pixels(b) / (g.pixel_tiles(b) * bm),
+                   g.computed_pixels(b))
+            if best is None or key < best[0]:
+                best = (key, g)
+    return None if best is None else best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
                   stride: int = 1, pool_window: int = 0,
@@ -171,8 +245,8 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
     fewer staged rows.  Each chunk stages as many groups of :data:`GROUP`
     channels as shared memory holds (at most :data:`MAX_GROUPS`).  The
     16-channel tiles are not built for the 11x11 stride-4 filter (its
-    unrolled rows need more than 255 registers), and bf16 x (``x_bytes``
-    2) takes only :data:`BF16_TILES`."""
+    unrolled rows need more than 255 registers).  bf16 x (``x_bytes`` 2)
+    takes a tensor-core tile (:func:`_tc_geometry`)."""
     oh = (h - p) // stride + 1
     ow = (w - q) // stride + 1
     if oh < 1 or ow < 1:
@@ -184,6 +258,14 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
     pow_ = (ow - pw) // ps + 1
     if poh < 1 or pow_ < 1:
         raise ValueError(f"pool {pw}/{ps} does not fit a {oh}x{ow} map")
+    if x_bytes == 2:
+        g = _tc_geometry(oh, ow, pw, ps, poh, pow_, co, bool(pool_window))
+        if g is None:
+            raise NotImplementedError(
+                f"sa_conv_implicit: a {pw}-row pool window over {ow}-pixel "
+                f"rows does not fit one tensor-core CTA ({h}x{w}x{ci}, "
+                f"filter {p}x{q}, stride {stride})")
+        return g
     specialized = (p, q, stride) in SPECIALIZED
     split = specialized and stride > 1
     wst = stride * -(-w // stride) if split else w
@@ -198,7 +280,7 @@ def conv_geometry(h: int, w: int, ci: int, p: int, q: int, co: int, *,
         return 4 * max(stages * stage, cap * (bco + 1))
 
     best = None
-    for tpx, tco, groups in TILES if x_bytes == 4 else BF16_TILES:
+    for tpx, tco, groups in TILES:
         if tpx * tco > 64 and split:
             continue
         bco = tco * groups
@@ -403,13 +485,37 @@ def sa_conv_implicit(x: torch.Tensor, f: torch.Tensor,
 
 def _launch(x: torch.Tensor, f: torch.Tensor, w_scale, bias, stride: int,
             act: str, out_dtype, g: ConvGeometry) -> torch.Tensor:
-    """One launch of the kernel over the whole of ``x`` in geometry ``g``."""
+    """One launch of the kernel over the whole of ``x`` in geometry ``g``.
+    A tensor-core launch first rounds the filter into a (p q cp, co
+    rounded up to 8) bf16 scratch, which its producer loads by TMA (cp =
+    :func:`tc_channels`); where cp != ci, or x's base does not align with
+    the gather's pieces, it also copies x into an (n, h, w, cp) scratch
+    with the channels zero-padded."""
     batch, h, w, ci = x.shape
     p, q, _, co = f.shape
     out = torch.empty((batch, g.out_h, g.out_w, co), dtype=out_dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
+    fb = xp = None
+    if g.mb:
+        tile = TC_TILES.index((g.mb, g.bco))
+        cp = tc_channels(ci)
+        per = (2 ** 31 - 1) // (h * w * cp)
+        if batch > per:
+            # the tensor cores address pixels by 32-bit offsets: launch
+            # batch slices (an output's terms and order do not change)
+            for b0 in range(0, batch, per):
+                out[b0:b0 + per] = _launch(x[b0:b0 + per], f, w_scale, bias,
+                                           stride, act, out_dtype, g)
+            return out
+        fb = torch.empty((p * q * cp, -(-co // 8) * 8), dtype=torch.bfloat16,
+                         device=x.device)
+        if cp != ci or x.data_ptr() % (16 if cp % 8 == 0 else 8):
+            xp = torch.empty((batch, h, w, cp), dtype=torch.bfloat16,
+                             device=x.device)
+    else:
+        tile = TILES.index((g.tpx, g.tco, g.groups))
     lib = _build.load("sa_conv_implicit")
     err = lib.sa_conv_implicit_launch(
         x.data_ptr(), _X_KINDS[x.dtype], _X_KINDS[out_dtype], f.data_ptr(),
@@ -417,9 +523,9 @@ def _launch(x: torch.Tensor, f: torch.Tensor, w_scale, bias, stride: int,
         w_scale.data_ptr() if w_scale is not None else None,
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         batch, h, w, ci, p, q, co, stride, g.pool_window, g.pool_stride,
-        TILES.index((g.tpx, g.tco, g.groups)), g.bands, g.rows, g.per_cta,
-        g.rin,
-        g.ng, _build.act_code(act), g.smem_bytes,
+        tile, g.bands, g.rows, g.per_cta, g.rin, g.ng, _build.act_code(act),
+        g.smem_bytes, None if fb is None else fb.data_ptr(),
+        None if xp is None else xp.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "sa_conv_implicit")
     sa_conv_implicit.launches += 1
@@ -427,3 +533,89 @@ def _launch(x: torch.Tensor, f: torch.Tensor, w_scale, bias, stride: int,
 
 
 sa_conv_implicit.launches = 0
+
+
+#: the activations' Lipschitz constants: relu, leaky relu and none 1;
+#: silu's slope lies in [-0.0998, 1.0998], gelu's (tanh form) in [-0.13,
+#: 1.129]
+_LIPSCHITZ = {"none": 1.0, "relu": 1.0, "leaky_relu": 1.0, "silu": 1.1,
+              "gelu": 1.13}
+
+
+def widened_bound(x: torch.Tensor, f: torch.Tensor,
+                  bias: torch.Tensor | None, wide_out: torch.Tensor, *,
+                  stride: int = 1, act: str = "none", pool_window: int = 0,
+                  pool_stride: int = 0, w_scale: torch.Tensor | None = None,
+                  out_dtype=None) -> torch.Tensor:
+    """The worst-case |got - wide_out| (fp64, shaped like the output) of a
+    launch ``got`` on bf16 ``x`` (the tensor cores) against ``wide_out``,
+    the fp32 launch on the same operands widened (the FMA loop: x widened,
+    an fp32 filter rounded to bf16 and widened, an int8 filter as is).
+    Derived, not fitted:
+
+    Both kernels see the same exact operands, and every product of two
+    bf16 values is exact in fp32, so they differ only in their roundings.
+    Write K = p q cp for the terms the tensor cores add (cp =
+    :func:`tc_channels`: zero-padded channels add exact zeros; K >= p q ci,
+    the FMA loop's terms), A = conv(|x|, |f|) per conv output, s and b the
+    output channel's scale (1 without) and bias (0 without), and u =
+    2^-22.  A is computed here as an fp32 conv (no TF32) of exact products
+    that are all >= 0, so within K 2^-24 of exact whatever the order, and
+    taken times (1 + K u); the rest runs in fp64.
+
+    1. The sums.  The FMA loop adds the K products in (channel group, tap,
+       channel) order with fmaf, the tensor cores in 16-wide steps in (tap,
+       channel) order with truncating accumulation: the two sums lie within
+       K 2^-22 A of each other (the GEMM's bound, k 2^-22 (|x| @ |w|), with
+       k = K).
+    2. The epilogue: conv * s, then + b, each rounded once in each kernel
+       (within 2^-24 of a value at most |s| A + |b| each, four roundings
+       in all, with room for the (1 + K 2^-22) growth): together
+       D = |s| (K + 2) u A + u |b|.
+    3. The pool: both take the max over the same window of values that
+       differ by at most D each, and a max moves by at most the largest
+       move of its terms: D becomes the window's max of D.
+    4. The activation, evaluated in fp32 by both: at most L D, L its
+       Lipschitz constant (relu, leaky relu 1; silu 1.1; gelu 1.13), plus
+       each evaluation's own rounding for every act but none and relu:
+       2^-20 (|wide_out| + L D), and for gelu, whose 1 + tanh cancels,
+       2^-21 (|s| A + |b|) (pooled by max) more.
+    5. A bf16 output is the fp32 result rounded once: half a bf16 ulp of a
+       value at most |wide_out| + the bound so far, so at most 2^-8 of
+       that (one ulp of its binade).
+
+    A NaN or an infinity reaches the same outputs of both kernels; the
+    bound holds where both are finite."""
+    f64, f32 = torch.float64, torch.float32
+    p, q, ci, co = f.shape
+    k = p * q * tc_channels(ci)
+    u = 2.0 ** -22
+    fw = f.to(torch.bfloat16) if f.dtype == f32 else f
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        a = torch.nn.functional.conv2d(
+            x.to(f32).abs().permute(0, 3, 1, 2),
+            fw.to(f32).abs().permute(3, 2, 0, 1).contiguous(),
+            stride=stride).to(f64) * (1 + k * u)              # NCHW
+    s = (torch.ones(co, dtype=f64, device=x.device) if w_scale is None
+         else w_scale.reshape(-1).to(f64).abs()).view(1, co, 1, 1)
+    b = (torch.zeros(co, dtype=f64, device=x.device) if bias is None
+         else bias.to(f64).abs()).view(1, co, 1, 1)
+    d = s * (k + 2) * u * a + u * b
+    mag = s * a + b if act == "gelu" else None
+    del a
+    if pool_window:
+        win = (pool_window, pool_stride or pool_window)
+        d = torch.nn.functional.max_pool2d(d, *win)
+        mag = None if mag is None else torch.nn.functional.max_pool2d(
+            mag, *win)
+    d = d.permute(0, 2, 3, 1)
+    lip = _LIPSCHITZ[act]
+    wide = wide_out.to(f64).abs()
+    bound = lip * d
+    if act not in ("none", "relu"):
+        bound = bound + 2.0 ** -20 * (wide + lip * d)
+    if mag is not None:
+        bound = bound + 2.0 ** -21 * mag.permute(0, 2, 3, 1)
+    if (out_dtype or x.dtype) == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * (wide + bound)
+    return bound

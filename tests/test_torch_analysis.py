@@ -903,6 +903,48 @@ def test_launch_catches_a_band_that_splits_a_pool_window():
     assert "the band splits a pool window" in msgs, msgs
 
 
+@pytest.mark.parametrize("op", ["edge bands bf16 [sa_conv_implicit]",
+                                "edge bands 512 bf16 [sa_conv_implicit]",
+                                "edge ci=3 stride 4 bf16 [sa_conv_implicit]"])
+def test_launch_catches_a_bf16_band_that_splits_a_pool_window(op):
+    """The tensor-core geometry's bands, planted one conv row short of
+    their pool windows."""
+    lau = _edge(op)
+    g = lau.geoms[0]
+    assert g.mb and g.bands and tlaunch.check_launch(lau) == []
+    bad = dataclasses.replace(lau, geoms=(dataclasses.replace(
+        g, pool_window=g.pool_window - 1),))
+    msgs = _only(bad)
+    assert "sa_conv_implicit coverage: out at batch" in msgs
+    assert "the band splits a pool window" in msgs, msgs
+
+
+@pytest.mark.parametrize("op", ["edge flat bf16 [sa_conv_implicit]",
+                                "edge bands bf16 [sa_conv_implicit]"])
+def test_launch_catches_a_bf16_tile_that_follows_the_batch(monkeypatch, op):
+    """A tensor-core tiling that changes with the launch (here: every other
+    geometry asked for takes the other tile) would change which k steps
+    and tiles an output sees between batched and unbatched runs."""
+    from repro_torch.kernels import sa_conv_implicit as tconv
+    real = tconv.conv_geometry
+    calls = []
+
+    def geometry(*a, **kw):
+        g = real(*a, **kw)
+        calls.append(a)
+        if len(calls) % 2 or not g.mb:
+            return g
+        mb, bco = next(t for t in tconv.TC_TILES if t != (g.mb, g.bco))
+        return dataclasses.replace(g, mb=mb, bco=bco, pixels=128 * mb,
+                                   smem_bytes=tconv.tc_smem(mb, bco),
+                                   per_cta=g.per_cta if g.bands
+                                   else 128 * mb)
+    lau = _edge(op)
+    monkeypatch.setattr(tconv, "conv_geometry", geometry)
+    msgs = _only(lau)
+    assert "sa_conv_implicit order: out: the tile at batch" in msgs, msgs
+
+
 @pytest.mark.parametrize("short", ["segment", "tile"])
 def test_launch_catches_split_scratch_too_short(monkeypatch, short):
     lau = _edge("edge b=65 [sa_fc]")

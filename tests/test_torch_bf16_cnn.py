@@ -28,11 +28,13 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.quant import QTensor, quantize
 from repro_torch.kernels import ref
 from repro_torch.kernels.pool_act import maxpool_act
-from repro_torch.kernels.sa_conv_implicit import (BF16_TILES, TILES,
+from repro_torch.kernels.sa_conv_implicit import (MAX_SEGMENTS, SMEM_MAX,
+                                                  TC_STAGES, TC_TILES,
                                                   column_strips,
-                                                  conv_geometry,
+                                                  conv_geometry, conv_tiles,
                                                   sa_conv_implicit,
-                                                  sa_conv_plain)
+                                                  sa_conv_plain,
+                                                  widened_bound)
 
 TOL_BF16 = dict(rtol=3e-2, atol=3e-2)
 JBF, TBF = jnp.bfloat16, torch.bfloat16
@@ -170,16 +172,120 @@ FULL_LAYERS = [(227, 3, 11, 96, 4, 3, 2), (31, 96, 5, 256, 1, 3, 2),
 
 
 @pytest.mark.parametrize("h,ci,p,co,stride,pw,ps", FULL_LAYERS)
-def test_bf16_geometry_keeps_off_the_8x16_tile(h, ci, p, co, stride, pw,
-                                               ps):
-    """bf16 x runs the 8 x 8 and 6 x 16 tiles only (the 8 x 16 tile spills
-    with widened pixels); the geometry is the layer's alone, and a bf16
-    layer's shared memory fits where the fp32 one does."""
-    assert set(BF16_TILES) < set(TILES)
+def test_bf16_tensor_core_geometry_covers_each_layer(h, ci, p, co, stride,
+                                                     pw, ps):
+    """bf16 x runs a tensor-core tile (256 x 128 or 512 x 64): at AlexNet's
+    and VGG-16's full widths every emitted output is computed by one CTA
+    that holds its whole pool window (every conv pixel once without a
+    pool), the tile's ring, tables and parked fp32 tile fit shared memory,
+    one strip covers the width (no column strips: 5 and 13 launches a
+    forward), and the tiling does not depend on the batch."""
     kw = dict(stride=stride, pool_window=pw, pool_stride=ps)
-    g16 = conv_geometry(h, h, ci, p, p, co, x_bytes=2, **kw)
-    assert (g16.tpx, g16.tco, g16.groups) in BF16_TILES
+    g = conv_geometry(h, h, ci, p, p, co, x_bytes=2, **kw)
+    assert (g.mb, g.bco) in TC_TILES and g.pixels == 128 * g.mb
+    assert (g.tpx, g.tco, g.groups, g.cpg, g.rin, g.ng) == (0,) * 6
+    ring = TC_STAGES[g.mb] * 64 * 2 * (g.pixels + g.bco)
+    assert g.pixels * (g.bco + 4) * 4 <= ring < g.smem_bytes <= SMEM_MAX
+    assert len(column_strips(h, h, ci, p, p, co, x_bytes=2, **kw)) == 1
     g32 = conv_geometry(h, h, ci, p, p, co, **kw)
-    assert g16.out_h == g32.out_h and g16.out_w == g32.out_w
-    assert len(column_strips(h, h, ci, p, p, co, x_bytes=2, **kw)) == \
-        len(column_strips(h, h, ci, p, p, co, **kw)) == 1
+    assert (g.conv_h, g.conv_w, g.out_h, g.out_w) == \
+        (g32.conv_h, g32.conv_w, g32.out_h, g32.out_w)
+    for batch in (1, 2, 3):
+        computed = np.zeros((batch, g.conv_h, g.conv_w), np.int32)
+        emitted = np.zeros((batch, g.out_h, g.out_w), np.int32)
+        for tile in range(g.pixel_tiles(batch)):
+            segs = conv_tiles(g, batch, tile)
+            assert sum(hi - lo for _, _, _, lo, hi, _, _ in segs) <= g.pixels
+            if g.bands:
+                assert 1 <= len(segs) <= MAX_SEGMENTS
+            for img, r0, nr, lo, hi, pr0, npr in segs:
+                block = computed[img, r0:r0 + nr].reshape(-1)
+                block[lo:hi] += 1
+                computed[img, r0:r0 + nr] = block.reshape(nr, g.conv_w)
+                if g.bands:
+                    assert pr0 * g.pool_stride == r0 and lo == 0
+                    assert (npr - 1) * g.pool_stride + g.pool_window <= nr
+                    emitted[img, pr0:pr0 + npr] += 1
+        if not g.bands:
+            assert (computed == 1).all()
+        else:
+            assert (emitted == 1).all()
+        # the batch changes the CTA count only
+        assert conv_geometry(h, h, ci, p, p, co, x_bytes=2, **kw) is g
+        units = batch * (g.bands or g.conv_h * g.conv_w)
+        assert g.pixel_tiles(batch) == -(-units // g.per_cta)
+
+
+def _sum_in_order(cols: np.ndarray, f: np.ndarray, order) -> np.ndarray:
+    """fp32 sums of cols (pixels, K) @ f (K, co) over k in ``order``, one
+    rounding a term, as one thread's chain of fp32 adds."""
+    acc = np.zeros((cols.shape[0], f.shape[1]), np.float32)
+    for k in order:
+        acc = (acc + np.outer(cols[:, k], f[k]).astype(np.float32)).astype(
+            np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("pool", [0, 3])
+@pytest.mark.parametrize("act", ["relu", "silu"])
+@pytest.mark.parametrize("out", [TBF, torch.float32])
+def test_widened_bound_holds_two_summation_orders(pool, act, out):
+    """``widened_bound``: one bf16 conv summed in two fp32 orders (k
+    increasing, as the tensor cores' steps; and channel-major, the FMA
+    loop's grouping, reversed), through the fp32 epilogue, the pool and
+    the act, lies within it of the other; the same result moved a few
+    ulps past the bound does not."""
+    rng = np.random.default_rng(0)
+    b, h, ci, p, co = 2, 9, 24, 3, 8
+    x = torch.from_numpy(rng.standard_normal((b, h, h, ci)).astype(
+        np.float32)).to(TBF)
+    f = torch.from_numpy((rng.standard_normal((p, p, ci, co)) * 3).astype(
+        np.float32))
+    bias = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
+    fw = f.to(TBF).float().numpy().reshape(-1, co)
+    oh = h - p + 1
+    xs = x.float().numpy()
+    cols = np.stack([xs[:, i:i + oh, j:j + oh, :] for i in range(p)
+                     for j in range(p)], axis=3).reshape(b * oh * oh, -1)
+    kdim = p * p * ci
+    k_major = list(range(kdim))
+    by_channel = [t * ci + c for c in reversed(range(ci))
+                  for t in range(p * p)]
+    kw = dict(act=act, pool_window=pool, pool_stride=2 if pool else 0)
+
+    def finish(acc):
+        y = torch.from_numpy(acc.reshape(b, oh, oh, co)) + bias
+        if pool:
+            y = ref.maxpool2d(y, window=pool, stride=2)
+        return ref.apply_act(y, act)
+
+    wide = finish(_sum_in_order(cols, fw, by_channel))
+    got = finish(_sum_in_order(cols, fw, k_major)).to(out)
+    bound = widened_bound(x, f, bias, wide, out_dtype=out, **kw)
+    d = (got.double() - wide.double()).abs()
+    assert (d > 0).any() and (d <= bound).all()
+    # a result past the bound by a few fp32 ulps is caught
+    far = wide.double() + bound * (1 + 2.0 ** -20) + 4 * torch.ldexp(
+        torch.ones_like(bound), torch.frexp(wide.double())[1] - 24)
+    assert ((far - wide.double()).abs() > bound).all()
+
+
+def test_tc_constants_match_the_cuda_source():
+    """kernels/sa_conv_implicit.py mirrors csrc/sa_conv_implicit.cu's
+    tensor-core tiles, ring depths, k per stage and alignment, and its
+    shared-memory budget is the kernel's own sum."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sa_conv_implicit import (SG_FIELDS, TC_ALIGN,
+                                                      TC_BK, tc_smem)
+    src = (_build.CSRC / "sa_conv_implicit.cu").read_text()
+    assert f"constexpr int TC_BK = {TC_BK};" in src
+    assert f"constexpr int TC_ALIGN = {TC_ALIGN};" in src
+    assert "static constexpr int BN = 256 / MB;" in src
+    assert "static constexpr int BM = 128 * MB;" in src
+    assert all(mb * bn == 256 for mb, bn in TC_TILES)
+    assert "static constexpr int STAGES = MB == 2 ? 4 : 3;" in src
+    assert TC_STAGES == {2: 4, 4: 3}
+    assert "SMEM = TC_ALIGN + RING + TABLES + 2 * STAGES * 8;" in src
+    assert src.count("enum { SG_IMG,") == 1 and SG_FIELDS == 7
+    assert tc_smem(2, 128) == 1024 + 4 * 384 * 128 + 2048 + 896 + 16 + 64
+    assert tc_smem(4, 64) == 1024 + 3 * 576 * 128 + 4096 + 896 + 16 + 48

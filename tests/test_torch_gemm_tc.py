@@ -220,8 +220,12 @@ def test_launch_catches_a_producer_that_reads_m(monkeypatch):
 
 def test_tc_constants_match_the_cuda_source():
     """kernels/sa_conv.py mirrors csrc/sa_conv.cu's tensor-core tiling,
-    ring and alignment, and the producer query is bound."""
+    ring and alignment, and the producer query is bound (the wgmma, TMA and
+    tensor-map helpers it shares with the other tensor-core kernels live in
+    csrc/common.cuh, which it includes)."""
     src = (_build.CSRC / "sa_conv.cu").read_text()
+    assert '#include "common.cuh"' in src
+    src += (_build.CSRC / "common.cuh").read_text()
     for name, value in (("TC_BM", tgemm.TC_BM), ("TC_BN", tgemm.TC_BN),
                         ("TC_BK", tgemm.TC_BK),
                         ("TC_STAGES", tgemm.TC_STAGES),

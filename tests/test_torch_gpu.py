@@ -24,9 +24,11 @@ from repro_torch.kernels.pool_act import maxpool_act, pool_geometry
 from repro_torch.kernels import sa_conv as tgemm
 from repro_torch.kernels.sa_conv import (sa_conv_matmul,
                                          sa_conv_matmul_plain)
-from repro_torch.kernels.sa_conv_implicit import (conv_geometry, conv_tiles,
+from repro_torch.kernels.sa_conv_implicit import (column_strips,
+                                                  conv_geometry, conv_tiles,
                                                   sa_conv_implicit,
-                                                  sa_conv_plain)
+                                                  sa_conv_plain,
+                                                  widened_bound)
 from repro_torch.kernels import sa_fc as tfc
 from repro_torch.kernels.sa_fc import fc_launch, sa_fc_matmul, sa_fc_plain
 
@@ -961,6 +963,16 @@ def _bf16_conv_operands(dev, ci, p, co, wdtype):
     return f, scale, bias, wide
 
 
+def _conv_within_widened_bound(got, x, f, bias, wide_out, **kw):
+    """The tensor cores' bf16 launch ``got`` within ``widened_bound`` of
+    the fp32 launch on the widened operands (NaN where it is NaN)."""
+    bound = widened_bound(x, f, bias, wide_out, out_dtype=got.dtype, **kw)
+    g, w = got.double(), wide_out.double()
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    d = (g - w).abs().nan_to_num(0.0)
+    assert (d <= bound).all(), (d - bound).max().item()
+
+
 #: (h, ci, p, co, stride, window): AlexNet's filters and VGG-16's 3x3 at
 #: reduced widths, each tile, flat and banded, ci = 3 (element loads)
 BF16_CONV_LAYERS = [(67, 3, 11, 40, 4, 3), (31, 12, 5, 24, 1, 3),
@@ -974,9 +986,11 @@ BF16_CONV_LAYERS = [(67, 3, 11, 40, 4, 3), (31, 12, 5, 24, 1, 3),
 @pytest.mark.parametrize("out", ["bf16", "fp32"])
 def test_sa_conv_bf16_kernel(cuda, h, ci, p, co, stride, window, wdtype,
                              out):
-    """bf16 x against the plain version within the reference's bf16
-    tolerance; bitwise the fp32 launch on the widened operands, rounded
-    once; fused == conv -> pool kernel and rows == b = 1, bitwise."""
+    """bf16 x (the tensor cores) against the plain version within the
+    reference's bf16 tolerance; within the derived bound of the fp32
+    launch on the widened operands (the FMA loop sums in another order);
+    a bf16 output is its launch's fp32 output rounded once; fused == conv
+    -> pool kernel and rows == b = 1, bitwise."""
     out_dtype = BF16 if out == "bf16" else torch.float32
     x = _t(0, (5, h, h, ci), cuda).to(BF16)
     f, scale, bias, wide = _bf16_conv_operands(cuda, ci, p, co, wdtype)
@@ -988,7 +1002,9 @@ def test_sa_conv_bf16_kernel(cuda, h, ci, p, co, stride, window, wdtype,
         got.float(), sa_conv_plain(x, f, bias, out_dtype=out_dtype,
                                    **kw).float(), **TOL_BF16)
     fp32 = sa_conv_implicit(x.float(), wide, bias, **kw)
-    assert torch.equal(got, fp32.to(out_dtype))
+    _conv_within_widened_bound(got, x, f, bias, fp32, **kw)
+    assert torch.equal(got, sa_conv_implicit(
+        x, f, bias, out_dtype=torch.float32, **kw).to(out_dtype))
     if window:
         conv = sa_conv_implicit(x, f, bias, stride=stride, act="relu",
                                 w_scale=scale, out_dtype=out_dtype)
@@ -1032,19 +1048,23 @@ def test_sa_conv_bf16_operands_off_alignment(cuda):
 
 
 def test_sa_conv_bf16_pooled_rows_wider_than_a_cta(cuda):
-    """Column strips in bf16: fused == conv -> pool kernel, bitwise."""
+    """Column strips in bf16: one launch a strip of the tensor-core
+    geometry, fused == conv -> pool kernel, bitwise; within the derived
+    bound of the fp32 launch on the widened operands."""
     x = _t(0, (2, 259, 259, 16), cuda).to(BF16)
     f, _, bias = _conv_operands(cuda, 16, 3, 64, "fp32")
+    kw = dict(act="relu", pool_window=3, pool_stride=2)
+    strips = column_strips(259, 259, 16, 3, 3, 64, pool_window=3,
+                           pool_stride=2, x_bytes=2)
     before = sa_conv_implicit.launches
-    got = sa_conv_implicit(x, f, bias, act="relu", pool_window=3,
-                           pool_stride=2)
-    assert sa_conv_implicit.launches == before + 2 and got.dtype == BF16
+    got = sa_conv_implicit(x, f, bias, **kw)
+    assert sa_conv_implicit.launches == before + len(strips) and \
+        len(strips) > 1 and got.dtype == BF16
     conv = sa_conv_implicit(x, f, bias, act="relu")
     assert torch.equal(got, maxpool_act(conv, window=3, stride=2,
                                         act="none"))
-    assert torch.equal(got, sa_conv_implicit(x.float(), f.to(BF16).float(),
-                                             bias, act="relu", pool_window=3,
-                                             pool_stride=2).to(BF16))
+    _conv_within_widened_bound(got, x, f, bias, sa_conv_implicit(
+        x.float(), f.to(BF16).float(), bias, **kw), **kw)
 
 
 def test_sa_conv_bf16_refuses_unsupported_mixes(cuda):
