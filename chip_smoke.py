@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC, SA-CONV and SA-CONV GEMM (each the
+   registers and spills of every SA-FC (the FMA kernel's 84 and the decode
+   kernels' 24, which may not spill), SA-CONV and SA-CONV GEMM (each the
    fp32 FMA loop and the bf16 tensor-core kernel, 168 registers a thread
    for its ``setmaxnreg``), flash (the fp32 FMA loop and the bf16
    tensor-core kernel) and pool instantiation (none but an fp32 SA-FC one
@@ -60,7 +61,10 @@ Phases (any failure raises and exits non-zero):
    cache: every matmul a schedule hit, launches per kernel equal to the
    schedules' ops per regime, no plain version called, and the
    teacher-forced logits no farther from the ``"torch"`` backend's bf16
-   logits than those are from its fp32 logits; tokens/s, idle shares and
+   logits than those are from its fp32 logits; every bf16 decode-step
+   SA-FC launch on SA-FC's decode kernel (``csrc/sa_fc_decode.cu``:
+   bf16 x and w at b <= 8), counted and printed in phases 6, 7, 12 and
+   13 (0 in fp32); tokens/s, idle shares and
    each bf16 kernel's time beside its bound and the bf16 library call;
 8. the model zoo, ``ModelZooServer`` over ``build_zoo(("alexnet", "vgg16",
    "alexnet-int8"))`` at full width and native resolution (227² and
@@ -121,10 +125,12 @@ Phases (any failure raises and exits non-zero):
    exported shared-memory query against the launch pass for every launch
    of the zoo variants and the LM configs; the GEMM's producer query
    (TMA or cp.async) against ``tma_ok`` for every bf16-x GEMM launch,
-   aligned and one element off; then all five kernels at the
+   aligned and one element off; then all six kernels at the
    launch pass's edge geometries (partial tiles, the bf16 GEMM through
    both producers and every weight type, a short last SA-FC
-   segment, flat conv tiles across images and a short last band in fp32
+   segment, SA-FC's decode kernel (narrow and wide) at b = 1, 3, 5 and
+   8 over odd k, odd n, n off 16 bytes and 125 or 313 segments, flat conv
+   tiles across images and a short last band in fp32
    and bf16 (the bf16 ones on the tensor cores: both tiles, ragged co, ci
    = 3 and 5), every pool vector width, paired flash CTAs over an odd number of query tiles
    with and without a window), each output's block filled with NaN first,
@@ -291,6 +297,8 @@ SOURCES = {
                          "src/repro/kernels/sa_conv_implicit.py:183"),
     "sa_fc_matmul": ("src/repro_torch/kernels/csrc/sa_fc.cu",
                      "src/repro/kernels/sa_fc.py:155"),
+    "sa_fc_decode": ("src/repro_torch/kernels/csrc/sa_fc_decode.cu",
+                     "src/repro/kernels/sa_fc.py:155"),
     "maxpool_act": ("src/repro_torch/kernels/csrc/pool_act.cu",
                     "src/repro/kernels/pool_act.py:60"),
     "sa_conv_matmul": ("src/repro_torch/kernels/csrc/sa_conv.cu",
@@ -302,6 +310,12 @@ SOURCES = {
 #: kernels line reports for each kernel
 CNN_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act")
 LM_KERNELS = ("sa_conv_matmul", "flash_attention", "sa_fc_matmul")
+#: the kernels the fp32 paths run (sa_fc_decode runs bf16 decode steps)
+FP32_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act",
+                "sa_conv_matmul", "flash_attention")
+#: the kernel behind a wrapper's bf16 decode-step rows: SA-FC's decode
+#: kernel (bf16 x and w at b <= 8), reported with its own source and count
+DECODE_KERNEL = {"sa_fc_matmul": "sa_fc_decode"}
 #: the pool kernel's sweep: the maps where a pool the planner declined to
 #: fuse would cost bytes, AlexNet's three pooled maps (3/2) and VGG-16's
 #: five (2/2), at b = POOL_BATCH, random normal; (label, h = w, c, window,
@@ -525,6 +539,13 @@ def build(rep: Report) -> None:
     for inst, v in rep.detail["ptxas_sa_fc"].items():
         log(f"  ptxas sa_fc_kernel<{inst}>: {v['registers']} registers, "
             f"spill bytes {v['spill_bytes']}")
+    rep.detail["ptxas_sa_fc_decode"] = decode = sa_fc_decode_ptxas(
+        _build.build_log("sa_fc_decode"))
+    for inst, v in decode.items():
+        log(f"  ptxas sa_fc_decode <{inst}>: {v['registers']} "
+            f"registers, {v['spill_bytes']} B spilled")
+    if any(v["spill_bytes"] for v in decode.values()):
+        raise AssertionError("ptxas: an SA-FC decode instantiation spills")
     if any(v["spill_bytes"] for k, v in rep.detail["ptxas_sa_fc"].items()
            if "x bf16" in k or "out bf16" in k):
         raise AssertionError("ptxas: a bf16 SA-FC instantiation spills")
@@ -618,6 +639,28 @@ def sa_fc_ptxas(text: str) -> dict:
     if len(out) != 84:
         raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
                              "not 84")
+    return out
+
+
+def sa_fc_decode_ptxas(text: str) -> dict:
+    """Registers and spill bytes of each SA-FC decode instantiation from
+    ptxas's -v output: the narrow kernel's (output type, row tile) and the
+    wide kernel's (output type, row tile, producer: TMA or cp.async)."""
+    out = {}
+    for m, regs, spills in ptxas_kernels(
+            text, rf"sa_fc_narrow_kernelI({MANGLED_TYPE})Li(\d+)E"):
+        (o,) = type_names(m.group(1))
+        out[f"narrow, out {o}, RB={m.group(2)}"] = dict(registers=regs,
+                                                         spill_bytes=spills)
+    for m, regs, spills in ptxas_kernels(
+            text, rf"sa_fc_wide_kernelI({MANGLED_TYPE})Li(\d+)ELb([01])E"):
+        (o,) = type_names(m.group(1))
+        producer = "tma" if m.group(3) == "1" else "cp.async"
+        out[f"wide, out {o}, RB={m.group(2)}, {producer}"] = dict(
+            registers=regs, spill_bytes=spills)
+    if len(out) != 24:
+        raise AssertionError(f"ptxas: {len(out)} SA-FC decode "
+                             "instantiations, not 24 (8 narrow, 16 wide)")
     return out
 
 
@@ -1002,8 +1045,13 @@ def _wrappers() -> dict:
 
 
 def counters():
+    """Launches per wrapper since :func:`reset_counters` (SA-FC's both
+    kernels), the decode kernel's among SA-FC's as ``sa_fc_decode``, and
+    the plain versions' calls."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.sa_fc import sa_fc_matmul
     return {**{k: fn.launches for k, fn in _wrappers().items()},
+            "sa_fc_decode": sa_fc_matmul.decode_launches,
             **{f"plain.{k}": v for k, v in ref.counts().items()}}
 
 
@@ -1012,6 +1060,7 @@ def reset_counters() -> None:
     from repro_torch.kernels.sa_conv import reset_producers
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["sa_fc_matmul"].decode_launches = 0
     reset_producers()
     ref.reset_counts()
 
@@ -1035,8 +1084,12 @@ def note_producers(rep: Report, path: str, c: dict) -> dict:
 
 def expect_counts(c: dict, what: str, **launches: int) -> None:
     """``c`` launched exactly ``launches`` (every other kernel 0 times)
-    and called no plain version."""
+    and called no plain version; SA-FC's decode-kernel launches are held
+    where ``sa_fc_decode`` is given."""
     want = {k: launches.get(k, 0) for k in _wrappers()}
+    if "sa_fc_decode" in c:
+        want["sa_fc_decode"] = launches.get("sa_fc_decode",
+                                            c["sa_fc_decode"])
     want.update({k: 0 for k in c if k.startswith("plain.")})
     if c != want:
         raise AssertionError(f"{what}: launch counts {c} != {want}")
@@ -1842,6 +1895,21 @@ def lm_schedules(srv, waves: list[int]):
                             else srv._schedule("decode", b)), LM_NEW - 1
 
 
+def decode_routed(records) -> int:
+    """SA-FC launches among the engine's dispatch ``records`` that run on
+    the decode kernel (bf16 x and w at b <= 8: every bf16 decode step)."""
+    import torch
+    from repro_torch.kernels.sa_fc import decode_route
+    return sum(1 for x in records if x.regime == "sa_fc" and decode_route(
+        x.m, getattr(torch, x.dtype or "float32"),
+        getattr(torch, x.weight_dtype or "float32")))
+
+
+def log_decode(what: str, c: dict) -> None:
+    log(f"  {what}: SA-FC decode kernel {c['sa_fc_decode']} of "
+        f"{c['sa_fc_matmul']} SA-FC launches")
+
+
 def schedule_launches(srv, cfg, waves: list[int]) -> dict:
     """Launches per kernel that ``ServeEngine.run`` must make for waves of
     ``waves`` requests: each named matmul of a schedule on its regime's
@@ -1896,7 +1964,9 @@ def serve_requests(rep: Report, prefix: str, cfg, params,
     note_producers(rep, f"{prefix} ServeEngine.run", c)
     waves = lm_waves()
     want = schedule_launches(srv, cfg, waves)
+    want["sa_fc_decode"] = decode_routed(tr)
     expect_counts(c, f"{prefix} ServeEngine.run", **want)
+    log_decode(f"{prefix} ServeEngine.run", c)
     mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")
           and not x.name.endswith(".experts")]
     if not mm or any(
@@ -3187,8 +3257,9 @@ def train_launches(cfg, sched, steps: int, remat: bool) -> dict:
 
 def expect_train_counts(c: dict, what: str, want: dict) -> None:
     """``c`` equals ``want`` for every kernel and plain version (those
-    ``want`` does not name: 0)."""
-    full = {k: want.get(k, 0) for k in c}
+    ``want`` does not name: 0; SA-FC's decode-kernel launches held where
+    ``want`` names them)."""
+    full = {k: want.get(k, c[k] if k == "sa_fc_decode" else 0) for k in c}
     if c != full:
         raise AssertionError(f"{what}: launch counts {c} != {full}")
 
@@ -3241,6 +3312,10 @@ def check_train_functions(rep: Report, cfg) -> dict:
                 c = counters()
                 want_c = {kern: 2 + (act != "none")}
                 want_c["sa_conv_matmul"] = want_c.get("sa_conv_matmul", 0) + 1
+                # bf16 x and w at b = 4: forward, recompute and dx on
+                # SA-FC's decode kernel
+                want_c["sa_fc_decode"] = want_c.get("sa_fc_matmul", 0) \
+                    if dt == bf else 0
                 expect_train_counts(c, f"{regime} Function", want_c)
                 want = grads(plain, x, w, b, act, cot)
                 label = (f"{kern} Function {dtype_tag(dt)} ({m}x{k})@({k}x"
@@ -3872,6 +3947,7 @@ ANALYSIS_ARGS = ("--net", "alexnet", "--net", "vgg16", "--all-zoo-variants")
 #: the activation kind of bf16 (csrc/common.cuh Kind)
 X_KIND_BF16 = 2
 KERNEL_SYMBOLS = {"sa_fc": "sa_fc_kernel",
+                  "sa_fc_decode": ("sa_fc_narrow_kernel", "sa_fc_wide_kernel"),
                   "sa_conv_implicit": "sa_conv_kernel",
                   "sa_conv_implicit[tc]": "sa_conv_wgmma_kernel",
                   "pool_act": "pool_act_kernel",
@@ -3939,8 +4015,8 @@ def edge_call(lau, gen):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     types = {0: torch.float32, 1: torch.int8, 2: torch.bfloat16}
-    if lau.kernel in ("sa_fc", "sa_conv"):
-        if lau.kernel == "sa_fc":
+    if lau.kernel in ("sa_fc", "sa_fc_decode", "sa_conv"):
+        if lau.kernel.startswith("sa_fc"):
             b, k, n, w_kind, x_kind = lau.shape
             kern, plain = sa_fc_matmul, sa_fc_plain
         else:
@@ -4001,8 +4077,13 @@ def edge_phase(rep: Report, launches: list) -> list[dict]:
         call, want, tol = edge_call(lau, gen)
         torch.cuda.synchronize()
         ptr = nan_primed(want.numel(), want.dtype)
+        decode = counters()["sa_fc_decode"]
         got = call()
         torch.cuda.synchronize()
+        if (counters()["sa_fc_decode"] - decode == 1) != (
+                lau.kernel == "sa_fc_decode"):
+            raise AssertionError(f"{lau.op}: the wrapper did not take the "
+                                 f"{lau.kernel} kernel the pass checked")
         reused = got.data_ptr() == ptr
         nan_left = int((torch.isnan(got) & ~torch.isnan(want)).sum())
         if nan_left:
@@ -4741,7 +4822,9 @@ def generate_launches(name: str, cfg, n_new: int, trace, c: dict) -> dict:
                              f"({len(regimes)} dispatches); the config says "
                              f"{matmuls} matmuls and {ops['prefill_flash']} "
                              "flash launches")
-    expect_counts(c, f"{name} greedy_generate", **want)
+    expect_counts(c, f"{name} greedy_generate", **want,
+                  sa_fc_decode=decode_routed(trace))
+    log_decode(f"{name} greedy_generate", c)
     if min(want.values()) < 1:
         raise AssertionError(f"{name}: a kernel of the path never ran: {c}")
     return want
@@ -5866,7 +5949,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, path=path,
-            launches_by_path={p: c[kernel] for p, c in paths.items()},
+            launches_by_path={p: c.get(kernel) for p, c in paths.items()},
             max_abs_err=rep.err[name],
             ms=total("ms"), plain_ms=total("plain_ms"),
             host_ms=None if any(r.get("host_ms") is None for r in rows)
@@ -5892,7 +5975,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
              **{f"trainer.run {name}": c
                 for name, c in frontend_train.items()}}
     out = []
-    for kernel in SOURCES:
+    for kernel in FP32_KERNELS:
         if kernel == "maxpool_act":
             path, launches = "Engine.conv2d, pool fusion declined", declined
         elif kernel in CNN_KERNELS:
@@ -5910,6 +5993,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == "ServeEngine.run bf16"
                 and r["phase"] == phase]
+        kernel = DECODE_KERNEL.get(kernel, kernel)
         out.append(entry(name, kernel, "ServeEngine.run bf16",
                          lm_bf16[kernel], rows, PEAK_BF16_FLOPS))
     for kernel, name in CNN_BF16_KERNELS.items():
@@ -5929,6 +6013,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == path and r["phase"] == phase]
+        kernel = DECODE_KERNEL.get(kernel, kernel)
         out.append(entry(name, kernel, path,
                          rest["zamba2-2.7b"][kernel], rows, PEAK_BF16_FLOPS))
     for model, names in FRONTEND_KERNELS.items():
@@ -5937,6 +6022,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
             phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
             rows = [r for r in rep.rows if r["kernel"] == name
                     and r["path"] == path and r["phase"] == phase]
+            kernel = DECODE_KERNEL.get(kernel, kernel)
             out.append(entry(name, kernel, path, frontend[model][kernel],
                              rows, PEAK_BF16_FLOPS))
     for model, names in FAMILY_KERNELS.items():

@@ -16,7 +16,8 @@ for each schedule entry, the launch the kernels backend makes for it (as
 invariants of it, all under the pass name ``launch``:
 
 * **coverage** — every output element is written by exactly one CTA and
-  one thread (the kernels' masks for partial tiles included); conv bands
+  one thread (the kernels' masks for partial tiles included); SA-FC's
+  decode kernel runs every (column group, k segment) unit once; conv bands
   never split a pool window and compute every conv row the emitted map
   needs; column strips cover the emitted columns once and read exactly
   the input columns they need; SA-FC's segments cover k once (the last
@@ -30,11 +31,16 @@ invariants of it, all under the pass name ``launch``:
 * **race** — no two CTAs write one output; a split SA-FC launch gives
   each (segment, row, column) partial slot and each (column tile, row
   tile) arrival counter one writer, its scratch holds what the kernel
-  indexes, and the scratch is kept per (device, stream);
+  indexes, and the scratch is kept per (device, stream); a decode launch
+  runs each (tile, segment) unit on one worker (narrow: a warp of the CTA
+  that owns the tile's segments; wide: a team, its split launches on the
+  same scratch);
 * **order** — every output sums its terms in an order that depends only
   on the contraction's shape, never on the batch, ``m``, the CTA or the
   thread, checked over every batch from 1 to the entry's: SA-FC's split
-  over k, the GEMM's k order, SA-CONV's tile and channel grouping (fused
+  over k (the FMA kernel's at the same shape for the decode kernel, which
+  runs bf16 x and w at row tiles up to 8, and a unit assignment that does
+  not follow b), the GEMM's k order, SA-CONV's tile and channel grouping (fused
   pool or not), and the kv tiles each query row sums for every query-tile
   height and pairing.  Rows == m = 1, batched == unbatched and fused ==
   unfused pool rest on this.
@@ -82,6 +88,7 @@ def _static(var_bytes: int) -> int:
 
 STATIC_SMEM = {
     "sa_fc": _static(4),
+    "sa_fc_decode": 0,
     "sa_conv": 0,
     "sa_conv_implicit": _static(4 * (conv.MAX_ROWS
                                      + SG_FIELDS * conv.MAX_SEGMENTS + 3)),
@@ -127,7 +134,8 @@ class Launch:
     ``geoms`` holds one geometry per kernel launch: one, or one per column
     strip for SA-CONV (``strips``), or, for the pool, the launch at each
     base alignment a pointer may have.  ``shape`` is the wrapper's
-    arguments: SA-FC ``(b, k, n, w_kind, x_kind)``; the GEMM ``(m, n, k,
+    arguments: SA-FC ``(b, k, n, w_kind, x_kind)`` (kernel ``"sa_fc"`` or
+    ``"sa_fc_decode"``, as the wrapper routes it); the GEMM ``(m, n, k,
     w_kind, x_kind)``; SA-CONV ``(batch, h, w, ci, p, q, co, stride,
     x_kind)`` with ``pool`` the fused ``(window, stride)`` or ``(0, 0)``;
     the pool ``(n, h, w, c, itemsize, window, stride)``; flash ``(b, sq,
@@ -143,11 +151,20 @@ class Launch:
 # ---------------------------------------------------------------------------
 # launches: each wrapper's geometry, built as the wrapper builds it
 # ---------------------------------------------------------------------------
+#: the torch dtype of each operand code
+KIND_DTYPE = {0: torch.float32, 1: torch.int8, 2: torch.bfloat16}
+
+
 def fc_launch(op: str, b: int, k: int, n: int, w_kind: int,
               x_kind: int) -> Launch:
-    """:func:`~repro_torch.kernels.sa_fc.sa_fc_matmul` on (b, k) @ (k, n)."""
-    return Launch(op, "sa_fc", (b, k, n, w_kind, x_kind),
-                  (sa_fc.fc_launch(b, k, n),))
+    """:func:`~repro_torch.kernels.sa_fc.sa_fc_matmul` on (b, k) @ (k, n):
+    the decode kernel where ``decode_route`` says so, else the FMA
+    kernel."""
+    shape = (b, k, n, w_kind, x_kind)
+    if sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
+        return Launch(op, "sa_fc_decode", shape,
+                      (sa_fc.decode_launch(b, k, n),))
+    return Launch(op, "sa_fc", shape, (sa_fc.fc_launch(b, k, n),))
 
 
 def gemm_launch(op: str, m: int, n: int, k: int, w_kind: int,
@@ -410,7 +427,11 @@ def edge_launches() -> list[Launch]:
     and 4-byte w pieces, and with fp32 and int8 weights rounded into its
     tiles); SA-FC
     split over k with a short, ragged last segment at b = 1 and one row
-    past a 64-row tile; SA-CONV flat tiles that cross image boundaries and
+    past a 64-row tile, and its decode kernel at b = 1, 5 and 8 with odd k,
+    odd n and n off 16 bytes (element and 4-byte copies), over 313
+    segments of 40 and of 4104 columns (wide at k = 20000), and over
+    125 one-chunk segments of 8 columns at b = 8 (narrow, the most
+    partials its shared memory holds); SA-CONV flat tiles that cross image boundaries and
     pooled bands whose last band is short, fp32 and bf16 (the tensor cores:
     ragged co, both tiles, 16-byte gathers and, at ci = 3 and ci = 5, the
     channels padded to 4 and 8 first); the pool at 16-, 8- and 4-byte
@@ -422,6 +443,20 @@ def edge_launches() -> list[Launch]:
     return [
         fc_launch("edge b=1 [sa_fc]", 1, 3999, 1000, W_KIND["float32"], f32),
         fc_launch("edge b=65 [sa_fc]", 65, 3999, 1000, W_KIND["int8"], f32),
+        fc_launch("edge decode b=1 odd k [sa_fc_decode]", 1, 3999, 1000,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode b=8 odd n [sa_fc_decode]", 8, 4000, 1001,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode b=5 n off 16 B [sa_fc_decode]", 5, 4097, 262,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode b=8 313 segments [sa_fc_decode]", 8, 20000,
+                  40, W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode wide b=3 odd n [sa_fc_decode]", 3, 3999, 5001,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode wide b=8 313 segments [sa_fc_decode]", 8,
+                  20000, 4104, W_KIND["bfloat16"], bf16),
+        fc_launch("edge decode b=8 125 segments [sa_fc_decode]", 8, 4000, 8,
+                  W_KIND["bfloat16"], bf16),
         gemm_launch("edge 130x200 [sa_conv]", 130, 200, 1000,
                     W_KIND["float32"], f32),
         gemm_launch("edge 130x200 bf16 [sa_conv]", 130, 200, 1000,
@@ -606,6 +641,10 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
     b, k, n, w_kind, x_kind = lau.shape
     (fl,) = lau.geoms
     out: list[tuple[str, str]] = []
+    if sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
+        out.append(("order", f"out: b={b} with bf16 x and w on the FMA "
+                             "kernel — the wrapper runs it on the decode "
+                             "kernel"))
     rows, cols = fl.rows, fl.cols
     # coverage and races of the outputs: CTA (x, y) writes rows [y rb, ...)
     # and columns [x bn, ...) of out, masked at b and n
@@ -656,6 +695,153 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
                                  f"{fl.segments} of {fl.seg_k} at b={b}: "
                                  "the split over k must be a function of "
                                  "(k, n) alone"))
+            break
+    return out
+
+
+def _fc_decode_smem(narrow: bool, rows: int, segments: int,
+                    span: int) -> int:
+    """A decode CTA's dynamic shared memory from its geometry.  Narrow: 16
+    warps' rings of 6 stages, a stage 4 k-lanes' blocks of 8 rows of 16
+    bf16 columns padded by 32 bytes, then the chunk's 32 k of each x row in
+    bf16; then, where k is split, a partial per (group, segment, row,
+    column) of the CTA's units in fp32.  Wide: 128 bytes to align the rings for
+    TMA; 2 teams of 4 warps, each warp's ring of 4 stages, a stage its
+    lane's 8 rows of 128 bf16 columns then 128 bytes for its 8 k of the x
+    rows; a buffer per team of warps 1-3's sums, ``rows`` x 128 fp32
+    each; 4 mbarriers a warp."""
+    if narrow:
+        part = span * segments * rows * 16 * 4 if segments > 1 else 0
+        return 16 * 6 * (4 * (8 * 16 * 2 + 32) + rows * 32 * 2) + part
+    return (128 + 8 * 4 * (8 * 128 * 2 + 128) + 2 * 3 * rows * 128 * 4
+            + 8 * 4 * 8)
+
+
+def check_fc_decode(lau: Launch) -> list[tuple[str, str]]:
+    b, k, n, w_kind, x_kind = lau.shape
+    (d,) = lau.geoms
+    out: list[tuple[str, str]] = []
+    if not sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
+        out.append(("order", f"out: the decode kernel runs b={b}, x kind "
+                             f"{x_kind}, w kind {w_kind} — it takes bf16 x "
+                             "and w at row tiles up to 8 alone"))
+    if d.rows != sa_fc.row_tile(b) or d.rows not in sa_fc.DECODE_ROWS:
+        out.append(("coverage", f"out rows: a {d.rows}-row tile for b={b}"))
+    narrow = k <= sa_fc.NARROW_MAX and n <= sa_fc.NARROW_MAX
+    if d.narrow != narrow or d.cols != (sa_fc.GCOLS if d.narrow
+                                        else sa_fc.TILE):
+        out.append(("coverage", f"out columns: {d.cols}-column "
+                                f"{'narrow' if d.narrow else 'wide'} tiles "
+                                f"at k={k}, n={n}, where the kernel picks "
+                                "narrow tiles of 16 for k and n up to 4096 "
+                                "and wide tiles of 128 otherwise"))
+    # coverage of the outputs: tiles masked at n; a narrow unit's thread
+    # p of lane 0 takes columns 2p and 2p+1 of its 16, a wide unit's thread
+    # p of warp 0 columns 4p..4p+3 of its 128
+    out += _spans("out columns", _tiles(n, d.cols, d.tiles), n)
+    per = d.cols // (8 if d.narrow else 32)
+    out += _thread_map("out unit columns",
+                       (per * np.arange(d.cols // per)[:, None]
+                        + np.arange(per)).ravel(), d.cols)
+    # the k split, as the kernel derives it from seg_k
+    chunks = -(-k // sa_fc.K_CHUNK)
+    seg_chunks = d.seg_k // sa_fc.K_CHUNK
+    if d.seg_k % sa_fc.K_CHUNK or seg_chunks < 1:
+        out.append(("coverage", f"k segments: seg_k {d.seg_k} is not a "
+                                f"whole number of {sa_fc.K_CHUNK}-k chunks"))
+        return out
+    nseg = -(-chunks // seg_chunks) if chunks > seg_chunks else 1
+    if d.segments != nseg:
+        out.append(("coverage", f"k segments: the launch says {d.segments},"
+                                f" the kernel derives {nseg} from seg_k "
+                                f"{d.seg_k}"))
+    out += _spans("k segments", _tiles(k, d.seg_k, nseg), k)
+    # every (tile, segment) unit run by one worker (a narrow warp or a wide
+    # team): one writer of its partials or outputs (and, wide, one arrival
+    # on its tile's counter); a narrow CTA runs every segment of its tiles
+    runs: dict[tuple[int, int], int] = {}
+    if d.narrow:
+        out += _spans("out column tiles", [d.cta_tiles(c)
+                                           for c in range(d.ctas)], d.tiles)
+    for c in range(d.ctas):
+        t0, t1 = d.cta_tiles(c) if d.narrow else (0, d.tiles)
+        if d.narrow and t1 - t0 > d.span:
+            out.append(("race", f"CTA {c}: {t1 - t0} tiles over the span "
+                                f"{d.span} its partial region holds"))
+        for i in range(d.workers):
+            for unit in d.worker_units(c, i):
+                if not t0 <= unit[0] < t1:
+                    out.append(("race", f"unit {unit}: run by CTA {c}, which"
+                                        f" does not own tile {unit[0]} — "
+                                        "two CTAs write its outputs"))
+                runs[unit] = runs.get(unit, 0) + 1
+    twice = [u for u, v in runs.items() if v > 1]
+    if twice:
+        out.append(("race", f"units {twice[:3]}: run by more than one "
+                            f"{'warp' if d.narrow else 'team'} — their "
+                            "partials and outputs have two writers"))
+    missed = [(t, s) for t in range(d.tiles) for s in range(nseg)
+              if (t, s) not in runs]
+    stray = [u for u in runs if not (0 <= u[0] < d.tiles
+                                     and 0 <= u[1] < nseg)]
+    if missed:
+        out.append(("coverage", f"units {missed[:3]} ({len(missed)} in all)"
+                                " run by no worker — a k segment or a column "
+                                "tile is never summed"))
+    if stray:
+        out.append(("coverage", f"units {stray[:3]} past the tiles or the "
+                                "segments"))
+    # the grid, shared memory, and what the kernel indexes past it
+    derived = _fc_decode_smem(d.narrow, d.rows, d.segments, d.span)
+    if d.narrow:
+        if not 1 <= d.ctas <= min(d.tiles, sa_fc.SM_COUNT) or \
+                d.span != -(-d.tiles // d.ctas):
+            out.append(("residency", f"grid {d.ctas}, span {d.span}: past "
+                                     "the tiles or one CTA an SM"))
+        out += _residency("sa_fc_decode", f"{d.rows}-row narrow CTA",
+                          derived, d.smem)
+        part = derived - _fc_decode_smem(True, d.rows, 1, d.span)
+        if part > sa_fc.PART_SMEM_MAX:
+            out.append(("residency", f"partials: {part} B over the "
+                                     f"{sa_fc.PART_SMEM_MAX} B the kernel "
+                                     "keeps (it refuses the launch)"))
+        threads = 16 * 32
+        outs = d.span * d.rows * 16
+        e = (np.arange(threads)[:, None]
+             + threads * np.arange(-(-outs // threads))[None, :]).ravel()
+        out += _thread_map("out segment sum", e[e < outs], outs)
+    else:
+        if not 1 <= d.ctas <= min(-(-d.tiles * nseg // sa_fc.TEAMS),
+                                  sa_fc.SM_COUNT * sa_fc.PER_SM):
+            out.append(("residency", f"grid {d.ctas}: past the units' "
+                                     f"teams or {sa_fc.PER_SM} CTAs on "
+                                     f"each of {sa_fc.SM_COUNT} SMs"))
+        out += _residency("sa_fc_decode", f"{d.rows}-row wide CTA",
+                          derived, d.smem, per_sm=sa_fc.PER_SM)
+        if d.split:
+            out += _scratch_fits(dataclasses.replace(
+                sa_fc.fc_launch(b, k, n), grid=(d.tiles, 1, nseg)), b, n,
+                nseg)
+    # order: the FMA kernel's split at this shape, and one assignment at
+    # every batch the decode kernel takes
+    fma = sa_fc.fc_launch(b, k, n)
+    if (d.segments, d.seg_k) != (fma.segments, fma.seg_k):
+        out.append(("order", f"out sums k in {d.segments} segments of "
+                             f"{d.seg_k}, the FMA kernel in {fma.segments} "
+                             f"of {fma.seg_k}: the two kernels must give "
+                             "the same bits"))
+    units = {(c, i): d.worker_units(c, i) for c in range(d.ctas)
+             for i in range(d.workers)}
+    for bb in range(1, max(sa_fc.DECODE_ROWS) + 1):
+        other = sa_fc.decode_launch(bb, k, n)
+        if (other.narrow, other.segments, other.seg_k, other.ctas,
+                other.tiles) != (d.narrow, d.segments, d.seg_k, d.ctas,
+                                 d.tiles) or any(
+                    other.worker_units(c, i) != u
+                    for (c, i), u in units.items()):
+            out.append(("order", f"out: the decode units at b={bb} differ "
+                                 f"from b={b}'s — the assignment must "
+                                 "follow (k, n) alone"))
             break
     return out
 
@@ -1101,7 +1287,8 @@ def check_flash(lau: Launch) -> list[tuple[str, str]]:
     return out
 
 
-CHECKS = {"sa_fc": check_fc, "sa_conv": check_gemm,
+CHECKS = {"sa_fc": check_fc, "sa_fc_decode": check_fc_decode,
+          "sa_conv": check_gemm,
           "sa_conv_implicit": check_conv, "pool_act": check_pool,
           "attention": check_flash}
 
@@ -1131,6 +1318,11 @@ def smem_queries(lau: Launch) -> list[tuple[str, tuple, int]]:
         return [("sa_fc", (w_kind, x_kind, fl.rows),
                  _fc_smem(fl.rows, fl.cols, KIND_BYTES[w_kind],
                           KIND_BYTES[x_kind]))]
+    if lau.kernel == "sa_fc_decode":
+        _, k, n = lau.shape[:3]
+        (d,) = lau.geoms
+        return [("sa_fc_decode", (k, n, d.rows, d.segments, d.span),
+                 _fc_decode_smem(d.narrow, d.rows, d.segments, d.span))]
     if lau.kernel == "sa_conv":
         _, _, _, w_kind, x_kind = lau.shape
         return [("sa_conv", (w_kind, x_kind),

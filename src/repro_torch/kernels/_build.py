@@ -25,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sa_fc", "sa_conv_implicit", "pool_act", "sa_conv",
-           "attention")
+SOURCES = ("sa_fc", "sa_fc_decode", "sa_conv_implicit", "pool_act",
+           "sa_conv", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
               (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
+    "sa_fc_decode": ("sa_fc_decode_launch",
+                     (_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
                          (_P, _I, _I, _P, _I, _P, _P, _P) + (_I,) * 18
                          + (_P, _P, _P)),
@@ -65,6 +67,7 @@ SIGNATURES = {
 #: instantiation (repro_torch/analysis/launch.py derives the same figures)
 SMEM_SIGNATURES = {
     "sa_fc": ("sa_fc_smem", (_I,) * 3),
+    "sa_fc_decode": ("sa_fc_decode_smem", (_I,) * 5),
     "sa_conv_implicit": ("sa_conv_implicit_smem", (_I,) * 9),
     "pool_act": ("pool_act_smem", (_I,) * 2),
     "sa_conv": ("sa_conv_smem", (_I,) * 2),

@@ -15,6 +15,13 @@ only, and adds every output's terms in an order fixed by that split, so a
 row's output is bitwise the same whatever batch it rides in.
 :func:`fc_launch` is the whole launch geometry, in Python so that the CPU
 tests reach it.
+
+Two kernels run that order.  bf16 ``x`` with bf16 ``w`` at a row tile of at
+most 8 (every LM decode step) runs the decode kernel
+(``csrc/sa_fc_decode.cu``, launch geometry :func:`decode_launch`), a weight
+stream laid out for the card's memory; everything else runs the FMA kernel
+(``csrc/sa_fc.cu``).  :func:`decode_route` is the choice, by dtype and row
+tile alone, and the two give the same bits.
 """
 from __future__ import annotations
 
@@ -40,6 +47,27 @@ K_CHUNK = 32
 K_LANES = 4
 #: CTAs a launch aims for: two on each of an H100's 132 SMs
 TARGET_CTAS = 2 * 132
+#: the decode kernel (csrc/sa_fc_decode.cu, the same names there): its row
+#: tiles and the largest k and n it runs narrow; narrow: the columns of a warp's
+#: unit (a group), warps a CTA, stages of a warp's ring, where a stage's x
+#: rows start, the most partials it keeps in shared memory (what k and n up
+#: to NARROW_MAX give); wide: the columns of a
+#: team's unit (a tile), teams of K_LANES warps a CTA, CTAs an SM, stages
+#: of a warp's ring and their bytes (a lane's 8 weight rows of a tile, then
+#: 128 bytes for its 8 k of the x rows); the SMs of an H100
+DECODE_ROWS = (1, 2, 4, 8)
+NARROW_MAX = 4096
+GCOLS = 16
+N_WARPS = 16
+N_DEPTH = 6
+N_X_OFF = K_LANES * (8 * GCOLS * 2 + 32)
+PART_SMEM_MAX = 65536
+TILE = 128
+TEAMS = 2
+PER_SM = 2
+W_DEPTH = 4
+W_STAGE = 8 * TILE * 2 + 128
+SM_COUNT = 132
 
 
 def sa_fc_plain(x: torch.Tensor, w: torch.Tensor,
@@ -163,6 +191,107 @@ def fc_launch(b: int, k: int, n: int) -> FcLaunch:
                     (col_tiles, row_tiles, segments if split else 1))
 
 
+def decode_route(b: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
+    """Whether :func:`sa_fc_matmul` runs the decode kernel for ``b`` rows:
+    bf16 ``x`` with bf16 ``w`` at a row tile of at most 8."""
+    return (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
+            and row_tile(b) in DECODE_ROWS)
+
+
+def narrow_smem_bytes(rows: int, segments: int, span: int) -> int:
+    """Dynamic shared memory of a narrow decode CTA (csrc/sa_fc_decode.cu
+    ``narrow::smem_bytes``): its warps' rings, a stage a chunk of 16
+    columns (4 k-lanes' blocks of 8 rows padded by 32 bytes) then its 32 k
+    of each x row; then, where k is split, the partials of the CTA's units
+    (``span`` groups x ``segments`` x ``rows`` x :data:`GCOLS` floats)."""
+    part = span * segments * rows * GCOLS * 4 if segments > 1 else 0
+    return N_WARPS * N_DEPTH * (N_X_OFF + rows * K_CHUNK * 2) + part
+
+
+def wide_smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of a wide decode CTA (csrc/sa_fc_decode.cu
+    ``wide::smem_bytes``): 128 bytes to align, the rings of its ``TEAMS``
+    x ``K_LANES`` warps, each team's buffer of warps 1-3's lane sums
+    (``rows`` x :data:`TILE` floats each), each warp's mbarriers."""
+    warps = TEAMS * K_LANES
+    return (128 + warps * W_DEPTH * W_STAGE
+            + TEAMS * (K_LANES - 1) * rows * TILE * 4 + warps * W_DEPTH * 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLaunch:
+    """How :func:`sa_fc_matmul` launches the decode kernel for one shape.
+
+    A unit is (column tile, k segment).  Narrow (k and n at most
+    :data:`NARROW_MAX`):
+    tiles of :data:`GCOLS` columns, a warp a unit; CTA ``c`` owns tiles
+    :meth:`cta_tiles` and every segment of them, its units
+    segment-major round-robin over its :data:`N_WARPS` warps, and adds
+    each output's segments in order from shared memory.  Wide: tiles of
+    :data:`TILE` columns, a team of K_LANES warps a unit; units
+    segment-major (``u = segment x tiles + tile``) round-robin over the
+    ``ctas x TEAMS`` teams; where k is split, partials through the
+    (S, b, n) workspace and one arrival counter per tile, the last team on
+    a tile adding them in segment order.  :meth:`worker_units` is either
+    assignment."""
+    narrow: bool
+    rows: int                   # row tile (an instantiation)
+    segments: int               # fc_split's S
+    seg_k: int                  # k per segment
+    cols: int                   # columns of a unit
+    tiles: int                  # column tiles
+    ctas: int                   # the grid
+    span: int                   # narrow: most tiles a CTA owns
+    smem: int                   # dynamic shared memory of a CTA
+
+    @property
+    def split(self) -> bool:
+        return self.segments > 1
+
+    @property
+    def workers(self) -> int:
+        """Workers of a CTA, each running its own units: warps (narrow) or
+        teams (wide)."""
+        return N_WARPS if self.narrow else TEAMS
+
+    def cta_tiles(self, c: int) -> tuple[int, int]:
+        """The tiles narrow CTA ``c`` owns (every segment of them)."""
+        return c * self.tiles // self.ctas, (c + 1) * self.tiles // self.ctas
+
+    def worker_units(self, c: int, i: int) -> list[tuple[int, int]]:
+        """(tile, segment) of each unit worker ``i`` of CTA ``c`` runs, in
+        its order."""
+        if self.narrow:
+            t0, t1 = self.cta_tiles(c)
+            gc = t1 - t0
+            return [(t0 + u % gc, u // gc)
+                    for u in range(i, gc * self.segments, N_WARPS)]
+        units = self.tiles * self.segments
+        return [(u % self.tiles, u // self.tiles)
+                for u in range(c * TEAMS + i, units, self.ctas * TEAMS)]
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_launch(b: int, k: int, n: int) -> DecodeLaunch:
+    """The decode kernel's launch for ``(b, k) @ (k, n)``, b <= 8: the row
+    tile follows b; the mode, the split, the tiles, the grid and every
+    worker's units follow (k, n) alone."""
+    rb = row_tile(b)
+    if rb not in DECODE_ROWS:
+        raise ValueError(f"decode_launch: b={b} is above the decode row tiles")
+    segments, seg_k = fc_split(k, n)
+    if k <= NARROW_MAX and n <= NARROW_MAX:
+        tiles = -(-n // GCOLS)
+        ctas = min(tiles, SM_COUNT)
+        span = -(-tiles // ctas)
+        return DecodeLaunch(True, rb, segments, seg_k, GCOLS, tiles, ctas,
+                            span, narrow_smem_bytes(rb, segments, span))
+    tiles = -(-n // TILE)
+    ctas = min(-(-tiles * segments // TEAMS), SM_COUNT * PER_SM)
+    return DecodeLaunch(False, rb, segments, seg_k, TILE, tiles, ctas, 0,
+                        wide_smem_bytes(rb))
+
+
 #: per (device, stream): the split launches' arrival counters (all 0
 #: between launches: the last CTA on a tile resets its own) and the
 #: workspace of their partials, grown as needed and reused by every launch
@@ -196,7 +325,10 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor | None = None, *, act: str = "none",
                  w_scale: torch.Tensor | None = None,
                  out_dtype=None) -> torch.Tensor:
-    """(b, k) @ (k, n) on the SA-FC kernel, fused scale + bias + act."""
+    """(b, k) @ (k, n) on an SA-FC kernel, fused scale + bias + act: the
+    decode kernel where :func:`decode_route` says so, else the FMA kernel.
+    ``launches`` counts both kernels' launches, ``decode_launches`` the
+    decode kernel's."""
     if x.device.type == "cpu":
         return sa_fc_plain(x, w, bias, act=act, w_scale=w_scale,
                            out_dtype=out_dtype)
@@ -207,8 +339,26 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((b, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    plan = fc_launch(b, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if decode_route(b, x.dtype, w.dtype):
+        d = decode_launch(b, k, n)
+        part = arrivals = None
+        if d.split and not d.narrow:
+            arrivals, part = _scratch(x.device, stream, d.tiles,
+                                      d.segments * b * n)
+        lib = _build.load("sa_fc_decode")
+        err = lib.sa_fc_decode_launch(
+            x.data_ptr(), w.data_ptr(), X_KINDS[out_dtype],
+            w_scale.data_ptr() if w_scale is not None else None,
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            arrivals.data_ptr() if arrivals is not None else None, b, k, n,
+            d.rows, d.seg_k // K_CHUNK, d.ctas, _build.act_code(act), stream)
+        _build.check(lib, err, "sa_fc_matmul")
+        sa_fc_matmul.launches += 1
+        sa_fc_matmul.decode_launches += 1
+        return out
+    plan = fc_launch(b, k, n)
     part = arrivals = None
     if plan.split:
         arrivals, part = _scratch(x.device, stream,
@@ -230,3 +380,4 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 sa_fc_matmul.launches = 0
+sa_fc_matmul.decode_launches = 0

@@ -579,7 +579,14 @@ def test_launch_pass_clean_on_every_lm_config():
                             "seamless-m4t-large-v2@fp32", "zamba2-2.7b"}
     launches = tlaunch.lm_launches(configs)
     kernels = {lau.kernel for lau in launches}
-    assert kernels == {"sa_fc", "sa_conv", "attention"}
+    assert kernels == {"sa_fc", "sa_fc_decode", "sa_conv", "attention"}
+    # bf16 x and w at b <= 8 (every bf16 decode step) on the decode kernel,
+    # every other SA-FC launch on the FMA kernel
+    for lau in launches:
+        if lau.kernel.startswith("sa_fc"):
+            b, _, _, w_kind, x_kind = lau.shape
+            assert (lau.kernel == "sa_fc_decode") == (
+                b <= 8 and w_kind == x_kind == 2), lau.op
     windows = {lau.shape[7] for lau in launches
                if lau.kernel == "attention"}
     assert windows == {0, 1024, 4096}          # gemma3's, gemma2's, mixtral's
@@ -972,6 +979,132 @@ def test_launch_catches_scratch_shared_across_streams(monkeypatch):
     monkeypatch.setattr(tfc, "_scratch", lambda device, stream, *a: real(
         device, 0, *a))
     assert "not kept per (device, stream)" in _only(lau)
+
+
+# -- the decode kernel: seeded faults -----------------------------------------
+
+#: an edge launch of each decode mode, split over k: narrow (n = 1001) and
+#: wide (n = 4104)
+DECODE_EDGES = ["edge decode b=8 odd n [sa_fc_decode]",
+                "edge decode wide b=8 313 segments [sa_fc_decode]"]
+
+
+def _decode_edge(op, units=None, **fields):
+    """The edge decode launch ``op``, its geometry's fields replaced by
+    ``fields`` and, where ``units`` is given, its workers running
+    ``units(real geometry, cta, worker)``."""
+    lau = _edge(op)
+    real = g = lau.geoms[0]
+    assert g.split and g.ctas > 1 and tlaunch.check_launch(lau) == []
+    if units is not None:
+        class Faulty(type(real)):
+            def worker_units(self, c, i):
+                return units(real, c, i)
+        g = Faulty(**dataclasses.asdict(real))
+    return dataclasses.replace(lau, geoms=(dataclasses.replace(g, **fields),))
+
+
+@pytest.mark.parametrize("op", DECODE_EDGES)
+@pytest.mark.parametrize("fault", ["last segment", "segments field"])
+def test_launch_catches_a_decode_geometry_that_skips_a_segment(op, fault):
+    if fault == "last segment":
+        bad = _decode_edge(op, lambda g, c, i: [
+            u for u in g.worker_units(c, i) if u[1] != g.segments - 1])
+    else:
+        bad = _decode_edge(op, segments=_edge(op).geoms[0].segments - 1)
+    msgs = _only(bad)
+    assert "sa_fc_decode coverage: units" in msgs, msgs
+    assert "run by no worker — a k segment or a column tile is never " \
+        "summed" in msgs
+
+
+@pytest.mark.parametrize("op", DECODE_EDGES)
+@pytest.mark.parametrize("fault", ["two workers of a CTA", "two CTAs"])
+def test_launch_catches_a_decode_output_with_two_writers(op, fault):
+    """A unit run twice writes its partials twice (and, wide, arrives twice
+    on its tile's counter, so the sum runs before the last segment is
+    in)."""
+    if fault == "two workers of a CTA":    # worker 1 also runs worker 0's
+        bad = _decode_edge(op, lambda g, c, i: g.worker_units(c, i) + (
+            g.worker_units(c, 0)[:1] if i == 1 else []))
+    else:                                  # CTA 1 also runs CTA 0's
+        bad = _decode_edge(op, lambda g, c, i: g.worker_units(c, i) + (
+            g.worker_units(0, 0)[:1] if (c, i) == (1, 0) else []))
+    msgs = _only(bad)
+    assert "sa_fc_decode race: units" in msgs, msgs
+    assert "run by more than one" in msgs
+    if fault == "two CTAs" and "b=8 odd n" in op:
+        assert "which does not own tile 0 — two CTAs write its outputs" in msgs
+
+
+@pytest.mark.parametrize("op", DECODE_EDGES)
+def test_launch_catches_a_decode_assignment_that_follows_the_batch(
+        monkeypatch, op):
+    """A grid that changes with b would hand an output's segments to other
+    workers between batched and unbatched runs."""
+    lau = _decode_edge(op)
+    real = tfc.decode_launch
+
+    def launch(b, k, n):
+        d = real(b, k, n)
+        return d if b < 4 else dataclasses.replace(d, ctas=d.ctas - 1)
+    monkeypatch.setattr(tfc, "decode_launch", launch)
+    msgs = _only(lau)
+    assert "sa_fc_decode order: out: the decode units at b=4 differ" in msgs
+
+
+def test_launch_catches_an_sa_fc_launch_on_the_wrong_kernel():
+    """fp32 x on the decode kernel, bf16 x and w at b = 8 on the FMA
+    kernel, and a narrow geometry at n > 4096: routes the wrapper never
+    takes."""
+    lau = _decode_edge(DECODE_EDGES[0])
+    b, k, n, w_kind, _ = lau.shape
+    assert "sa_fc_decode order: out: the decode kernel runs b=8, x kind 0" \
+        in _only(dataclasses.replace(lau, shape=(b, k, n, w_kind, 0)))
+    fma = dataclasses.replace(lau, kernel="sa_fc",
+                              geoms=(tfc.fc_launch(b, k, n),))
+    assert "sa_fc order: out: b=8 with bf16 x and w on the FMA kernel" in \
+        _only(fma)
+    wide = _edge(DECODE_EDGES[1])
+    as_narrow = dataclasses.replace(wide, geoms=(dataclasses.replace(
+        wide.geoms[0], narrow=True),))
+    assert "narrow tiles of 16 for k and n up to 4096" in _only(as_narrow)
+
+
+def test_launch_catches_narrow_decode_partials_past_shared_memory():
+    """The narrow kernel keeps every partial of a CTA in shared memory, at
+    most 64 KiB: k and n up to 4096 never give more (the edge launch's 125
+    segments of 8 rows are 64000 B), a span one larger would."""
+    lau = _edge("edge decode b=8 125 segments [sa_fc_decode]")
+    g = lau.geoms[0]
+    assert g.narrow and tlaunch.check_launch(lau) == []
+    bad = dataclasses.replace(lau, geoms=(dataclasses.replace(
+        g, span=2, smem=tfc.narrow_smem_bytes(g.rows, g.segments, 2)),))
+    msgs = _only(bad)
+    assert "sa_fc_decode residency: partials: 128000 B over the 65536 B" \
+        in msgs, msgs
+
+
+@pytest.mark.parametrize("short", ["segment", "tile"])
+def test_launch_catches_decode_scratch_too_short(monkeypatch, short):
+    """The wide decode kernel's split launches index the FMA kernel's
+    scratch: (S, b, n) partials and one counter per 128-column tile."""
+    lau = _edge(DECODE_EDGES[1])
+    b, _, n = lau.shape[:3]
+    real = tfc._scratch
+
+    def scratch(device, stream, tiles, partials):
+        arrivals, part = real(device, stream, tiles, partials)
+        if short == "tile":
+            return arrivals[:tiles - 1], part
+        return arrivals, part[:partials - b * n]
+
+    monkeypatch.setattr(tfc, "_scratch", scratch)
+    msgs = _only(lau)
+    if short == "tile":
+        assert "sa_fc_decode race: arrival counters: 32 < 33" in msgs, msgs
+    else:
+        assert "sa_fc_decode race: partials workspace" in msgs, msgs
 
 
 def _fc_launch_reading_b():

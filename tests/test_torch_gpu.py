@@ -766,6 +766,115 @@ def test_sa_fc_bf16_odd_widths_and_unaligned_bases(cuda, k, n, wdtype):
                                     w_scale=scale), want)
 
 
+#: the LM decode shapes of the decode kernel: OLMo-1B's q/k/v/o,
+#: seamless's attention, zamba2's in_proj, llava's gate/up
+DECODE_SHAPES = [(2048, 2048), (1024, 1024), (2560, 10448), (7168, 20480)]
+
+
+def _decode_operands(dev, b, k, n):
+    x = _t(0, (b, k), dev).to(BF16)
+    w = _t(1, (k, n), dev, k ** -0.5).to(BF16)
+    return x, w, _t(2, (n,), dev)
+
+
+def _on_decode_kernel(fn):
+    """``fn()`` and whether it launched the decode kernel once (and the
+    SA-FC wrapper once)."""
+    before = (sa_fc_matmul.launches, sa_fc_matmul.decode_launches)
+    out = fn()
+    return out, (sa_fc_matmul.launches - before[0],
+                 sa_fc_matmul.decode_launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("k,n", DECODE_SHAPES)
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8])
+def test_sa_fc_decode_kernel_is_the_fma_kernel_bit_for_bit(cuda, b, k, n):
+    """bf16 x and w at b <= 8 run the decode kernel: bitwise the FMA
+    kernel's fp32 launch on the widened operands (rounded once for a bf16
+    output), with bias and silu, gelu or none, bf16 or fp32 out; every row
+    bitwise its b = 1 launch."""
+    x, w, bias = _decode_operands(cuda, b, k, n)
+    for act, out in (("silu", BF16), ("gelu", torch.float32),
+                     ("none", BF16)):
+        got, on = _on_decode_kernel(lambda: sa_fc_matmul(
+            x, w, bias, act=act, out_dtype=out))
+        assert on and got.dtype == out
+        fp32 = sa_fc_matmul(x.float(), w.float(), bias, act=act)
+        assert torch.equal(got, fp32.to(out)), (act, out)
+    alone = torch.cat([sa_fc_matmul(x[i:i + 1].contiguous(), w, bias,
+                                    act="none", out_dtype=BF16)
+                       for i in range(b)])
+    assert torch.equal(got, alone)
+    torch.testing.assert_close(got.float(), sa_fc_plain(
+        x, w, bias, out_dtype=BF16).float(), **TOL_BF16)
+
+
+@pytest.mark.parametrize("k,n", [(301, 261), (300, 260), (302, 262),
+                                 (296, 257), (3999, 1001), (4097, 262),
+                                 (301, 4201), (3999, 5002), (2048, 8190)])
+@pytest.mark.parametrize("b", [1, 5, 8])
+def test_sa_fc_decode_odd_widths_and_unaligned_bases(cuda, b, k, n):
+    """Rows whose bytes allow 8- or 4-byte pieces or only elements (odd k,
+    odd n), from bases one element into their buffers, narrow (k and n <=
+    4096) and wide (cp.async where TMA would take the aligned launch): the
+    decode kernel, bitwise the FMA kernel on the widened operands and the
+    aligned launch."""
+    x, w, bias = _decode_operands(cuda, b, k, n)
+    want, on = _on_decode_kernel(lambda: sa_fc_matmul(x, w, bias,
+                                                      act="relu"))
+    assert on
+    assert torch.equal(want, sa_fc_matmul(x.float(), w.float(), bias,
+                                          act="relu").to(BF16))
+    xo = torch.empty(b * k + 1, dtype=BF16, device=cuda)[1:].view(b, k)
+    wo = torch.empty(k * n + 1, dtype=BF16, device=cuda)[1:].view(k, n)
+    xo.copy_(x)
+    wo.copy_(w)
+    got, on = _on_decode_kernel(lambda: sa_fc_matmul(xo, wo, bias,
+                                                     act="relu"))
+    assert on and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,k,n", [(8, 4000, 8), (1, 4000, 16),
+                                   (4, 2048, 2048), (4, 2048, 8192),
+                                   (8, 20000, 4104), (8, 20000, 40)])
+def test_sa_fc_decode_split_launches_leave_the_arrival_counters_at_zero(
+        cuda, b, k, n):
+    """k split into segments: narrow, the partials in shared memory (125
+    one-chunk segments of 8 and of 1 rows; OLMo-1B's q/k/v/o); wide, the
+    partials through the workspace and the tiles' counters (OLMo-1B's
+    gate/up; 313 segments of 4104 and of 40 columns).  Two launches
+    bitwise equal, the FMA kernel's bits, every counter back at zero."""
+    d = tfc.decode_launch(b, k, n)
+    assert d.split and d.narrow == (k <= 4096 and n <= 4096)
+    x, w, bias = _decode_operands(cuda, b, k, n)
+    first, on = _on_decode_kernel(lambda: sa_fc_matmul(x, w, bias,
+                                                       act="silu"))
+    assert on and torch.equal(first, sa_fc_matmul(x, w, bias, act="silu"))
+    assert torch.equal(first, sa_fc_matmul(x.float(), w.float(), bias,
+                                           act="silu").to(BF16))
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    scratch = tfc._SCRATCH.get((x.device, stream))
+    assert scratch is None or not scratch[0].any()
+
+
+def test_sa_fc_decode_route_is_dtype_and_row_tile(cuda):
+    """bf16 x with bf16 w at b <= 8 takes the decode kernel; b = 9, fp32 or
+    int8 weights and fp32 x take the FMA kernel."""
+    k, n = 512, 384
+    x, w, bias = _decode_operands(cuda, 9, k, n)
+    q = quantize(w.float())
+    for xs, ws, scale, decode in ((x[:8], w, None, True),
+                                  (x[:1], w, None, True),
+                                  (x, w, None, False),
+                                  (x[:4], w.float(), None, False),
+                                  (x[:4], q.q, q.scale, False),
+                                  (x[:4].float(), w, None, False)):
+        before = sa_fc_matmul.decode_launches
+        sa_fc_matmul(xs.contiguous(), ws, bias, w_scale=scale)
+        assert (sa_fc_matmul.decode_launches - before == 1) == decode
+
+
 @pytest.mark.parametrize("m,k,n", [(2048, 2048, 2048), (512, 2048, 8192),
                                    (130, 257, 300), (1000, 1001, 2999),
                                    (3, 64, 50304)])
@@ -1498,6 +1607,7 @@ def test_smem_queries_equal_the_launch_pass(cuda):
     assert asked >= len(launches)
     # a tile or type with no instantiation answers -1
     assert _build.smem_query("sa_fc", 0, 0, 3) == -1
+    assert _build.smem_query("sa_fc_decode", 2048, 2048, 16, 1, 1) == -1
     assert _build.smem_query("attention", 40, 64, 0) == -1
 
 

@@ -8,6 +8,7 @@ tests/test_conv_dispatch.py, tests/test_fused_pool.py, tests/test_kernels.py).
 """
 from __future__ import annotations
 
+import ctypes
 import textwrap
 
 import jax.numpy as jnp
@@ -42,8 +43,9 @@ from repro_torch.kernels.sa_conv_implicit import (MAX_ROWS, MAX_SEGMENTS,
                                                   sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels import sa_fc as tfc
-from repro_torch.kernels.sa_fc import (K_CHUNK, TARGET_CTAS, fc_launch,
-                                       fc_split, row_tile, sa_fc_matmul)
+from repro_torch.kernels.sa_fc import (K_CHUNK, TARGET_CTAS, decode_launch,
+                                       decode_route, fc_launch, fc_split,
+                                       row_tile, sa_fc_matmul)
 
 RTOL_FC = dict(rtol=3e-4, atol=3e-4)
 RTOL_CONV = dict(rtol=2e-3, atol=2e-3)
@@ -183,6 +185,137 @@ def test_sa_fc_rows_do_not_depend_on_the_batch():
         one = sa_fc_matmul(torch.from_numpy(x[i:i + 1].copy()), wt,
                            act="relu")
         assert torch.equal(full[i:i + 1], one)
+
+
+# ---------------------------------------------------------------------------
+# SA-FC's decode kernel (bf16 x and w at row tiles up to 8)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 9, 13, 64, 130])
+def test_sa_fc_decode_route_follows_dtype_and_row_tile(b):
+    """bf16 x with bf16 w at a row tile of at most 8 (b <= 8) runs the
+    decode kernel; any other dtype, or more rows, the FMA kernel.  On the
+    CPU the wrapper runs its plain version and launches neither."""
+    for xd in (torch.float32, torch.bfloat16):
+        for wd in (torch.float32, torch.bfloat16, torch.int8):
+            want = xd == wd == torch.bfloat16 and row_tile(b) <= 8
+            assert decode_route(b, xd, wd) == want == (b <= 8 and xd == wd
+                                                       == torch.bfloat16)
+    before = (sa_fc_matmul.launches, sa_fc_matmul.decode_launches)
+    x = torch.from_numpy(_np(0, (b, 40))).to(torch.bfloat16)
+    w = torch.from_numpy(_np(1, (40, 24))).to(torch.bfloat16)
+    sa_fc_matmul(x, w)
+    assert (sa_fc_matmul.launches, sa_fc_matmul.decode_launches) == before
+
+
+#: the bf16 decode shapes (b, k, n) of the served LM paths: OLMo-1B (b = 4
+#: and the lone request's b = 1), zamba2-2.7b and mamba2-130m (b = 4),
+#: seamless-m4t (b = 4) and llava-next-34b (b = 2)
+LM_DECODE_SHAPES = [
+    (b, k, n) for b in (4, 1)
+    for k, n in ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50304))] + [
+    (4, 2560, 10448), (4, 5120, 2560), (4, 2560, 2560), (4, 2560, 10240),
+    (4, 10240, 2560), (4, 2560, 32000), (4, 768, 3352), (4, 1536, 768),
+    (4, 768, 50280), (4, 1024, 1024), (4, 1024, 8192), (4, 8192, 1024),
+    (4, 1024, 256206), (2, 7168, 7168), (2, 7168, 1024), (2, 7168, 20480),
+    (2, 20480, 7168), (2, 7168, 64000)]
+
+
+@pytest.mark.parametrize("b,k,n", LM_DECODE_SHAPES)
+def test_decode_units_cover_every_tile_and_segment_once(b, k, n):
+    """Every (column tile, k segment) unit runs on one worker: narrow (k
+    and n <= 4096), a warp of the CTA that owns the tile's segments, CTAs owning
+    contiguous runs of 16-column tiles whose counts differ by at most one,
+    one CTA an SM; wide, a team, the grid two CTAs an SM at most and no
+    team without a unit.  The split is the FMA kernel's; the CTAs fit an
+    SM's shared memory."""
+    d = decode_launch(b, k, n)
+    assert (d.segments, d.seg_k) == fc_split(k, n) == (
+        fc_launch(b, k, n).segments, fc_launch(b, k, n).seg_k)
+    assert d.narrow == (k <= 4096 and n <= 4096)
+    assert d.split == (d.segments > 1)
+    assert d.tiles == -(-n // d.cols) and d.cols == (16 if d.narrow else 128)
+    runs = {}
+    for c in range(d.ctas):
+        if d.narrow:
+            t0, t1 = d.cta_tiles(c)
+            assert t1 - t0 in (d.span, d.span - 1) and t1 - t0 >= 1
+        for i in range(d.workers):
+            for t, sg in d.worker_units(c, i):
+                assert not d.narrow or t0 <= t < t1
+                runs[t, sg] = runs.get((t, sg), 0) + 1
+    assert sorted(runs) == [(t, sg) for t in range(d.tiles)
+                            for sg in range(d.segments)]
+    assert set(runs.values()) == {1}
+    if d.narrow:
+        assert d.ctas == min(d.tiles, 132)
+        assert d.smem == tfc.narrow_smem_bytes(d.rows, d.segments, d.span)
+        assert d.smem - tfc.narrow_smem_bytes(d.rows, 1, 1) <= 65536
+        assert d.smem + 1024 <= 233472
+    else:
+        assert d.ctas == min(-(-d.tiles * d.segments // 2), 264)
+        assert d.smem == tfc.wide_smem_bytes(d.rows)
+        assert tfc.PER_SM * (d.smem + 1024) <= 233472
+
+
+@settings(max_examples=60, deadline=None)
+@given(k=st.integers(0, 30000), n=st.integers(1, 60000))
+def test_decode_assignment_does_not_depend_on_the_batch(k, n):
+    """The mode, the grid and the units of each worker are the same at
+    every b the decode kernel takes; only the row tile (and so the
+    stages' x rows, the partials' and the lane sums' bytes) follows b."""
+    one = decode_launch(1, k, n)
+    sample = [(c, i) for c in sorted({0, one.ctas // 2, one.ctas - 1})
+              for i in range(one.workers)]
+    for b in range(2, 9):
+        d = decode_launch(b, k, n)
+        assert d.rows == row_tile(b)
+        assert (d.narrow, d.segments, d.seg_k, d.tiles, d.ctas, d.span) == (
+            one.narrow, one.segments, one.seg_k, one.tiles, one.ctas,
+            one.span)
+        assert all(d.worker_units(c, i) == one.worker_units(c, i)
+                   for c, i in sample)
+    with pytest.raises(ValueError):
+        decode_launch(9, k, n)
+
+
+def test_decode_constants_match_the_cuda_source():
+    """kernels/sa_fc.py mirrors csrc/sa_fc_decode.cu's two modes: the
+    narrow units, warps, rings and partials; the wide tiles, teams, rings
+    and stage layout; the mode boundary; and the ctypes signatures have
+    the launch's 16 arguments and the query's 5."""
+    src = (_build.CSRC / "sa_fc_decode.cu").read_text()
+    narrow = src[src.index("namespace narrow {"):
+                 src.index("}  // namespace narrow")]
+    wide = src[src.index("namespace wide {"):src.index("}  // namespace wide")]
+    for part, name, value in (
+            (src, "KL", tfc.K_LANES), (src, "KG", 8),
+            (src, "SM_COUNT", tfc.SM_COUNT),
+            (src, "NARROW_MAX", tfc.NARROW_MAX),
+            (narrow, "WARPS", tfc.N_WARPS), (narrow, "GCOLS", tfc.GCOLS),
+            (narrow, "DEPTH", tfc.N_DEPTH),
+            (narrow, "PART_SMEM_MAX", tfc.PART_SMEM_MAX),
+            (wide, "TILE", tfc.TILE), (wide, "TEAMS", tfc.TEAMS),
+            (wide, "PER_SM", tfc.PER_SM), (wide, "DEPTH", tfc.W_DEPTH),
+            (wide, "X_BYTES", 128)):
+        assert f"constexpr int {name} = {value};" in part, name
+    for part, line in (
+            (src, "constexpr int BK = KL * KG;"),
+            (narrow, "constexpr int LANE_BLOCK = KG * ROW_BYTES + 32;"),
+            (narrow, "constexpr int X_OFF = KL * LANE_BLOCK;"),
+            (narrow, "__host__ __device__ constexpr int stage_bytes(int rb) "
+                     "{ return X_OFF + rb * BK * 2; }"),
+            (wide, "constexpr int W_BYTES = KG * TILE * 2;"),
+            (wide, "constexpr int STAGE = W_BYTES + X_BYTES;"),
+            (wide, "return 128 + WARPS * DEPTH * STAGE + TEAMS * (KL - 1) * "
+                   "rb * TILE * 4 + WARPS * DEPTH * 8;")):
+        assert line in part, line
+    assert K_CHUNK == 32 and tfc.N_X_OFF == 4 * (8 * 16 * 2 + 32) == 1152
+    assert tfc.W_STAGE == 8 * 128 * 2 + 128
+    name, args = _build.SIGNATURES["sa_fc_decode"]
+    assert name == "sa_fc_decode_launch" and len(args) == 16
+    assert _build.SMEM_SIGNATURES["sa_fc_decode"] == ("sa_fc_decode_smem",
+                                                      (ctypes.c_int,) * 5)
+    assert "sa_fc_decode" in _build.SOURCES
 
 
 # ---------------------------------------------------------------------------
