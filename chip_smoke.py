@@ -114,7 +114,12 @@ Phases (any failure raises and exits non-zero):
    a step's host time (trainer.run's steps 1-3, and 3 steps with no
    checkpoint write in flight), trained tokens/s, device time and idle
    share, the GEMM's card time split into forward, dx and dw, peak
-   memory;
+   memory.  Then one 4 x 512 batch's gradients through ``make_grad_fn``
+   under remat by block and by dots (each period's matrix products kept,
+   the rest recomputed): loss and every gradient leaf bitwise equal,
+   launches per kernel as each policy implies (dots: the GEMM's those of
+   no remat, flash's those of remat by block), and for each policy the
+   grad pass's ms, its peak memory, B4's launches and device ms;
 11. the static checks against the card: ``python -m repro_torch.analysis
    --net alexnet --net vgg16 --all-zoo-variants`` in process (exit 0; ops
    and findings per pass) and the launch pass over every LM config's
@@ -385,6 +390,8 @@ TRAIN_BF16_SPREAD = 2 ** 0.5
 #: control: the torch backend's gradient through TF32 products must lie
 #: outside it
 TRAIN_NUDGE_SPREAD = 4.0
+#: the remat policies phase 10 compares on one batch (remat_compare)
+REMAT_POLICIES = ("block", "dots")
 #: the kernels of the train path, reported on it under these names
 TRAIN_KERNELS = {k: f"{k}[train]" for k in ("sa_conv_matmul",
                                              "flash_attention")}
@@ -2114,15 +2121,11 @@ def lm_throughput(rep: Report, cfg, params, cache_dtype=None,
         f"tokens/s; peak memory {d[f'{prefix}_peak_mem_gb']:.2f} GB")
 
 
-def device_busy(fn, wall_s: float, top: int = 4) -> dict:
-    """Device time of one call of ``fn`` from a ``torch.profiler`` trace
-    (the sum of the device-side kernel events), against ``wall_s``, the
-    host-clock time of the same work measured without the profiler.
-    Where the trace holds no device event, the device time is reported as
-    not measured (None)."""
+def device_rows(fn) -> list[tuple[float, str, int]]:
+    """(device ms, kernel name, count) of each kernel one call of ``fn``
+    ran, from a ``torch.profiler`` trace, longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2137,7 +2140,17 @@ def device_busy(fn, wall_s: float, top: int = 4) -> dict:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             rows.append((us / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def device_busy(fn, wall_s: float, top: int = 4) -> dict:
+    """Device time of one call of ``fn`` from a ``torch.profiler`` trace
+    (the sum of the device-side kernel events), against ``wall_s``, the
+    host-clock time of the same work measured without the profiler.
+    Where the trace holds no device event, the device time is reported as
+    not measured (None)."""
+    fn()
+    rows = device_rows(fn)
     dev_ms = sum(r[0] for r in rows) or None
     return dict(device_ms=dev_ms, wall_ms=wall_s * 1e3,
                 idle_share=None if dev_ms is None else
@@ -3231,17 +3244,19 @@ def attention_blocks(cfg, stacked: bool = False) -> int:
                ([] if stacked else list(kinds[:rem])))
 
 
-def train_launches(cfg, sched, steps: int, remat: bool) -> dict:
+def train_launches(cfg, sched, steps: int, remat: str) -> dict:
     """Launches per kernel (and plain attention calls) that ``steps`` train
-    steps of ``cfg`` must make under ``sched``: each matmul runs on its
-    regime's kernel as often as a forward calls it (:func:`op_counts`),
-    again in the remat recompute (the stacked blocks', not the head's),
-    once more for ``pre`` where its activation is not linear and once for
+    steps of ``cfg`` must make under ``sched`` and the ``remat`` policy:
+    each matmul runs on its regime's kernel as often as a forward calls it
+    (:func:`op_counts`), again in the recompute under ``"block"`` (the
+    stacked blocks', not the head's; ``"dots"`` keeps every product), once
+    more for ``pre`` where its activation is not linear and once for
     ``dx``; its ``dw`` runs on the SA-CONV GEMM.  Attention: flash forward
-    (and recompute), the plain version once in the backward."""
+    (and its recompute, under ``"block"`` and ``"dots"`` alike), the plain
+    version once in the backward."""
     kernel = {"sa_conv": "sa_conv_matmul", "sa_fc": "sa_fc_matmul"}
     per = op_counts(cfg)
-    again = stacked_counts(cfg) if remat else {}
+    again = stacked_counts(cfg) if remat == "block" else {}
     out = {k: 0 for k in _wrappers()}
     for key, plan in sched.items():
         n = per[key.name]
@@ -3249,7 +3264,7 @@ def train_launches(cfg, sched, steps: int, remat: bool) -> dict:
             (n if matmul_act(cfg, key.name) != "none" else 0)
         out[kernel[plan.regime]] += runs * steps
         out["sa_conv_matmul"] += n * steps
-    out["flash_attention"] = (attention_blocks(cfg) + remat *
+    out["flash_attention"] = (attention_blocks(cfg) + (remat != "none") *
                               attention_blocks(cfg, stacked=True)) * steps
     out["plain.attention"] = attention_blocks(cfg) * steps
     return out
@@ -3734,9 +3749,9 @@ def train_model(rep: Report, smi: str, name: str, cfg, tc, grads, *,
         sched = LayerSchedule.compile(cfg, "train", batch=tc.global_batch,
                                       seq=tc.seq_len, policy=eng.policy)
         groups = train_groups(cfg, sched)
-        per_step = train_launches(cfg, sched, 1, True)
+        per_step = train_launches(cfg, sched, 1, tc.remat)
         expect_train_counts(c, path, train_launches(cfg, sched, steps,
-                                                    remat=True))
+                                                    tc.remat))
         per = op_counts(cfg)
         mm = [r for r in tr if r.regime in ("sa_conv", "sa_fc")
               and not r.name.endswith(".experts")]
@@ -3916,13 +3931,128 @@ def step_matmul_flops(path: str, calls: "MatmulShapes", c: dict,
     return total // steps
 
 
+def kernel_device_ms(fn, names: tuple) -> tuple:
+    """(device ms of one call of ``fn`` in kernels whose name holds one of
+    ``names``, device ms in all kernels) from :func:`device_rows`; (None,
+    None) where the trace holds no device event."""
+    rows = device_rows(fn)
+    if not rows:
+        return None, None
+    return (sum(ms for ms, key, _ in rows if any(n in key for n in names)),
+            sum(ms for ms, _, _ in rows))
+
+
+def remat_compare(rep: Report, smi: str, cfg, tc) -> dict:
+    """Phase 10's remat policies: one TRAIN_BATCH x TRAIN_SEQ batch's loss
+    and gradients through ``make_grad_fn`` under each of REMAT_POLICIES,
+    from the same parameters.  ``"dots"`` (each period's matrix products
+    kept, the rest recomputed) must give ``"block"``'s loss and every
+    gradient leaf bitwise; each pass's launches must equal
+    :func:`train_launches`' for its policy, and under ``"dots"`` the GEMM's
+    and SA-FC's equal ``"none"``'s, flash's ``"block"``'s.  Per policy:
+    the grad pass's ms (CUDA events, median of 3), its
+    ``torch.cuda.max_memory_allocated`` peak from a reset (the other
+    policy's gradients held on the host), B4's launches, its device ms and
+    the pass's (``torch.profiler``)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.core.engine import Engine
+    from repro_torch.core.schedule import LayerSchedule
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    t0 = time.perf_counter()
+    eng = Engine(backend="kernels")
+    sched = LayerSchedule.compile(cfg, "train", batch=tc.global_batch,
+                                  seq=tc.seq_len, policy=eng.policy)
+    params = T.init_params(cfg, tc.seed, device=DEVICE)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, tc.seq_len,
+                                   tc.global_batch, seed=tc.seed),
+                        cfg).batch_at(0)
+    none = train_launches(cfg, sched, 1, "none")
+    results, host = {}, {}
+    for remat in REMAT_POLICIES:
+        grads_of = TS.make_grad_fn(cfg, dataclasses.replace(tc, remat=remat),
+                                   engine=eng)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counters()
+        loss, grads = grads_of(params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        c = counters()
+        expect_train_counts(c, f"make_grad_fn, remat={remat}",
+                            train_launches(cfg, sched, 1, remat))
+        if remat == "dots" and (
+                any(c[k] != none[k] for k in ("sa_conv_matmul",
+                                              "sa_fc_matmul")) or
+                c["flash_attention"] != train_launches(
+                    cfg, sched, 1, "block")["flash_attention"]):
+            raise AssertionError(f"remat=dots launches {c}: the matmuls' "
+                                 f"must be remat=none's {none}, flash's "
+                                 "remat=block's")
+        host[remat] = (loss.cpu(), [g.cpu() for g in tree.leaves(grads)])
+        del loss, grads
+        walls = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            grads_of(params, batch)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(start.elapsed_time(end))
+        b4_ms, dev_ms = kernel_device_ms(lambda: grads_of(params, batch),
+                                         ("sa_conv_gemm_kernel",
+                                          "sa_conv_wgmma_kernel"))
+        results[remat] = dict(
+            grad_ms=walls, grad_ms_median=statistics.median(walls),
+            peak_bytes=peak, start_bytes=base, launches=c,
+            b4_launches=c["sa_conv_matmul"], b4_device_ms=b4_ms,
+            device_ms=dev_ms)
+        log(f"  [{smi}] {cfg.name} remat={remat}: one grad pass "
+            f"(make_grad_fn, {tc.global_batch} x {tc.seq_len} tokens) "
+            f"{statistics.median(walls):.2f} ms (CUDA events, median of 3: "
+            f"{', '.join(f'{w:.2f}' for w in walls)}); peak "
+            f"{peak / 1e9:.3f} GB (max_memory_allocated from a reset, "
+            f"{base / 1e9:.3f} GB allocated at its start); B4 "
+            f"{c['sa_conv_matmul']} launches, "
+            + ("device ms not measured" if b4_ms is None else
+               f"{b4_ms:.2f} device ms of the pass's {dev_ms:.2f} "
+               "(torch.profiler)")
+            + f"; flash {c['flash_attention']} launches")
+    del params
+    (lb, gb), (ld, gd) = host["block"], host["dots"]
+    same = torch.equal(lb, ld) and len(gb) == len(gd) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(gb, gd))
+    if not same:
+        raise AssertionError(f"{cfg.name}: remat=dots loss or gradients "
+                             "not bitwise remat=block's")
+    blk, dts = results["block"], results["dots"]
+    out = dict(card=smi, policies=results, bitwise=True, leaves=len(gd),
+               loss=float(ld), seconds=time.perf_counter() - t0)
+    rep.detail["train"]["remat"] = out
+    log(f"  {cfg.name}: remat=dots loss {float(ld):.6f} and {len(gd)} "
+        "gradient leaves bitwise remat=block's; dots - block: grad pass "
+        f"{dts['grad_ms_median'] - blk['grad_ms_median']:+.2f} ms, peak "
+        f"{(dts['peak_bytes'] - blk['peak_bytes']) / 1e9:+.3f} GB, B4 "
+        f"{dts['b4_launches'] - blk['b4_launches']:+d} launches; "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def train_phase(rep: Report, smi: str, cfg=None) -> dict:
     """Phase 10: OLMo-1B as published (bf16, full width and depth) trains
     through :func:`train_model`: first the autograd Functions against
     torch autograd through the plain versions; the step-0 gradients
     against the torch backend's (bf16 within its own bf16-vs-fp32 spread,
     fp32 within ``TRAIN_FP32_REL_L2``); ``TRAIN_STEPS`` steps with an
-    async checkpoint every ``TRAIN_CKPT``.  Returns the run's launches."""
+    async checkpoint every ``TRAIN_CKPT``; then the remat policies against
+    each other (:func:`remat_compare`).  Returns the run's launches."""
+    import torch
     from repro_torch.configs.base import TrainConfig
     cfg = cfg if cfg is not None else olmo_bf16_config()
     t_phase = time.perf_counter()
@@ -3933,6 +4063,8 @@ def train_phase(rep: Report, smi: str, cfg=None) -> dict:
                     lambda params, batch: check_train_grads(
                         rep, cfg, tc, params, batch),
                     names=TRAIN_KERNELS, path="trainer.run", key="train")
+    torch.cuda.empty_cache()
+    remat_compare(rep, smi, cfg, tc)
     rep.detail["train"]["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 10: {rep.detail['train']['phase_s']:.1f} s")
     return c

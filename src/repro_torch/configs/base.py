@@ -248,7 +248,7 @@ class TrainConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     moment_dtype: str = "float32"  # bf16 for very large models (ZeRO-friendly)
-    remat: str = "block"           # none | block | full
+    remat: str = "block"           # none | block | dots
     grad_compress: str = "none"    # none | int8 | topk
     seed: int = 0
 

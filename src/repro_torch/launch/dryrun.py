@@ -213,11 +213,12 @@ class _Split:
             return self.tp if self.tp_leaves.get(self.leaf_of(name)) else 1
         return self.tp
 
-    def wire(self, params, psh, calls, passes: int, recompute: bool,
+    def wire(self, params, psh, calls, passes: int, recompute: tuple,
              train: bool, itemsize: int) -> tuple[dict, dict]:
         """(wire bytes per chip by axis, collectives by kind) of one step:
-        ``passes`` forward passes (microbatches), ``recompute`` the
-        stacked blocks' weights gathered again, ``train`` the gradients
+        ``passes`` forward passes (microbatches), ``recompute`` the stacked
+        groups (``"blocks"``, ``"encoder"``) whose weights the remat
+        recompute gathers again, ``train`` the gradients
         reduced; ``calls`` the kernel-call log (the row-parallel outputs'
         all-reduces), activations of ``itemsize`` bytes."""
         mesh = self.mesh
@@ -244,8 +245,7 @@ class _Split:
             shard = math.prod(sh.shard_shape(leaf.shape)) * \
                 leaf.dtype.itemsize
             if sh.uses("data"):
-                stacked = path.split(".")[0] in ("blocks", "encoder")
-                gathers = passes * (1 + (recompute and stacked))
+                gathers = passes * (1 + (path.split(".")[0] in recompute))
                 add("all-gather", "data", shard * mesh.shape["data"],
                     gathers)
                 if train:
@@ -383,6 +383,16 @@ def _embed_t_bytes(params, psh) -> int:
         params["embed_t"].dtype.itemsize
 
 
+def regathered(remat: str) -> tuple[str, ...]:
+    """The stacked groups whose weights the backward's recompute gathers
+    again under ``remat``: those whose matmuls it reruns.  ``"block"``
+    reruns the decoder's periods and the encoder's blocks; ``"dots"``
+    keeps the periods' products and reruns the encoder's blocks (the
+    encoder takes ``"dots"`` for ``"block"``)."""
+    return {"none": (), "block": ("blocks", "encoder"),
+            "dots": ("encoder",)}[remat]
+
+
 def trace_train(cfg, shape: ShapeConfig, mesh, *,
                 tc: TrainConfig | None = None, batch: dict | None = None,
                 donate: bool = True) -> Trace:
@@ -423,7 +433,7 @@ def trace_train(cfg, shape: ShapeConfig, mesh, *,
     tokens = shape.global_batch * shape.seq_len
     mflops = roofline.model_flops_train(cfg.n_active_params(), tokens)
     wire, colls = split.wire(params, psh, count.calls, passes,
-                             tc.remat == "block", True,
+                             regathered(tc.remat), True,
                              torch.empty((), dtype=getattr(
                                  torch, cfg.compute_dtype)).element_size())
     outputs = state + SH.shard_bytes(SH.replicated(mesh, metrics), metrics)
@@ -463,7 +473,7 @@ def trace_prefill(cfg, shape: ShapeConfig, mesh) -> Trace:
         logits, _ = SS.prefill_step(cfg, params, local, shape.seq_len)
     tokens = shape.global_batch * shape.seq_len
     mflops = roofline.model_flops_decode(cfg.n_active_params(), tokens)
-    wire, colls = split.wire(params, psh, count.calls, 1, False, False, 2)
+    wire, colls = split.wire(params, psh, count.calls, 1, (), False, 2)
     cache = KC.init_cache(cfg, shape.global_batch, shape.seq_len,
                           enc_len=audio_frames_for(shape) if cfg.enc_dec
                           else 0, dtype=torch.bfloat16, device=META)
@@ -498,7 +508,7 @@ def trace_decode(cfg, shape: ShapeConfig, mesh, quant: bool = False) -> Trace:
                                    shape.seq_len - 1)
     mflops = roofline.model_flops_decode(cfg.n_active_params(),
                                          shape.global_batch)
-    wire, colls = split.wire(params, psh, count.calls, 1, False, False, 2)
+    wire, colls = split.wire(params, psh, count.calls, 1, (), False, 2)
     # every argument read once, the logits written (the cache's update is
     # one position: left out, so the figure stays a floor)
     args = pbytes + cbytes + bbytes

@@ -18,7 +18,8 @@ Modes:
 * ``train``   — full-sequence forward, returns logits and the MoE
   auxiliary loss; :func:`loss_fn` is the training loss, differentiable on
   both backends, with ``remat="block"`` recomputing each pattern period in
-  the backward pass.
+  the backward pass and ``remat="dots"`` recomputing all of it but its
+  matrix products.
 * ``prefill`` — forward that also emits per-layer K/V and SSM state for the
   decode cache.
 * ``decode``  — one-token step against the cache (:func:`decode_step`).
@@ -28,7 +29,8 @@ leaves, without the serving copy ``embed_t``, so the loss computes the head
 from ``embed``; :func:`with_head_copy` derives ``embed_t`` again after an
 optimizer step.  Every supported config trains: a vision config predicts
 its text from the logits behind the vision prefix, and an encoder-decoder
-config's encoder recomputes each block under ``remat="block"``.
+config's encoder recomputes each block under ``remat="block"`` (and under
+``"dots"``, as the reference's encoder does).
 """
 from __future__ import annotations
 
@@ -36,7 +38,9 @@ import contextlib
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MAMBA,
                                       SHARED_ATTN, ModelConfig)
@@ -56,9 +60,11 @@ MODES = ("train", "prefill")
 #: trains, which its dry run turns on; a constraint, so on the port it
 #: only marks the site (the dry run sets it as the reference's does)
 SP_CARRY = {"on": False}
-#: ``remat`` policies: none, or each pattern period recomputed in the
-#: backward pass (the reference's ``jax.checkpoint`` of its scan body)
-REMATS = ("none", "block")
+#: ``remat`` policies: none; each pattern period recomputed in the
+#: backward pass (the reference's ``jax.checkpoint`` of its scan body); or
+#: each period's matrix products kept and the rest recomputed (its
+#: ``checkpoint_dots`` policy)
+REMATS = ("none", "block", "dots")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -247,25 +253,57 @@ def _period(cfg, kinds, blocks: list, shared_p: dict | None,
 
 
 def _check_remat(remat: str) -> None:
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (the reference's checkpoint_dots policy) is not "
-            "ported (ROADMAP A, training's open items)")
     if remat not in REMATS:
-        raise ValueError(f"remat must be one of {REMATS} or 'dots', got "
-                         f"{remat!r}")
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
 
 
-def _checkpointed(fn, *args):
-    """``fn(*args)`` under activation checkpointing: only the inputs are
-    kept, and the backward pass reruns ``fn`` whole (early stop off, so
-    every launch of the period repeats) under the engine active now,
-    recording nothing."""
+#: the plain products a block runs outside the kernels (``torch.einsum`` and
+#: ``torch.matmul`` lower to them): the MoE experts, the SSD's contractions
+#: and everything on the ``"torch"`` backend
+_PLAIN_DOTS = frozenset((torch.ops.aten.mm.default,
+                         torch.ops.aten.bmm.default,
+                         torch.ops.aten.addmm.default,
+                         torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The port's reading of ``checkpoint_dots``: keep what a forward's
+    matmul produces (a kernel call in the ``forward`` role, or a plain
+    product), recompute everything else (norms, activations, rope,
+    softmax, routing, the flash kernel: the reference's ``pallas_call``
+    is no dot either)."""
+    if op is torch.ops.repro_torch.kernel_matmul.default:
+        keep = args[8] == "forward"                 # the call's role
+    else:
+        keep = op in _PLAIN_DOTS
+    return CheckpointPolicy.MUST_SAVE if keep else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _checkpointed(fn, *args, remat: str = "block"):
+    """``fn(*args)`` under activation checkpointing: the inputs are kept,
+    and under ``"dots"`` also the outputs of its matrix products (the
+    forward's own tensors); the backward pass reruns ``fn`` (early stop
+    off, so every other launch of the period repeats, and a kept product
+    is handed back in its place) under the engine active now, recording
+    nothing."""
     eng = engine.current()
+
+    def contexts():
+        if remat == "block":
+            return contextlib.nullcontext(), eng.replaying()
+        keep, recompute = create_selective_checkpoint_contexts(_dots_policy)
+        return keep, _both(recompute, eng.replaying())
+
     with set_checkpoint_early_stop(False):
         return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=lambda: (contextlib.nullcontext(),
-                                              eng.replaying()))
+                          context_fn=contexts)
 
 
 def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
@@ -274,8 +312,10 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
     """Run every block.  caches: ``{'main': [per-position stacked], 'tail':
     [per-position]}`` in decode, where the cache tensors are updated in
     place and returned.  ``enc_out``: the encoder's output, which an
-    enc-dec stack cross-attends in train and prefill.  ``remat="block"`` checkpoints each period of the
-    stacked part (the unstacked tail runs plainly, as in the reference).
+    enc-dec stack cross-attends in train and prefill.  ``remat="block"``
+    checkpoints each period of the stacked part, ``remat="dots"`` keeps
+    each period's matrix products and checkpoints the rest (the unstacked
+    tail runs plainly under every policy, as in the reference).
     Returns (x, aux, new_caches); ``aux`` is the MoE auxiliary loss summed
     over the blocks (0 without MoE blocks).  The periods run are those
     ``params`` holds (``blocks`` stacked, ``tail``): a slice of them runs
@@ -294,8 +334,8 @@ def stack_apply(cfg, params: dict, x: torch.Tensor, pos_ids: torch.Tensor, *,
               for i in range(len(kinds))]
         args = (cfg, kinds, blocks, shared_p, x, pos_ids, mode, cs, pos,
                 enc_out)
-        x, a, new = _checkpointed(_period, *args) if remat == "block" \
-            else _period(*args)
+        x, a, new = _period(*args) if remat == "none" else \
+            _checkpointed(_period, *args, remat=remat)
         aux = aux + a
         for i, nc in enumerate(new):
             collected[i].append(nc)
@@ -350,15 +390,16 @@ def encode(cfg: ModelConfig, params: dict, audio_embeds: torch.Tensor,
     """The encoder (seamless-m4t): the frontend's projection of the audio
     frames (B, sa, frontend_dim), then ``n_enc_layers`` non-causal, roped
     attention + dense MLP blocks and the encoder's final norm.
-    ``remat="block"`` checkpoints each block."""
+    ``remat="block"`` checkpoints each block; so does ``"dots"``, as in
+    the reference, whose encoder takes it for ``"block"``."""
     _check_remat(remat)
     enc = params["encoder"]
     x = frontend(cfg, params, audio_embeds)
     pos_ids = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.n_enc_layers):
         args = (cfg, _select(enc["blocks"], r), x, pos_ids)
-        x = _checkpointed(_enc_block, *args) if remat == "block" \
-            else _enc_block(*args)
+        x = _enc_block(*args) if remat == "none" else \
+            _checkpointed(_enc_block, *args)
     return L.norm(cfg, enc["final_norm"], x)
 
 

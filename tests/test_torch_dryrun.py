@@ -8,6 +8,7 @@ config in training and decode (the reference compiles in a subprocess with
 launches; and one full-size cell."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -92,9 +93,15 @@ MEM = dict(n_layers=8, param_dtype="float32", compute_dtype="float32")
 MEM_SHAPE = (256, 8)
 MEM_CELLS = [(arch, sp) for arch in ("olmo-1b", "mixtral-8x7b")
              for sp in (False, True)]
+#: the memory cells under remat="dots" (SP_CARRY off): the reference's
+#: attention as it is, and as an opaque call (``opaque``: a ``custom_vjp``
+#: that keeps q, k and v, as the port's flash Function does; the
+#: reference's Pallas path is a ``pallas_call``, no dot either)
+DOTS_CELLS = [(arch, opaque) for arch in ("olmo-1b", "mixtral-8x7b")
+              for opaque in (False, True)]
 
 REF_SCRIPT = textwrap.dedent("""
-    import json, os, sys
+    import dataclasses, json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import jax
     jax.devices()                      # 8 host devices, before the import
@@ -104,11 +111,21 @@ REF_SCRIPT = textwrap.dedent("""
     from repro.configs.base import ShapeConfig, reduced
     from repro.configs.registry import all_lm_configs
     from repro.distributed import sharding as SH
+    from repro.kernels import ref as RK
     from repro.models import transformer as RT
     mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 4),
                              ("data", "model"))
-    cells, small, mem, (mseq, mbatch), mem_cells = map(json.loads,
-                                                       sys.argv[1:])
+    (cells, small, mem, (mseq, mbatch), mem_cells,
+     dots_cells) = map(json.loads, sys.argv[1:])
+    train_config_for, attention = D.train_config_for, RK.attention
+
+    def opaque_attention(q, k, v, **kw):
+        def fn(a, b, c):
+            return attention(a, b, c, **kw)
+        f = jax.custom_vjp(fn)
+        f.defvjp(lambda a, b, c: (fn(a, b, c), (a, b, c)),
+                 lambda res, g: jax.vjp(fn, *res)[1](g))
+        return f(q, k, v)
 
     def compiled_cell(cfg, kind, seq, batch):
         mode = "decode" if kind == "decode_w8" else kind
@@ -137,6 +154,13 @@ REF_SCRIPT = textwrap.dedent("""
         out[f"{arch} mem sp={sp}"] = compiled_cell(
             reduced(all_lm_configs()[arch], **mem), "train", mseq, mbatch)
     RT.SP_CARRY["on"] = False
+    D.train_config_for = lambda *a: dataclasses.replace(
+        train_config_for(*a), remat="dots")
+    for arch, opaque in dots_cells:
+        RK.attention = opaque_attention if opaque else attention
+        out[f"{arch} dots opaque={opaque}"] = compiled_cell(
+            reduced(all_lm_configs()[arch], **mem), "train", mseq, mbatch)
+    D.train_config_for, RK.attention = train_config_for, attention
     print(json.dumps(out))
 """)
 
@@ -150,19 +174,26 @@ def reference_cells(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     run = subprocess.run([sys.executable, str(script),
                           *map(json.dumps, (CELLS, SMALL, MEM, MEM_SHAPE,
-                                            MEM_CELLS))],
+                                            MEM_CELLS, DOTS_CELLS))],
                          check=True, env=env, capture_output=True, text=True,
                          timeout=600)
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def _trace(cfg, kind: str, seq: int, batch: int):
+def _trace(cfg, kind: str, seq: int, batch: int, remat: str | None = None):
+    """One chip of the (2, 4) mesh; ``remat`` replaces the train cell's
+    policy."""
     mode = "decode" if kind == "decode_w8" else kind
     mesh = SH.AbstractMesh((2, 4), ("data", "model"))
     shape = ShapeConfig(mode, seq, batch, mode)
     if kind == "decode_w8":
         with torch.no_grad():
             tr = D.trace_decode(cfg, shape, mesh, quant=True)
+    elif remat is not None:
+        tc = dataclasses.replace(D.train_config_for(cfg, shape, mesh),
+                                 remat=remat)
+        with torch.enable_grad():
+            tr = D.trace_train(cfg, shape, mesh, tc=tc)
     else:
         with torch.enable_grad() if mode == "train" else torch.no_grad():
             tr = D.TRACE[mode](cfg, shape, mesh)
@@ -231,6 +262,51 @@ def test_small_mesh_memory_against_compiled_reference(arch, monkeypatch,
             assert 1 / 1.4 < mine / theirs < 1.4, (sp, mine, theirs)
     assert want[False] > want[True] and got[False] > got[True]
     assert got[False] - got[True] > 0.5 * (want[False] - want[True])
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x7b"])
+def test_small_mesh_dots_memory_against_compiled_reference(arch,
+                                                           reference_cells):
+    """The memory cells of the test above under ``remat="dots"`` (SP_CARRY
+    off): the port's temporaries and peak each within a factor of 1.4 of
+    the reference's compiled step with its attention as an opaque call,
+    which keeps q, k and v and recomputes the rest, as the port's flash
+    kernel does (its Pallas path's ``pallas_call`` is no dot to
+    ``checkpoint_dots`` either); the reference's XLA attention, whose
+    score and value products ``checkpoint_dots`` keeps, holds more.  The
+    port's peak lies between ``"block"``'s and ``"none"``'s."""
+    cfg = reduced(get_config(arch), **MEM)
+    rec = {remat: _trace(cfg, "train", *MEM_SHAPE, remat=remat)[1]
+           for remat in ("none", "block", "dots")}
+    ref = reference_cells[f"{arch} dots opaque=True"]
+    peak = ref["argument_bytes"] + ref["output_bytes"] + \
+        ref["temp_bytes"] - ref["alias_bytes"]
+    for mine, theirs in ((rec["dots"]["temp_bytes"], ref["temp_bytes"]),
+                         (rec["dots"]["peak_bytes_per_chip"], peak)):
+        assert 1 / 1.4 < mine / theirs < 1.4, (mine, theirs)
+    assert reference_cells[f"{arch} dots opaque=False"]["temp_bytes"] > \
+        ref["temp_bytes"]
+    peaks = [rec[r]["peak_bytes_per_chip"] for r in ("block", "dots",
+                                                      "none")]
+    assert peaks[0] < peaks[1] < peaks[2], peaks
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "seamless-m4t-large-v2"])
+def test_remat_regathers_what_its_recompute_reruns(arch):
+    """A train cell's all-gathers of FSDP-sharded weights on the (2, 4)
+    mesh: the recompute gathers again the weights whose matmuls it
+    reruns.  ``"dots"`` reruns none of the decoder's (OLMo: as many
+    gathers as ``"none"``), but an encoder runs ``"dots"`` as ``"block"``
+    (seamless: between the two)."""
+    gathers = {remat: _trace(reduced(get_config(arch)), "train",
+                             *SMALL["train"], remat=remat)[0]
+               .collectives["all-gather"]["count"]
+               for remat in ("none", "block", "dots")}
+    assert gathers["none"] < gathers["block"]
+    if arch == "olmo-1b":
+        assert gathers["dots"] == gathers["none"]
+    else:
+        assert gathers["none"] < gathers["dots"] < gathers["block"]
 
 
 def _launch_flops(lau) -> tuple[str, int]:

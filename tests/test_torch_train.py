@@ -475,23 +475,30 @@ def test_microbatch_grads_match_full_batch():
                                    atol=1e-5)
 
 
-def test_remat_block_equals_none_bitwise():
+@pytest.mark.parametrize("remat", ["block", "dots"])
+def test_remat_block_equals_none_bitwise(remat):
+    """Remat by block, or keeping the products and recomputing the rest
+    ("dots"), gives the loss and the gradients of no remat, bitwise."""
     _, tp = _tiny_params()
     batch = _port_batch(_ref_batch(RCFG, 4, 16))
-    ref.reset_counts()
-    grads = {remat: TS.make_grad_fn(TCFG, tbase.TrainConfig(remat=remat),
-                                    engine=KERNELS)(tp, batch)
-             for remat in ("none", "block")}
-    assert torch.equal(grads["none"][0], grads["block"][0])
+    grads, counts = {}, {}
+    for r in ("none", remat):
+        ref.reset_counts()
+        grads[r] = TS.make_grad_fn(TCFG, tbase.TrainConfig(remat=r),
+                                   engine=KERNELS)(tp, batch)
+        counts[r] = ref.counts()
+    assert torch.equal(grads["none"][0], grads[remat][0])
     assert all(torch.equal(a, b) for a, b in zip(
-        tree.leaves(grads["none"][1]), tree.leaves(grads["block"][1])))
-    # remat reruns each period's forward in the backward pass: per layer,
-    # 7 matmuls and one attention more
+        tree.leaves(grads["none"][1]), tree.leaves(grads[remat][1])))
+    # both rerun each period's attention in the backward pass (the plain
+    # version once more in attention's backward); "block" its 7 matmuls a
+    # layer too, "dots" none of them
     n = TCFG.n_layers
-    assert ref.counts()["attention"] == 2 * n + 3 * n
-    with pytest.raises(NotImplementedError, match="dots"):
-        TS.make_grad_fn(TCFG, tbase.TrainConfig(remat="dots"),
-                        engine=KERNELS)(tp, batch)
+    assert counts["none"]["attention"] == 2 * n
+    assert counts[remat]["attention"] == 3 * n
+    assert counts[remat]["matmul_bias_act"] - \
+        counts["none"]["matmul_bias_act"] == (7 * n if remat == "block"
+                                              else 0)
 
 
 def test_tied_head_copy_follows_embed_after_a_step():
