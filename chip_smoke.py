@@ -9,8 +9,9 @@ Phases (any failure raises and exits non-zero):
 1. environment: card, power limit, CUDA/nvcc/torch versions, SMs, shared
    memory; fp32 matmuls must not use TF32;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc; the
-   registers and spills of every SA-FC (the FMA kernel's 84 and the decode
-   kernels' 24, which may not spill), SA-CONV and SA-CONV GEMM (each the
+   registers and spills of every SA-FC (the FMA kernel's 42 and the
+   tensor-core kernel's 27, which may neither spill nor pass their launch
+   bounds' registers), SA-CONV and SA-CONV GEMM (each the
    fp32 FMA loop and the bf16 tensor-core kernel, 168 registers a thread
    for its ``setmaxnreg``), flash (the fp32 FMA loop and the bf16
    tensor-core kernel) and pool instantiation (none but an fp32 SA-FC one
@@ -50,8 +51,11 @@ Phases (any failure raises and exits non-zero):
 7. OLMo-1B as ``configs/olmo_1b.py`` publishes it: bf16 parameters, compute
    and cache at full width and depth.  SA-FC, the SA-CONV GEMM and flash
    attention in bf16 against their plain versions at the served shapes
-   (within the reference's bf16 tolerance; SA-FC bitwise the fp32 launch
-   on the widened operands, rounded once; the GEMM, on the tensor cores,
+   (within the reference's bf16 tolerance; SA-FC, on the tensor cores,
+   within ``kernels/sa_fc.py::widened_bound`` of the fp32 launch on the
+   widened operands, its bf16 output its fp32 output rounded once, its
+   rows of b = 1 ... 512 bitwise their b = 1 launches; the GEMM, on the
+   tensor cores,
    within k 2^-22 (|x| @ |w|) of it per output, computed in fp64 (one bf16
    ulp more for a bf16 output), and bitwise equal to itself launched
    again; flash, on the tensor cores, within its derived bound of it
@@ -61,10 +65,10 @@ Phases (any failure raises and exits non-zero):
    cache: every matmul a schedule hit, launches per kernel equal to the
    schedules' ops per regime, no plain version called, and the
    teacher-forced logits no farther from the ``"torch"`` backend's bf16
-   logits than those are from its fp32 logits; every bf16 decode-step
-   SA-FC launch on SA-FC's decode kernel (``csrc/sa_fc_decode.cu``:
-   bf16 x and w at b <= 8), counted and printed in phases 6, 7, 12 and
-   13 (0 in fp32); tokens/s, idle shares and
+   logits than those are from its fp32 logits; every bf16-x SA-FC launch
+   on SA-FC's tensor-core kernel (``csrc/sa_fc_tc.cu``: every b, every
+   weight type), counted and printed in phases 4, 6-8, 12 and 13 (0 in
+   fp32); tokens/s, idle shares and
    each bf16 kernel's time beside its bound and the bf16 library call;
 8. the model zoo, ``ModelZooServer`` over ``build_zoo(("alexnet", "vgg16",
    "alexnet-int8"))`` at full width and native resolution (227² and
@@ -133,8 +137,9 @@ Phases (any failure raises and exits non-zero):
    aligned and one element off; then all six kernels at the
    launch pass's edge geometries (partial tiles, the bf16 GEMM through
    both producers and every weight type, a short last SA-FC
-   segment, SA-FC's decode kernel (narrow and wide) at b = 1, 3, 5 and
-   8 over odd k, odd n, n off 16 bytes and 125 or 313 segments, flat conv
+   segment, SA-FC's tensor-core kernel (narrow and wide) at b = 1, 3, 5
+   and 8 over odd k, odd n, n off 16 bytes and 125 or 313 segments, at b
+   = 2, 37 and 65 with fp32 and int8 weights, flat conv
    tiles across images and a short last band in fp32
    and bf16 (the bf16 ones on the tensor cores: both tiles, ragged co, ci
    = 3 and 5), every pool vector width, paired flash CTAs over an odd number of query tiles
@@ -302,8 +307,8 @@ SOURCES = {
                          "src/repro/kernels/sa_conv_implicit.py:183"),
     "sa_fc_matmul": ("src/repro_torch/kernels/csrc/sa_fc.cu",
                      "src/repro/kernels/sa_fc.py:155"),
-    "sa_fc_decode": ("src/repro_torch/kernels/csrc/sa_fc_decode.cu",
-                     "src/repro/kernels/sa_fc.py:155"),
+    "sa_fc_tc": ("src/repro_torch/kernels/csrc/sa_fc_tc.cu",
+                 "src/repro/kernels/sa_fc.py:155"),
     "maxpool_act": ("src/repro_torch/kernels/csrc/pool_act.cu",
                     "src/repro/kernels/pool_act.py:60"),
     "sa_conv_matmul": ("src/repro_torch/kernels/csrc/sa_conv.cu",
@@ -315,12 +320,12 @@ SOURCES = {
 #: kernels line reports for each kernel
 CNN_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act")
 LM_KERNELS = ("sa_conv_matmul", "flash_attention", "sa_fc_matmul")
-#: the kernels the fp32 paths run (sa_fc_decode runs bf16 decode steps)
+#: the kernels the fp32 paths run (sa_fc_tc runs every bf16-x SA-FC launch)
 FP32_KERNELS = ("sa_conv_implicit", "sa_fc_matmul", "maxpool_act",
                 "sa_conv_matmul", "flash_attention")
-#: the kernel behind a wrapper's bf16 decode-step rows: SA-FC's decode
-#: kernel (bf16 x and w at b <= 8), reported with its own source and count
-DECODE_KERNEL = {"sa_fc_matmul": "sa_fc_decode"}
+#: the kernel behind a wrapper's bf16 rows: SA-FC's tensor-core kernel
+#: (every bf16-x launch), reported with its own source and count
+TC_KERNEL = {"sa_fc_matmul": "sa_fc_tc"}
 #: the pool kernel's sweep: the maps where a pool the planner declined to
 #: fuse would cost bytes, AlexNet's three pooled maps (3/2) and VGG-16's
 #: five (2/2), at b = POOL_BATCH, random normal; (label, h = w, c, window,
@@ -346,8 +351,9 @@ BF16_KERNELS = {k: f"{k}[bf16]" for k in ("sa_conv_matmul",
                                            "sa_fc_matmul")}
 #: the CNN kernels with bf16 activations (C6), reported on their bf16
 #: paths under these names
-CNN_BF16_KERNELS = {k: f"{k}[bf16]" for k in ("sa_conv_implicit",
-                                               "maxpool_act")}
+CNN_BF16_KERNELS = {**{k: f"{k}[bf16]" for k in ("sa_conv_implicit",
+                                                  "maxpool_act")},
+                    "sa_fc_matmul": "sa_fc_matmul[bf16 wave]"}
 #: phase 8: the zoo's variants at full width and native resolution, the
 #: requests per tenant of the three-tenant trace, the wave size
 ZOO_MODELS = ("alexnet", "vgg16", "alexnet-int8")
@@ -546,16 +552,19 @@ def build(rep: Report) -> None:
     for inst, v in rep.detail["ptxas_sa_fc"].items():
         log(f"  ptxas sa_fc_kernel<{inst}>: {v['registers']} registers, "
             f"spill bytes {v['spill_bytes']}")
-    rep.detail["ptxas_sa_fc_decode"] = decode = sa_fc_decode_ptxas(
-        _build.build_log("sa_fc_decode"))
-    for inst, v in decode.items():
-        log(f"  ptxas sa_fc_decode <{inst}>: {v['registers']} "
-            f"registers, {v['spill_bytes']} B spilled")
-    if any(v["spill_bytes"] for v in decode.values()):
-        raise AssertionError("ptxas: an SA-FC decode instantiation spills")
+    rep.detail["ptxas_sa_fc_tc"] = tc = sa_fc_tc_ptxas(
+        _build.build_log("sa_fc_tc"))
+    for inst, v in tc.items():
+        log(f"  ptxas sa_fc_tc <{inst}>: {v['registers']} registers (at "
+            f"most {v['cap']}), {v['spill_bytes']} B spilled")
+    if any(v["spill_bytes"] or v["registers"] > v["cap"]
+           for v in tc.values()):
+        raise AssertionError("ptxas: an SA-FC tensor-core instantiation "
+                             "spills or passes its launch bound's registers")
     if any(v["spill_bytes"] for k, v in rep.detail["ptxas_sa_fc"].items()
-           if "x bf16" in k or "out bf16" in k):
-        raise AssertionError("ptxas: a bf16 SA-FC instantiation spills")
+           if "out bf16" in k):
+        raise AssertionError("ptxas: a bf16-output SA-FC instantiation "
+                             "spills")
     conv = sa_conv_ptxas(_build.build_log("sa_conv_implicit"))
     rep.detail["ptxas_sa_conv_implicit"] = conv
     for inst, v in conv.items():
@@ -634,40 +643,42 @@ def ptxas_kernels(text: str, pattern: str):
 
 
 def sa_fc_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-FC instantiation (weight,
-    activation and output types, row tile) from ptxas's -v output."""
+    """Registers and spill bytes of each SA-FC FMA instantiation (weight
+    and output types, row tile; fp32 x) from ptxas's -v output."""
     out = {}
     for m, regs, spills in ptxas_kernels(
-            text, rf"sa_fc_kernelI((?:{MANGLED_TYPE}){{3}})Li(\d+)E"):
-        w, x, o = type_names(m.group(1))
-        key = f"{w}, RB={m.group(2)}" if (x, o) == ("fp32", "fp32") else \
-            f"{w}, x {x}, out {o}, RB={m.group(2)}"
+            text, rf"sa_fc_kernelI((?:{MANGLED_TYPE}){{2}})Li(\d+)E"):
+        w, o = type_names(m.group(1))
+        key = f"{w}, RB={m.group(2)}" if o == "fp32" else \
+            f"{w}, out {o}, RB={m.group(2)}"
         out[key] = dict(registers=regs, spill_bytes=spills)
-    if len(out) != 84:
+    if len(out) != 42:
         raise AssertionError(f"ptxas: {len(out)} SA-FC instantiations, "
-                             "not 84")
+                             "not 42")
     return out
 
 
-def sa_fc_decode_ptxas(text: str) -> dict:
-    """Registers and spill bytes of each SA-FC decode instantiation from
-    ptxas's -v output: the narrow kernel's (output type, row tile) and the
-    wide kernel's (output type, row tile, producer: TMA or cp.async)."""
+def sa_fc_tc_ptxas(text: str) -> dict:
+    """Registers, the cap its launch bound sets (65536 / threads, at most
+    255) and spill bytes of each SA-FC tensor-core instantiation from
+    ptxas's -v output: the narrow kernel's (weight type; 512 threads) and
+    the wide kernel's (weight type, row tile, producer: TMA or cp.async;
+    256 threads at row tiles 8 and 16, 128 above)."""
     out = {}
     for m, regs, spills in ptxas_kernels(
-            text, rf"sa_fc_narrow_kernelI({MANGLED_TYPE})Li(\d+)E"):
-        (o,) = type_names(m.group(1))
-        out[f"narrow, out {o}, RB={m.group(2)}"] = dict(registers=regs,
-                                                         spill_bytes=spills)
+            text, rf"sa_fc_narrow_kernelI({MANGLED_TYPE})E"):
+        (w,) = type_names(m.group(1))
+        out[f"narrow, w {w}"] = dict(registers=regs, cap=128,
+                                     spill_bytes=spills)
     for m, regs, spills in ptxas_kernels(
             text, rf"sa_fc_wide_kernelI({MANGLED_TYPE})Li(\d+)ELb([01])E"):
-        (o,) = type_names(m.group(1))
+        (w,) = type_names(m.group(1))
         producer = "tma" if m.group(3) == "1" else "cp.async"
-        out[f"wide, out {o}, RB={m.group(2)}, {producer}"] = dict(
-            registers=regs, spill_bytes=spills)
-    if len(out) != 24:
-        raise AssertionError(f"ptxas: {len(out)} SA-FC decode "
-                             "instantiations, not 24 (8 narrow, 16 wide)")
+        out[f"wide, w {w}, RB={m.group(2)}, {producer}"] = dict(
+            registers=regs, cap=255, spill_bytes=spills)
+    if len(out) != 27:
+        raise AssertionError(f"ptxas: {len(out)} SA-FC tensor-core "
+                             "instantiations, not 27 (3 narrow, 24 wide)")
     return out
 
 
@@ -1053,12 +1064,12 @@ def _wrappers() -> dict:
 
 def counters():
     """Launches per wrapper since :func:`reset_counters` (SA-FC's both
-    kernels), the decode kernel's among SA-FC's as ``sa_fc_decode``, and
+    kernels), the tensor-core kernel's among SA-FC's as ``sa_fc_tc``, and
     the plain versions' calls."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.sa_fc import sa_fc_matmul
     return {**{k: fn.launches for k, fn in _wrappers().items()},
-            "sa_fc_decode": sa_fc_matmul.decode_launches,
+            "sa_fc_tc": sa_fc_matmul.tc_launches,
             **{f"plain.{k}": v for k, v in ref.counts().items()}}
 
 
@@ -1067,7 +1078,7 @@ def reset_counters() -> None:
     from repro_torch.kernels.sa_conv import reset_producers
     for fn in _wrappers().values():
         fn.launches = 0
-    _wrappers()["sa_fc_matmul"].decode_launches = 0
+    _wrappers()["sa_fc_matmul"].tc_launches = 0
     reset_producers()
     ref.reset_counts()
 
@@ -1091,12 +1102,10 @@ def note_producers(rep: Report, path: str, c: dict) -> dict:
 
 def expect_counts(c: dict, what: str, **launches: int) -> None:
     """``c`` launched exactly ``launches`` (every other kernel 0 times)
-    and called no plain version; SA-FC's decode-kernel launches are held
-    where ``sa_fc_decode`` is given."""
+    and called no plain version; SA-FC's tensor-core launches (its bf16-x
+    launches, ``sa_fc_tc``) too: 0 where not given."""
     want = {k: launches.get(k, 0) for k in _wrappers()}
-    if "sa_fc_decode" in c:
-        want["sa_fc_decode"] = launches.get("sa_fc_decode",
-                                            c["sa_fc_decode"])
+    want["sa_fc_tc"] = launches.get("sa_fc_tc", 0)
     want.update({k: 0 for k in c if k.startswith("plain.")})
     if c != want:
         raise AssertionError(f"{what}: launch counts {c} != {want}")
@@ -1121,9 +1130,11 @@ def check_served(srv, done, n, waves_expected):
     return logits
 
 
-def check_counts(c: dict, waves: int) -> None:
+def check_counts(c: dict, waves: int, bf16: bool = False) -> None:
+    """A CNNServer's launches: 5 SA-CONV and 3 SA-FC a wave, the SA-FC ones
+    on the tensor-core kernel with bf16 activations."""
     expect_counts(c, "CNNServer.run", sa_conv_implicit=5 * waves,
-                  sa_fc_matmul=3 * waves)
+                  sa_fc_matmul=3 * waves, sa_fc_tc=3 * waves * bf16)
 
 
 def serve(rep: Report, params, qparams, images_np) -> dict:
@@ -1221,7 +1232,7 @@ def serve_bf16(rep: Report, params, images_np) -> dict:
         reset_counters()
         done = srv.run()
         c = counters()
-        check_counts(c, len(waves))
+        check_counts(c, len(waves), bf16=True)
         logits = check_served(srv, done, n, waves)
         if logits.dtype != np.float32:
             raise AssertionError(f"bf16 server delivered {logits.dtype}")
@@ -1467,16 +1478,23 @@ def cnn_layer_rows(rep: Report, path: str, convs: list, fcs: list, *,
                     None, flops, nbytes(xin, qf.q, qf.scale, qp["b"], out))
         for name, h, p, qp, act in fcs:
             w, b = p["w"], p["b"]
+            fp32 = h.dtype == torch.float32
+            kernel = "sa_fc_matmul" if fp32 else \
+                CNN_BF16_KERNELS["sa_fc_matmul"]
             flops = 2 * h.shape[0] * w.shape[0] * w.shape[1]
-            label = f"{name} b={h.shape[0]} fp32"
-            kern = checked("sa_fc_matmul", label, sa_fc_matmul, sa_fc_plain,
-                           TOL_FC, h, w, b, act=act)
+            label = f"{name} b={h.shape[0]} {'fp32' if fp32 else 'bf16'}"
+            kern = checked(kernel, label, sa_fc_matmul, sa_fc_plain,
+                           TOL_FC if fp32 else TOL_BF16, h, w, b, act=act)
             out = kern()
-            add_row(rep, "sa_fc_matmul", path, label, timed(kern),
+            # bf16: torch.mm on the weights rounded to bf16 beforehand
+            wl, bl = w.to(h.dtype), b.to(h.dtype)
+            add_row(rep, kernel, path, label, timed(kern),
                     timed(lambda: sa_fc_plain(h, w, b, act=act),
                           runs=plain_runs),
-                    timed(lambda: ref.apply_act(torch.addmm(b, h, w), act)),
+                    timed(lambda: ref.apply_act(torch.addmm(bl, h, wl),
+                                                act)),
                     flops, nbytes(h, w, b, out),
+                    peak=PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS,
                     host=host_costs(kern) if host else None)
             if qp is None:
                 continue
@@ -1902,19 +1920,19 @@ def lm_schedules(srv, waves: list[int]):
                             else srv._schedule("decode", b)), LM_NEW - 1
 
 
-def decode_routed(records) -> int:
+def tc_routed(records) -> int:
     """SA-FC launches among the engine's dispatch ``records`` that run on
-    the decode kernel (bf16 x and w at b <= 8: every bf16 decode step)."""
+    the tensor-core kernel (bf16 x: every bf16 decode step and wave)."""
     import torch
-    from repro_torch.kernels.sa_fc import decode_route
-    return sum(1 for x in records if x.regime == "sa_fc" and decode_route(
-        x.m, getattr(torch, x.dtype or "float32"),
-        getattr(torch, x.weight_dtype or "float32")))
+    from repro_torch.kernels.sa_fc import tc_route
+    return sum(1 for x in records if x.regime == "sa_fc" and tc_route(
+        getattr(torch, x.dtype or "float32")))
 
 
-def log_decode(what: str, c: dict) -> None:
-    log(f"  {what}: SA-FC decode kernel {c['sa_fc_decode']} of "
-        f"{c['sa_fc_matmul']} SA-FC launches")
+def log_tc(what: str, c: dict) -> None:
+    log(f"  {what}: SA-FC tensor-core kernel {c['sa_fc_tc']} of "
+        f"{c['sa_fc_matmul']} SA-FC launches (the FMA kernel "
+        f"{c['sa_fc_matmul'] - c['sa_fc_tc']}, all fp32 x)")
 
 
 def schedule_launches(srv, cfg, waves: list[int]) -> dict:
@@ -1971,9 +1989,9 @@ def serve_requests(rep: Report, prefix: str, cfg, params,
     note_producers(rep, f"{prefix} ServeEngine.run", c)
     waves = lm_waves()
     want = schedule_launches(srv, cfg, waves)
-    want["sa_fc_decode"] = decode_routed(tr)
+    want["sa_fc_tc"] = tc_routed(tr)
     expect_counts(c, f"{prefix} ServeEngine.run", **want)
-    log_decode(f"{prefix} ServeEngine.run", c)
+    log_tc(f"{prefix} ServeEngine.run", c)
     mm = [x for x in tr if x.regime in ("sa_conv", "sa_fc")
           and not x.name.endswith(".experts")]
     if not mm or any(
@@ -2232,18 +2250,6 @@ def olmo_bf16_config():
     return cfg
 
 
-def check_widened(name: str, got, kern, *args, **kw) -> None:
-    """``got``, a launch on bf16 operands, equals the fp32 launch of
-    ``kern`` on the widened operands rounded once to ``got``'s dtype,
-    bitwise: the kernels widen bf16 exactly and keep fp32's sums and
-    order."""
-    import torch
-    wide = [a.float() if isinstance(a, torch.Tensor) and
-            a.dtype == torch.bfloat16 else a for a in args]
-    exact(f"{name} == the fp32 launch on the widened operands", got,
-          kern(*wide, **kw).to(got.dtype))
-
-
 def check_widened_bound(name: str, x, w) -> float:
     """B4 with bf16 x on the tensor cores against its fp32 launch on the
     widened operands (act none, no bias), per output and in fp64 on the
@@ -2277,6 +2283,43 @@ def check_widened_bound(name: str, x, w) -> float:
                 f"{d.max().item():.4g})")
         del d, lim
     del ref, bound
+    return worst
+
+
+def check_fc_widened_bound(name: str, x, w, w_scale=None) -> float:
+    """B1 with bf16 x on the tensor cores against the FMA kernel's fp32
+    launch on the widened operands (act none, no bias; x widened, an fp32
+    w rounded to bf16 and widened, an int8 w as is), per output and in
+    fp64 on the card: within ``kernels/sa_fc.py::widened_bound`` (k 2^-22
+    (|x| @ |w|), times |w_scale| for int8; one bf16 ulp more for a bf16
+    output; derived in its docstring), and the bf16 output the fp32
+    output rounded once.  The FMA loop and the tensor cores sum in other
+    orders, so a bitwise check against the fp32 launch does not apply.
+    Returns the largest |got - fp32| / bound of the fp32 output."""
+    import torch
+    from repro_torch.kernels.sa_fc import sa_fc_matmul, widened_bound
+    wide = w.float() if w.dtype != torch.float32 else \
+        w.to(torch.bfloat16).float()
+    ref = sa_fc_matmul(x.float(), wide, w_scale=w_scale)
+    got = {dt: sa_fc_matmul(x, w, w_scale=w_scale, out_dtype=dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    exact(f"{name}: bf16 output == its fp32 output rounded once",
+          got[torch.bfloat16], got[torch.float32].to(torch.bfloat16))
+    worst = 0.0
+    for dt, g in got.items():
+        bound = widened_bound(x, wide, ref, w_scale=w_scale, out_dtype=dt)
+        d = (g.double() - ref.double()).abs()
+        over = int((d > bound).sum())
+        if over:
+            raise AssertionError(
+                f"{name} ({dt}): {over} outputs farther than the derived "
+                f"bound from the fp32 launch on the widened operands (max "
+                f"|d| {d.max().item():.4g}, max |d| / bound "
+                f"{(d / bound.clamp_min(1e-300)).max().item():.4g})")
+        if dt == torch.float32:
+            worst = (d / bound.clamp_min(1e-300)).max().item()
+        del bound, d
+    del ref, got
     return worst
 
 
@@ -2338,15 +2381,36 @@ def check_flash_widened_bound(name: str, got, q, k, v, **kw) -> float:
     return ratio
 
 
+#: the batches whose every row phase 7 holds bitwise against its b = 1
+#: launch (every row tile, one row past a 64-row tile, three row tiles)
+FC_ROWS = (1, 2, 3, 4, 5, 8, 9, 13, 64, 65, 130, 512)
+FC_ROWS_NOTE = f"; every row of b in {FC_ROWS} == its b = 1 launch"
+
+
+def check_fc_rows(name: str, x, w, w_scale) -> None:
+    """Every row of SA-FC's bf16 launches at each of :data:`FC_ROWS` rows
+    of ``x`` equals its own b = 1 launch, bitwise."""
+    import torch
+    from repro_torch.kernels.sa_fc import sa_fc_matmul
+    alone = torch.cat([sa_fc_matmul(x[r:r + 1].contiguous(), w,
+                                    w_scale=w_scale)
+                       for r in range(max(FC_ROWS))])
+    for b in FC_ROWS:
+        exact(f"{name}: rows of b={b} == their b=1 launches",
+              sa_fc_matmul(x[:b].contiguous(), w, w_scale=w_scale),
+              alone[:b])
+
+
 def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
     """B4, B1 and B5 with bf16 activations at the served shapes: the
     GEMM at a full wave's four prefill shapes (bf16 weights; the head also
     with fp32 logits), SA-FC at b = 4 and m = 512 with bf16, int8 and fp32
     weights, flash at a full wave's and a lone request's prefill; each
-    against its plain version and the bitwise batch invariants; SA-FC
-    equal to the fp32 launch on the widened operands; the GEMM and flash
-    (on the tensor cores) within their error bounds of it and bitwise
-    equal to themselves launched again."""
+    against its plain version and the bitwise batch invariants (SA-FC's
+    rows at every batch of FC_ROWS == b = 1 at the first shape); all
+    three (on the tensor cores) within their error bounds of the fp32
+    launch on the widened operands and bitwise equal to themselves
+    launched again."""
     import torch
     from repro_torch.core.quant import quantize
     from repro_torch.kernels.attention import flash_attention, flash_plain
@@ -2384,7 +2448,8 @@ def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
     del outs
 
     name = BF16_KERNELS["sa_fc_matmul"]
-    for label, x, w, act, _ in gemms:
+    worst = {}
+    for i, (label, x, w, act, _) in enumerate(gemms):
         qt = quantize(w.float())
         for wt, ww, scale in (("bf16", w, None), ("int8", qt.q, qt.scale),
                               ("fp32", w.float(), None)):
@@ -2401,14 +2466,21 @@ def check_lm_kernels_bf16(rep: Report, cfg, params) -> dict:
                 exact(f"{name} {label} {wt} row 0 of b={m} == b=1", got[:1],
                       one)
                 if m == LM_BATCH:
-                    check_widened(f"{name} {label} b={m} {wt}", got,
-                                  sa_fc_matmul, h, ww.to(bf).float()
-                                  if wt == "fp32" else ww, act=act,
-                                  w_scale=scale)
+                    exact(f"{name} {label} b={m} {wt} launched twice", got,
+                          sa_fc_matmul(h, ww, act=act, w_scale=scale))
+                    worst[f"{label} {wt}"] = check_fc_widened_bound(
+                        f"{name} {label} b={m} {wt}", h, ww, scale)
                 errs.append(f"b={m} max|d| {e:.3g}")
+            if i == 0:
+                check_fc_rows(f"{name} {label} {wt}", x, ww, scale)
             log(f"  {name} {label} {wt} weights: {'; '.join(errs)}; row 0 "
-                "== b=1, b=4 == fp32 on the widened operands")
+                "== b=1, twice bitwise; act none at b=4 within the bound "
+                "of the fp32 launch on the widened operands (|d| / bound "
+                f"{worst[f'{label} {wt}']:.3g}){FC_ROWS_NOTE if i == 0 else ''}")
         del qt
+    rep.detail["sa_fc_bf16_widened_bound"] = worst
+    log(f"  {name}: largest |d| / bound over the served shapes "
+        f"{max(worst.values()):.4g} (fp32 out)")
     label, x, w, _, _ = gemms[3]
     h = x[:LM_BATCH].contiguous()
     rep.note_err(name, allclose(
@@ -2497,13 +2569,16 @@ def serve_lm_bf16(rep: Report, cfg, params) -> dict:
     d["lm_bf16_served_vs_teacher_forced"] = served
     rms = {k: (v / 2) ** 0.5 for k, v in sq.items()}
     d["lm_bf16_logits_rms"] = rms
+    d["lm_bf16_logits_margin"] = 1 - err / max(spread, 1e-30)
     if not err <= spread:
         raise AssertionError(f"bf16 logits: kernels vs torch backend max|d| "
                              f"{err:.4g} > the torch backend's bf16 vs fp32 "
                              f"spread {spread:.4g}")
     log(f"  teacher-forced bf16 logits, kernels vs torch backend (requests 0 "
         f"and 8): max|d| {err:.4g} <= the torch backend's bf16 vs fp32 "
-        f"spread {spread:.4g} (|logits| max {np.abs(logits).max():.3g}); "
+        f"spread {spread:.4g} (margin "
+        f"{100 * d['lm_bf16_logits_margin']:.1f} % of "
+        f"the spread; |logits| max {np.abs(logits).max():.3g}); "
         f"tokens equal at {covered} of {2 * LM_NEW} steps with a clear "
         f"margin; RMS {rms['kernels_vs_torch']:.4g} against "
         f"{rms['torch_bf16_vs_fp32']:.4g}; served logits vs teacher-forced: "
@@ -2627,7 +2702,7 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
     bf16 = torch.bfloat16
     conv_name = CNN_BF16_KERNELS["sa_conv_implicit"]
     pool_name = CNN_BF16_KERNELS["maxpool_act"]
-    out: dict = {"conv": [], "pool": None}
+    out: dict = {"conv": [], "fc": [], "pool": None}
     worst: dict = {"fp32 out": {}, "bf16 out": {}}
     for net, layers in BF16_CONV_LAYERS.items():
         chain, _, _ = layer_chain(net, models[net].params, images[net])
@@ -2738,7 +2813,7 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
     logits = cnn.cnn_forward("alexnet", params, x, eng=eng)
     out["launches"] = counters()
     expect_counts(out["launches"], "AlexNet forward, bf16 activations",
-                  sa_conv_implicit=5, sa_fc_matmul=3)
+                  sa_conv_implicit=5, sa_fc_matmul=3, sa_fc_tc=3)
     if logits.dtype != bf16 or tuple(logits.shape) != (64, 1000) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"bf16 AlexNet logits {logits.dtype} "
@@ -2750,14 +2825,20 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
     # SA-FC in bf16 at the path's shapes: fc1-fc3 of the same forward
     _, fcs, chained = layer_chain("alexnet", params, x)
     exact("bf16 AlexNet: the layer chain == cnn_forward", chained, logits)
+    fc_ratio = {}
     for label, h, p, _, act in fcs:
         got = sa_fc_matmul(h, p["w"], p["b"], act=act)
-        rep.note_err(BF16_KERNELS["sa_fc_matmul"], allclose(
+        rep.note_err(CNN_BF16_KERNELS["sa_fc_matmul"], allclose(
             f"bf16 AlexNet {label} b=64", got.float(),
             sa_fc_plain(h, p["w"], p["b"], act=act).float(), TOL_BF16))
+        exact(f"bf16 AlexNet {label} b=64: bf16 out == fp32 out rounded",
+              got, sa_fc_matmul(h, p["w"], p["b"], act=act,
+                                out_dtype=torch.float32).to(bf16))
         # the fp32 weight is rounded to bf16 first, as the reference does
-        check_widened(f"bf16 AlexNet {label} b=64", got, sa_fc_matmul, h,
-                      p["w"].to(bf16), p["b"], act=act)
+        fc_ratio[label] = check_fc_widened_bound(
+            f"bf16 AlexNet {label} b=64", h, p["w"])
+    out["fc"] = fcs
+    rep.detail["alexnet_bf16_fc_widened_bound"] = fc_ratio
     want = cnn.cnn_forward("alexnet", params, x, eng=Engine(backend="torch"))
     err = allclose("bf16 AlexNet logits vs the torch backend's bf16",
                    logits.float(), want.float(), TOL_BF16)
@@ -2765,12 +2846,14 @@ def check_bf16_cnn(rep: Report, models: dict, images: dict) -> dict:
     rep.detail["alexnet_bf16_logits_vs_torch"] = err
     log(f"  AlexNet forward, bf16 activations, b=64: 5 SA-CONV + 3 SA-FC "
         f"launches, rows 0 and 63 == b=1 bitwise; fc1-fc3 within TOL_BF16 "
-        f"of sa_fc_plain and == the fp32 launch on the widened operands; "
+        f"of sa_fc_plain, bf16 out == fp32 out rounded, within the bound of "
+        f"the fp32 launch on the widened operands (|d| / bound "
+        f"{max(fc_ratio.values()):.3g}); "
         f"logits within TOL_BF16 of the torch backend's bf16 forward "
         f"(max|d| {err:.3g}); max|bf16 - fp32 logits| "
         f"{(logits.float() - fp32).abs().max().item():.3g} (|logits| max "
         f"{fp32.abs().max().item():.3g})")
-    del chained, fcs, want
+    del chained, want
     conv2_in = out["conv"][1][1]
     reset_counters()
     with eng.tracing() as tr:
@@ -2964,8 +3047,8 @@ def measure_zoo(rep: Report, models: dict, images: dict,
                    plain_runs=5)
     del convs, fcs
     torch.cuda.empty_cache()
-    cnn_layer_rows(rep, "cnn_forward bf16", bf16_shapes["conv"], [],
-                   plain_runs=10)
+    cnn_layer_rows(rep, "cnn_forward bf16", bf16_shapes["conv"],
+                   bf16_shapes["fc"], plain_runs=10)
     t = bf16_shapes["pool"]
     out = maxpool_act(t, window=3, stride=2, act="none")
     tc = t.permute(0, 3, 1, 2)
@@ -3272,9 +3355,9 @@ def train_launches(cfg, sched, steps: int, remat: str) -> dict:
 
 def expect_train_counts(c: dict, what: str, want: dict) -> None:
     """``c`` equals ``want`` for every kernel and plain version (those
-    ``want`` does not name: 0; SA-FC's decode-kernel launches held where
+    ``want`` does not name: 0; SA-FC's tensor-core launches held where
     ``want`` names them)."""
-    full = {k: want.get(k, c[k] if k == "sa_fc_decode" else 0) for k in c}
+    full = {k: want.get(k, c[k] if k == "sa_fc_tc" else 0) for k in c}
     if c != full:
         raise AssertionError(f"{what}: launch counts {c} != {full}")
 
@@ -3327,9 +3410,9 @@ def check_train_functions(rep: Report, cfg) -> dict:
                 c = counters()
                 want_c = {kern: 2 + (act != "none")}
                 want_c["sa_conv_matmul"] = want_c.get("sa_conv_matmul", 0) + 1
-                # bf16 x and w at b = 4: forward, recompute and dx on
-                # SA-FC's decode kernel
-                want_c["sa_fc_decode"] = want_c.get("sa_fc_matmul", 0) \
+                # bf16 x: forward, recompute and dx on SA-FC's
+                # tensor-core kernel
+                want_c["sa_fc_tc"] = want_c.get("sa_fc_matmul", 0) \
                     if dt == bf else 0
                 expect_train_counts(c, f"{regime} Function", want_c)
                 want = grads(plain, x, w, b, act, cot)
@@ -4079,7 +4162,7 @@ ANALYSIS_ARGS = ("--net", "alexnet", "--net", "vgg16", "--all-zoo-variants")
 #: the activation kind of bf16 (csrc/common.cuh Kind)
 X_KIND_BF16 = 2
 KERNEL_SYMBOLS = {"sa_fc": "sa_fc_kernel",
-                  "sa_fc_decode": ("sa_fc_narrow_kernel", "sa_fc_wide_kernel"),
+                  "sa_fc_tc": ("sa_fc_narrow_kernel", "sa_fc_wide_kernel"),
                   "sa_conv_implicit": "sa_conv_kernel",
                   "sa_conv_implicit[tc]": "sa_conv_wgmma_kernel",
                   "pool_act": "pool_act_kernel",
@@ -4147,7 +4230,7 @@ def edge_call(lau, gen):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     types = {0: torch.float32, 1: torch.int8, 2: torch.bfloat16}
-    if lau.kernel in ("sa_fc", "sa_fc_decode", "sa_conv"):
+    if lau.kernel in ("sa_fc", "sa_fc_tc", "sa_conv"):
         if lau.kernel.startswith("sa_fc"):
             b, k, n, w_kind, x_kind = lau.shape
             kern, plain = sa_fc_matmul, sa_fc_plain
@@ -4209,11 +4292,10 @@ def edge_phase(rep: Report, launches: list) -> list[dict]:
         call, want, tol = edge_call(lau, gen)
         torch.cuda.synchronize()
         ptr = nan_primed(want.numel(), want.dtype)
-        decode = counters()["sa_fc_decode"]
+        tc = counters()["sa_fc_tc"]
         got = call()
         torch.cuda.synchronize()
-        if (counters()["sa_fc_decode"] - decode == 1) != (
-                lau.kernel == "sa_fc_decode"):
+        if (counters()["sa_fc_tc"] - tc == 1) != (lau.kernel == "sa_fc_tc"):
             raise AssertionError(f"{lau.op}: the wrapper did not take the "
                                  f"{lau.kernel} kernel the pass checked")
         reused = got.data_ptr() == ptr
@@ -4955,8 +5037,8 @@ def generate_launches(name: str, cfg, n_new: int, trace, c: dict) -> dict:
                              f"{matmuls} matmuls and {ops['prefill_flash']} "
                              "flash launches")
     expect_counts(c, f"{name} greedy_generate", **want,
-                  sa_fc_decode=decode_routed(trace))
-    log_decode(f"{name} greedy_generate", c)
+                  sa_fc_tc=tc_routed(trace))
+    log_tc(f"{name} greedy_generate", c)
     if min(want.values()) < 1:
         raise AssertionError(f"{name}: a kernel of the path never ran: {c}")
     return want
@@ -5129,10 +5211,13 @@ def check_frontend_logits(rep: Report, name: str, cfg, params, batch,
                 f"{name} {what}: kernels vs torch backend (bf16) max|d| "
                 f"{err:.4g} > {SPREAD_FACTOR:.4g} x the torch backend's "
                 f"bf16 vs fp32 spread {spread:.4g}")
-        out[what] = dict(kernels_vs_torch=err, torch_bf16_vs_fp32=spread)
+        ratio = err / max(spread, 1e-30)
+        out[what] = dict(kernels_vs_torch=err, torch_bf16_vs_fp32=spread,
+                         ratio=ratio)
         log(f"  {name}: {what} {tuple(g.shape)}, kernels vs the torch "
             f"backend in bf16 (request 0): max|d| {err:.4g} <= "
-            f"{SPREAD_FACTOR:.4g} x its bf16 vs fp32 spread {spread:.4g}")
+            f"{SPREAD_FACTOR:.4g} x its bf16 vs fp32 spread {spread:.4g} "
+            f"(at {ratio:.4g}x of the {SPREAD_FACTOR:.4g}x limit)")
     del want16, want32, e16, e32, ek
 
     # prefill -> decode in fp32 on the kernels, request 0
@@ -5253,7 +5338,8 @@ def measure_frontend(rep: Report, name: str, cfg, mats: list[dict],
     """The wave's kernels at its shapes, already held against their plain
     versions, timed beside their bound (bf16 operations or bytes) and the
     bf16 library call: every GEMM shape of the prefill, every SA-FC shape
-    of a decode step, every kind of flash launch (SDPA, GQA enabled, as
+    of a decode step and of the prefill (seamless's decoder at m = 64),
+    every kind of flash launch (SDPA, GQA enabled, as
     the library call)."""
     import torch
     import torch.nn.functional as F
@@ -5274,7 +5360,9 @@ def measure_frontend(rep: Report, name: str, cfg, mats: list[dict],
     timed_at = {("sa_conv", "prefill"): (sa_conv_matmul, sa_conv_matmul_plain,
                                          "sa_conv_matmul"),
                 ("sa_fc", "decode"): (sa_fc_matmul, sa_fc_plain,
-                                      "sa_fc_matmul")}
+                                      "sa_fc_matmul"),
+                ("sa_fc", "prefill"): (sa_fc_matmul, sa_fc_plain,
+                                       "sa_fc_matmul")}
     for mt in mats:
         if (mt["regime"], mt["phase"]) not in timed_at:
             continue
@@ -6125,14 +6213,15 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == "ServeEngine.run bf16"
                 and r["phase"] == phase]
-        kernel = DECODE_KERNEL.get(kernel, kernel)
+        kernel = TC_KERNEL.get(kernel, kernel)
         out.append(entry(name, kernel, "ServeEngine.run bf16",
                          lm_bf16[kernel], rows, PEAK_BF16_FLOPS))
     for kernel, name in CNN_BF16_KERNELS.items():
-        path = "cnn_forward bf16" if kernel == "sa_conv_implicit" else \
-            "Engine.conv2d bf16, pool fusion declined"
+        path = "Engine.conv2d bf16, pool fusion declined" if \
+            kernel == "maxpool_act" else "cnn_forward bf16"
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == path]
+        kernel = TC_KERNEL.get(kernel, kernel)
         out.append(entry(name, kernel, path, paths[path][kernel], rows,
                          PEAK_BF16_FLOPS))
     for kernel, name in TRAIN_KERNELS.items():
@@ -6145,7 +6234,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
         phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
         rows = [r for r in rep.rows if r["kernel"] == name
                 and r["path"] == path and r["phase"] == phase]
-        kernel = DECODE_KERNEL.get(kernel, kernel)
+        kernel = TC_KERNEL.get(kernel, kernel)
         out.append(entry(name, kernel, path,
                          rest["zamba2-2.7b"][kernel], rows, PEAK_BF16_FLOPS))
     for model, names in FRONTEND_KERNELS.items():
@@ -6154,7 +6243,7 @@ def kernels_line(rep: Report, cnn: dict, declined: dict, lm: dict,
             phase = "decode" if kernel == "sa_fc_matmul" else "prefill"
             rows = [r for r in rep.rows if r["kernel"] == name
                     and r["path"] == path and r["phase"] == phase]
-            kernel = DECODE_KERNEL.get(kernel, kernel)
+            kernel = TC_KERNEL.get(kernel, kernel)
             out.append(entry(name, kernel, path, frontend[model][kernel],
                              rows, PEAK_BF16_FLOPS))
     for model, names in FAMILY_KERNELS.items():

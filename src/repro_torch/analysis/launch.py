@@ -17,7 +17,8 @@ invariants of it, all under the pass name ``launch``:
 
 * **coverage** — every output element is written by exactly one CTA and
   one thread (the kernels' masks for partial tiles included); SA-FC's
-  decode kernel runs every (column group, k segment) unit once; conv bands
+  tensor-core kernel runs every (column tile, k segment, row tile) unit
+  once; conv bands
   never split a pool window and compute every conv row the emitted map
   needs; column strips cover the emitted columns once and read exactly
   the input columns they need; SA-FC's segments cover k once (the last
@@ -31,16 +32,15 @@ invariants of it, all under the pass name ``launch``:
 * **race** — no two CTAs write one output; a split SA-FC launch gives
   each (segment, row, column) partial slot and each (column tile, row
   tile) arrival counter one writer, its scratch holds what the kernel
-  indexes, and the scratch is kept per (device, stream); a decode launch
-  runs each (tile, segment) unit on one worker (narrow: a warp of the CTA
-  that owns the tile's segments; wide: a team, its split launches on the
-  same scratch);
+  indexes, and the scratch is kept per (device, stream); a tensor-core
+  launch runs each unit on one warp (narrow: a warp of the CTA that owns
+  the tile's segments; wide: its split launches on the same scratch);
 * **order** — every output sums its terms in an order that depends only
   on the contraction's shape, never on the batch, ``m``, the CTA or the
   thread, checked over every batch from 1 to the entry's: SA-FC's split
-  over k (the FMA kernel's at the same shape for the decode kernel, which
-  runs bf16 x and w at row tiles up to 8, and a unit assignment that does
-  not follow b), the GEMM's k order, SA-CONV's tile and channel grouping (fused
+  over k (both kernels; the tensor-core kernel runs every bf16 x launch,
+  the FMA kernel every fp32 one, and within a row tile its unit
+  assignment does not follow b), the GEMM's k order, SA-CONV's tile and channel grouping (fused
   pool or not), and the kv tiles each query row sums for every query-tile
   height and pairing.  Rows == m = 1, batched == unbatched and fused ==
   unfused pool rest on this.
@@ -88,7 +88,7 @@ def _static(var_bytes: int) -> int:
 
 STATIC_SMEM = {
     "sa_fc": _static(4),
-    "sa_fc_decode": 0,
+    "sa_fc_tc": 0,
     "sa_conv": 0,
     "sa_conv_implicit": _static(4 * (conv.MAX_ROWS
                                      + SG_FIELDS * conv.MAX_SEGMENTS + 3)),
@@ -135,7 +135,7 @@ class Launch:
     strip for SA-CONV (``strips``), or, for the pool, the launch at each
     base alignment a pointer may have.  ``shape`` is the wrapper's
     arguments: SA-FC ``(b, k, n, w_kind, x_kind)`` (kernel ``"sa_fc"`` or
-    ``"sa_fc_decode"``, as the wrapper routes it); the GEMM ``(m, n, k,
+    ``"sa_fc_tc"``, as the wrapper routes it); the GEMM ``(m, n, k,
     w_kind, x_kind)``; SA-CONV ``(batch, h, w, ci, p, q, co, stride,
     x_kind)`` with ``pool`` the fused ``(window, stride)`` or ``(0, 0)``;
     the pool ``(n, h, w, c, itemsize, window, stride)``; flash ``(b, sq,
@@ -158,12 +158,12 @@ KIND_DTYPE = {0: torch.float32, 1: torch.int8, 2: torch.bfloat16}
 def fc_launch(op: str, b: int, k: int, n: int, w_kind: int,
               x_kind: int) -> Launch:
     """:func:`~repro_torch.kernels.sa_fc.sa_fc_matmul` on (b, k) @ (k, n):
-    the decode kernel where ``decode_route`` says so, else the FMA
-    kernel."""
+    the tensor-core kernel where ``tc_route`` says so (bf16 x), else the
+    FMA kernel."""
     shape = (b, k, n, w_kind, x_kind)
-    if sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
-        return Launch(op, "sa_fc_decode", shape,
-                      (sa_fc.decode_launch(b, k, n),))
+    if sa_fc.tc_route(KIND_DTYPE[x_kind]):
+        return Launch(op, "sa_fc_tc", shape,
+                      (sa_fc.tc_launch(b, k, n, KIND_BYTES[w_kind]),))
     return Launch(op, "sa_fc", shape, (sa_fc.fc_launch(b, k, n),))
 
 
@@ -427,12 +427,14 @@ def edge_launches() -> list[Launch]:
     and 4-byte w pieces, and with fp32 and int8 weights rounded into its
     tiles); SA-FC
     split over k with a short, ragged last segment at b = 1 and one row
-    past a 64-row tile, and its decode kernel at b = 1, 5 and 8 with odd k,
-    odd n and n off 16 bytes (element and 4-byte copies), over 313
-    segments of 40 and of 4104 columns (wide at k = 20000), and over
-    125 one-chunk segments of 8 columns at b = 8 (narrow, the most
-    partials its shared memory holds); SA-CONV flat tiles that cross image boundaries and
-    pooled bands whose last band is short, fp32 and bf16 (the tensor cores:
+    past a 64-row tile, and its tensor-core kernel at b = 1, 5 and 8 with
+    odd k, odd n and n off 16 bytes (element and 4-byte copies), over 313
+    segments of 40 and of 4104 columns (wide at k = 20000), over 125
+    one-chunk segments of 8 columns at b = 8 (narrow, the most partials
+    its shared memory holds), with fp32 weights at b = 65 in nine row
+    tiles of 8 (18 segments) and narrow at b = 2, with int8 weights and
+    odd n at b = 37 (row tiles of 8), in three row tiles of 64 at b = 130;
+    SA-CONV flat tiles that cross image boundaries and pooled bands whose last band is short, fp32 and bf16 (the tensor cores:
     ragged co, both tiles, 16-byte gathers and, at ci = 3 and ci = 5, the
     channels padded to 4 and 8 first); the pool at 16-, 8- and 4-byte
     vectors and a single bf16 element; flash with paired CTAs over an odd
@@ -443,19 +445,27 @@ def edge_launches() -> list[Launch]:
     return [
         fc_launch("edge b=1 [sa_fc]", 1, 3999, 1000, W_KIND["float32"], f32),
         fc_launch("edge b=65 [sa_fc]", 65, 3999, 1000, W_KIND["int8"], f32),
-        fc_launch("edge decode b=1 odd k [sa_fc_decode]", 1, 3999, 1000,
+        fc_launch("edge tc b=1 odd k [sa_fc_tc]", 1, 3999, 1000,
                   W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode b=8 odd n [sa_fc_decode]", 8, 4000, 1001,
+        fc_launch("edge tc b=8 odd n [sa_fc_tc]", 8, 4000, 1001,
                   W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode b=5 n off 16 B [sa_fc_decode]", 5, 4097, 262,
+        fc_launch("edge tc b=5 n off 16 B [sa_fc_tc]", 5, 4097, 262,
                   W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode b=8 313 segments [sa_fc_decode]", 8, 20000,
-                  40, W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode wide b=3 odd n [sa_fc_decode]", 3, 3999, 5001,
+        fc_launch("edge tc b=8 313 segments [sa_fc_tc]", 8, 20000, 40,
                   W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode wide b=8 313 segments [sa_fc_decode]", 8,
-                  20000, 4104, W_KIND["bfloat16"], bf16),
-        fc_launch("edge decode b=8 125 segments [sa_fc_decode]", 8, 4000, 8,
+        fc_launch("edge tc wide b=3 odd n [sa_fc_tc]", 3, 3999, 5001,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge tc wide b=8 313 segments [sa_fc_tc]", 8, 20000,
+                  4104, W_KIND["bfloat16"], bf16),
+        fc_launch("edge tc b=8 125 segments [sa_fc_tc]", 8, 4000, 8,
+                  W_KIND["bfloat16"], bf16),
+        fc_launch("edge tc b=65 fp32 w [sa_fc_tc]", 65, 3999, 1000,
+                  W_KIND["float32"], bf16),
+        fc_launch("edge tc b=2 fp32 w narrow [sa_fc_tc]", 2, 4096, 1000,
+                  W_KIND["float32"], bf16),
+        fc_launch("edge tc b=37 int8 w odd n [sa_fc_tc]", 37, 4000, 1001,
+                  W_KIND["int8"], bf16),
+        fc_launch("edge tc b=130 64-row tiles [sa_fc_tc]", 130, 1000, 5000,
                   W_KIND["bfloat16"], bf16),
         gemm_launch("edge 130x200 [sa_conv]", 130, 200, 1000,
                     W_KIND["float32"], f32),
@@ -591,13 +601,12 @@ def _thread_map(what: str, cells: np.ndarray, size: int
 # ---------------------------------------------------------------------------
 # SA-FC
 # ---------------------------------------------------------------------------
-def _fc_smem(rows: int, cols: int, w_bytes: int, x_bytes: int) -> int:
+def _fc_smem(rows: int, cols: int, w_bytes: int) -> int:
     """A CTA's dynamic shared memory from its tile: a ring of stages (6 at
-    up to 8 rows, else 4), each a chunk of 32 k of x (each row padded to
-    36 fp32 or 40 bf16 elements) and of w, then 4 k-lanes' sums and a
-    running total of the tile in fp32."""
-    ring = (6 if rows <= 8 else 4) * (
-        rows * (36 if x_bytes == 4 else 40) * x_bytes + 32 * cols * w_bytes)
+    up to 8 rows, else 4), each a chunk of 32 k of fp32 x (each row padded
+    to 36 elements) and of w, then 4 k-lanes' sums and a running total of
+    the tile in fp32."""
+    ring = (6 if rows <= 8 else 4) * (rows * 36 * 4 + 32 * cols * w_bytes)
     return ring + 5 * rows * cols * 4
 
 
@@ -641,9 +650,9 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
     b, k, n, w_kind, x_kind = lau.shape
     (fl,) = lau.geoms
     out: list[tuple[str, str]] = []
-    if sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
-        out.append(("order", f"out: b={b} with bf16 x and w on the FMA "
-                             "kernel — the wrapper runs it on the decode "
+    if sa_fc.tc_route(KIND_DTYPE[x_kind]):
+        out.append(("order", f"out: b={b} with bf16 x on the FMA kernel — "
+                             "the wrapper runs it on the tensor-core "
                              "kernel"))
     rows, cols = fl.rows, fl.cols
     # coverage and races of the outputs: CTA (x, y) writes rows [y rb, ...)
@@ -682,10 +691,10 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
         out.append(("race", f"grid z {fl.grid[2]} on a whole launch: every "
                             "CTA of a tile writes its outputs"))
     # residency
-    w_bytes, x_bytes = KIND_BYTES[w_kind], KIND_BYTES[x_kind]
+    w_bytes = KIND_BYTES[w_kind]
     out += _residency("sa_fc", f"{rows} x {cols} tile",
-                      _fc_smem(rows, cols, w_bytes, x_bytes),
-                      sa_fc.fc_smem_bytes(rows, w_bytes, x_bytes))
+                      _fc_smem(rows, cols, w_bytes),
+                      sa_fc.fc_smem_bytes(rows, w_bytes))
     # order: the split over k at every batch up to b
     for bb in range(1, b + 1):
         other = sa_fc.fc_launch(bb, k, n)
@@ -699,50 +708,62 @@ def check_fc(lau: Launch) -> list[tuple[str, str]]:
     return out
 
 
-def _fc_decode_smem(narrow: bool, rows: int, segments: int,
-                    span: int) -> int:
-    """A decode CTA's dynamic shared memory from its geometry.  Narrow: 16
-    warps' rings of 6 stages, a stage 4 k-lanes' blocks of 8 rows of 16
-    bf16 columns padded by 32 bytes, then the chunk's 32 k of each x row in
-    bf16; then, where k is split, a partial per (group, segment, row,
-    column) of the CTA's units in fp32.  Wide: 128 bytes to align the rings for
-    TMA; 2 teams of 4 warps, each warp's ring of 4 stages, a stage its
-    lane's 8 rows of 128 bf16 columns then 128 bytes for its 8 k of the x
-    rows; a buffer per team of warps 1-3's sums, ``rows`` x 128 fp32
-    each; 4 mbarriers a warp."""
+def _fc_tc_smem(narrow: bool, rows: int, w_bytes: int, segments: int,
+                span: int) -> int:
+    """A tensor-core CTA's dynamic shared memory from its geometry.
+    Narrow: 16 warps' rings of 6 stages (4 for fp32 weights), a stage 32 k
+    rows of 16 columns of w then 32 k of 8 x rows in bf16; then, where k
+    is split, a partial per (group, segment, row, column) of the CTA's
+    units in fp32.  Wide: 1024 bytes to align the rings to the swizzle's
+    period; 8 warps' rings (4 above 16 rows) of 4 stages, a stage 32 k
+    rows of the unit's columns of w (4 KB at up to 16 rows, 2 KB of int8;
+    2048 / rows columns above) then 32 k of the tile's x rows, rounded up
+    to 1024 bytes; a scratch a warp of its unit's outputs in fp32, rows
+    padded by 4 floats; 4 mbarriers a warp."""
     if narrow:
-        part = span * segments * rows * 16 * 4 if segments > 1 else 0
-        return 16 * 6 * (4 * (8 * 16 * 2 + 32) + rows * 32 * 2) + part
-    return (128 + 8 * 4 * (8 * 128 * 2 + 128) + 2 * 3 * rows * 128 * 4
-            + 8 * 4 * 8)
+        part = span * segments * 8 * 16 * 4 if segments > 1 else 0
+        depth = 4 if w_bytes == 4 else 6
+        return 16 * depth * (32 * 16 * w_bytes + 8 * 64) + part
+    cols = 2048 // rows if rows > 16 else 4096 // (32 * max(w_bytes, 2))
+    warps = 4 if rows > 16 else 8
+    stage = -(-(32 * cols * w_bytes + rows * 64) // 1024) * 1024
+    return (1024 + warps * 4 * stage + warps * rows * (cols + 4) * 4
+            + warps * 4 * 8)
 
 
-def check_fc_decode(lau: Launch) -> list[tuple[str, str]]:
+def check_fc_tc(lau: Launch) -> list[tuple[str, str]]:
     b, k, n, w_kind, x_kind = lau.shape
     (d,) = lau.geoms
     out: list[tuple[str, str]] = []
-    if not sa_fc.decode_route(b, KIND_DTYPE[x_kind], KIND_DTYPE[w_kind]):
-        out.append(("order", f"out: the decode kernel runs b={b}, x kind "
-                             f"{x_kind}, w kind {w_kind} — it takes bf16 x "
-                             "and w at row tiles up to 8 alone"))
-    if d.rows != sa_fc.row_tile(b) or d.rows not in sa_fc.DECODE_ROWS:
-        out.append(("coverage", f"out rows: a {d.rows}-row tile for b={b}"))
-    narrow = k <= sa_fc.NARROW_MAX and n <= sa_fc.NARROW_MAX
-    if d.narrow != narrow or d.cols != (sa_fc.GCOLS if d.narrow
-                                        else sa_fc.TILE):
+    w_bytes = KIND_BYTES[w_kind]
+    if not sa_fc.tc_route(KIND_DTYPE[x_kind]):
+        out.append(("order", f"out: the tensor-core kernel runs b={b}, x "
+                             f"kind {x_kind} — it takes bf16 x alone"))
+    rows = 8 if d.segments >= 8 else next(t for t in (8, 16, 32, 64)
+                                          if t >= min(b, 64))
+    if d.rows != rows or d.row_tiles != -(-b // rows):
+        out.append(("coverage", f"out rows: {d.row_tiles} tiles of "
+                                f"{d.rows} rows for b={b}"))
+    narrow = b <= 8 and k <= sa_fc.NARROW_MAX and n <= sa_fc.NARROW_MAX
+    cols = 16 if narrow else 2048 // d.rows if d.rows > 16 else 4096 // (
+        32 * max(w_bytes, 2))
+    if d.narrow != narrow or d.cols != cols:
         out.append(("coverage", f"out columns: {d.cols}-column "
                                 f"{'narrow' if d.narrow else 'wide'} tiles "
-                                f"at k={k}, n={n}, where the kernel picks "
-                                "narrow tiles of 16 for k and n up to 4096 "
-                                "and wide tiles of 128 otherwise"))
-    # coverage of the outputs: tiles masked at n; a narrow unit's thread
-    # p of lane 0 takes columns 2p and 2p+1 of its 16, a wide unit's thread
-    # p of warp 0 columns 4p..4p+3 of its 128
+                                f"at b={b}, k={k}, n={n}, where the kernel "
+                                "picks narrow tiles of 16 at b <= 8 for k "
+                                "and n up to 4096 and wide tiles "
+                                "otherwise"))
+    # coverage of the outputs: tiles masked at b and n; in a unit, lane (g,
+    # t) of the warp holds rows 8 sl + 2 t (+1) and columns 16 j + g (+8)
+    # of each n8 slice sl and m16 tile j
+    out += _spans("out rows", _tiles(b, d.rows, d.row_tiles), b)
     out += _spans("out columns", _tiles(n, d.cols, d.tiles), n)
-    per = d.cols // (8 if d.narrow else 32)
-    out += _thread_map("out unit columns",
-                       (per * np.arange(d.cols // per)[:, None]
-                        + np.arange(per)).ravel(), d.cols)
+    j, sl, g, t, e = np.meshgrid(np.arange(d.cols // 16),
+                                 np.arange(d.rows // 8), np.arange(8),
+                                 np.arange(4), np.arange(4), indexing="ij")
+    cells = (8 * sl + 2 * t + (e & 1)) * d.cols + 16 * j + g + 8 * (e >> 1)
+    out += _thread_map("out unit fragments", cells.ravel(), d.rows * d.cols)
     # the k split, as the kernel derives it from seg_k
     chunks = -(-k // sa_fc.K_CHUNK)
     seg_chunks = d.seg_k // sa_fc.K_CHUNK
@@ -756,10 +777,10 @@ def check_fc_decode(lau: Launch) -> list[tuple[str, str]]:
                                 f" the kernel derives {nseg} from seg_k "
                                 f"{d.seg_k}"))
     out += _spans("k segments", _tiles(k, d.seg_k, nseg), k)
-    # every (tile, segment) unit run by one worker (a narrow warp or a wide
-    # team): one writer of its partials or outputs (and, wide, one arrival
-    # on its tile's counter); a narrow CTA runs every segment of its tiles
-    runs: dict[tuple[int, int], int] = {}
+    # every (tile, segment, row tile) unit run by one warp: one writer of
+    # its partials or outputs (and, wide, one arrival on its tile's
+    # counter); a narrow CTA runs every segment of its tiles
+    runs: dict[tuple[int, int, int], int] = {}
     if d.narrow:
         out += _spans("out column tiles", [d.cta_tiles(c)
                                            for c in range(d.ctas)], d.tiles)
@@ -777,71 +798,73 @@ def check_fc_decode(lau: Launch) -> list[tuple[str, str]]:
                 runs[unit] = runs.get(unit, 0) + 1
     twice = [u for u, v in runs.items() if v > 1]
     if twice:
-        out.append(("race", f"units {twice[:3]}: run by more than one "
-                            f"{'warp' if d.narrow else 'team'} — their "
-                            "partials and outputs have two writers"))
-    missed = [(t, s) for t in range(d.tiles) for s in range(nseg)
-              if (t, s) not in runs]
-    stray = [u for u in runs if not (0 <= u[0] < d.tiles
-                                     and 0 <= u[1] < nseg)]
+        out.append(("race", f"units {twice[:3]}: run by more than one warp "
+                            "— their partials and outputs have two "
+                            "writers"))
+    missed = [(t, s, r) for t in range(d.tiles) for s in range(nseg)
+              for r in range(d.row_tiles) if (t, s, r) not in runs]
+    stray = [u for u in runs if not (0 <= u[0] < d.tiles and 0 <= u[1] < nseg
+                                     and 0 <= u[2] < d.row_tiles)]
     if missed:
         out.append(("coverage", f"units {missed[:3]} ({len(missed)} in all)"
                                 " run by no worker — a k segment or a column "
                                 "tile is never summed"))
     if stray:
-        out.append(("coverage", f"units {stray[:3]} past the tiles or the "
-                                "segments"))
+        out.append(("coverage", f"units {stray[:3]} past the tiles, the "
+                                "segments or the row tiles"))
     # the grid, shared memory, and what the kernel indexes past it
-    derived = _fc_decode_smem(d.narrow, d.rows, d.segments, d.span)
+    derived = _fc_tc_smem(d.narrow, d.rows, w_bytes, d.segments, d.span)
     if d.narrow:
         if not 1 <= d.ctas <= min(d.tiles, sa_fc.SM_COUNT) or \
                 d.span != -(-d.tiles // d.ctas):
             out.append(("residency", f"grid {d.ctas}, span {d.span}: past "
                                      "the tiles or one CTA an SM"))
-        out += _residency("sa_fc_decode", f"{d.rows}-row narrow CTA",
-                          derived, d.smem)
-        part = derived - _fc_decode_smem(True, d.rows, 1, d.span)
+        out += _residency("sa_fc_tc", f"{d.rows}-row narrow CTA", derived,
+                          d.smem)
+        part = derived - _fc_tc_smem(True, d.rows, w_bytes, 1, d.span)
         if part > sa_fc.PART_SMEM_MAX:
             out.append(("residency", f"partials: {part} B over the "
                                      f"{sa_fc.PART_SMEM_MAX} B the kernel "
                                      "keeps (it refuses the launch)"))
         threads = 16 * 32
-        outs = d.span * d.rows * 16
+        outs = d.span * 8 * 16
         e = (np.arange(threads)[:, None]
              + threads * np.arange(-(-outs // threads))[None, :]).ravel()
         out += _thread_map("out segment sum", e[e < outs], outs)
     else:
-        if not 1 <= d.ctas <= min(-(-d.tiles * nseg // sa_fc.TEAMS),
-                                  sa_fc.SM_COUNT * sa_fc.PER_SM):
-            out.append(("residency", f"grid {d.ctas}: past the units' "
-                                     f"teams or {sa_fc.PER_SM} CTAs on "
-                                     f"each of {sa_fc.SM_COUNT} SMs"))
-        out += _residency("sa_fc_decode", f"{d.rows}-row wide CTA",
-                          derived, d.smem, per_sm=sa_fc.PER_SM)
+        units = d.row_tiles * d.tiles * nseg
+        if not 1 <= d.ctas <= min(units, sa_fc.SM_COUNT):
+            out.append(("residency", f"grid {d.ctas}: past the units or "
+                                     f"one CTA on each of {sa_fc.SM_COUNT} "
+                                     "SMs"))
+        out += _residency("sa_fc_tc", f"{d.rows}-row wide CTA", derived,
+                          d.smem)
         if d.split:
             out += _scratch_fits(dataclasses.replace(
-                sa_fc.fc_launch(b, k, n), grid=(d.tiles, 1, nseg)), b, n,
-                nseg)
-    # order: the FMA kernel's split at this shape, and one assignment at
-    # every batch the decode kernel takes
-    fma = sa_fc.fc_launch(b, k, n)
-    if (d.segments, d.seg_k) != (fma.segments, fma.seg_k):
-        out.append(("order", f"out sums k in {d.segments} segments of "
-                             f"{d.seg_k}, the FMA kernel in {fma.segments} "
-                             f"of {fma.seg_k}: the two kernels must give "
-                             "the same bits"))
+                sa_fc.fc_launch(b, k, n), grid=(d.tiles, d.row_tiles, nseg)),
+                b, n, nseg)
+    # order: the split over k at every batch up to b, and, within the row
+    # tile, one unit assignment at every batch
     units = {(c, i): d.worker_units(c, i) for c in range(d.ctas)
-             for i in range(d.workers)}
-    for bb in range(1, max(sa_fc.DECODE_ROWS) + 1):
-        other = sa_fc.decode_launch(bb, k, n)
-        if (other.narrow, other.segments, other.seg_k, other.ctas,
-                other.tiles) != (d.narrow, d.segments, d.seg_k, d.ctas,
-                                 d.tiles) or any(
+             for i in range(d.workers)} if b <= d.rows else None
+    for bb in range(1, b + 1):
+        other = sa_fc.tc_launch(bb, k, n, w_bytes)
+        if (other.segments, other.seg_k) != (d.segments, d.seg_k):
+            out.append(("order", f"out sums k in {other.segments} segments "
+                                 f"of {other.seg_k} at b={bb} but "
+                                 f"{d.segments} of {d.seg_k} at b={b}: the "
+                                 "split over k must be a function of (k, n) "
+                                 "alone"))
+            break
+        if units is None or other.rows != d.rows:
+            continue
+        if (other.narrow, other.ctas, other.tiles) != (
+                d.narrow, d.ctas, d.tiles) or any(
                     other.worker_units(c, i) != u
                     for (c, i), u in units.items()):
-            out.append(("order", f"out: the decode units at b={bb} differ "
-                                 f"from b={b}'s — the assignment must "
-                                 "follow (k, n) alone"))
+            out.append(("order", f"out: the units at b={bb} differ from "
+                                 f"b={b}'s — within a row tile the "
+                                 "assignment must follow (k, n) alone"))
             break
     return out
 
@@ -1287,7 +1310,7 @@ def check_flash(lau: Launch) -> list[tuple[str, str]]:
     return out
 
 
-CHECKS = {"sa_fc": check_fc, "sa_fc_decode": check_fc_decode,
+CHECKS = {"sa_fc": check_fc, "sa_fc_tc": check_fc_tc,
           "sa_conv": check_gemm,
           "sa_conv_implicit": check_conv, "pool_act": check_pool,
           "attention": check_flash}
@@ -1316,13 +1339,13 @@ def smem_queries(lau: Launch) -> list[tuple[str, tuple, int]]:
         _, _, _, w_kind, x_kind = lau.shape
         (fl,) = lau.geoms
         return [("sa_fc", (w_kind, x_kind, fl.rows),
-                 _fc_smem(fl.rows, fl.cols, KIND_BYTES[w_kind],
-                          KIND_BYTES[x_kind]))]
-    if lau.kernel == "sa_fc_decode":
-        _, k, n = lau.shape[:3]
+                 _fc_smem(fl.rows, fl.cols, KIND_BYTES[w_kind]))]
+    if lau.kernel == "sa_fc_tc":
+        b, k, n, w_kind, _ = lau.shape
         (d,) = lau.geoms
-        return [("sa_fc_decode", (k, n, d.rows, d.segments, d.span),
-                 _fc_decode_smem(d.narrow, d.rows, d.segments, d.span))]
+        return [("sa_fc_tc", (w_kind, b, k, n, d.rows, d.segments, d.span),
+                 _fc_tc_smem(d.narrow, d.rows, KIND_BYTES[w_kind],
+                             d.segments, d.span))]
     if lau.kernel == "sa_conv":
         _, _, _, w_kind, x_kind = lau.shape
         return [("sa_conv", (w_kind, x_kind),

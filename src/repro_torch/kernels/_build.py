@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sa_fc", "sa_fc_decode", "sa_conv_implicit", "pool_act",
+SOURCES = ("sa_fc", "sa_fc_tc", "sa_conv_implicit", "pool_act",
            "sa_conv", "attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,9 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: instantiations made it the longest build, so its kernels are compiled
 #: in parallel (``-split-compile=0``: as many threads as the machine has;
 #: the same registers and spills as one thread gives), and so are SA-CONV
-#: implicit's FMA and tensor-core instantiations
+#: implicit's FMA and tensor-core instantiations, and SA-FC's tensor-core
+#: ones
 LIB_FLAGS = {"sa_conv": ("-split-compile=0",),
-             "sa_conv_implicit": ("-split-compile=0",)}
+             "sa_conv_implicit": ("-split-compile=0",),
+             "sa_fc_tc": ("-split-compile=0",)}
 
 #: activation codes of csrc/common.cuh
 ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2, "silu": 3, "gelu": 4}
@@ -49,8 +51,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sa_fc": ("sa_fc_launch",
               (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
-    "sa_fc_decode": ("sa_fc_decode_launch",
-                     (_P, _P, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
+    "sa_fc_tc": ("sa_fc_tc_launch",
+                 (_P, _P, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 7 + (_P,)),
     "sa_conv_implicit": ("sa_conv_implicit_launch",
                          (_P, _I, _I, _P, _I, _P, _P, _P) + (_I,) * 18
                          + (_P, _P, _P)),
@@ -67,7 +69,7 @@ SIGNATURES = {
 #: instantiation (repro_torch/analysis/launch.py derives the same figures)
 SMEM_SIGNATURES = {
     "sa_fc": ("sa_fc_smem", (_I,) * 3),
-    "sa_fc_decode": ("sa_fc_decode_smem", (_I,) * 5),
+    "sa_fc_tc": ("sa_fc_tc_smem", (_I,) * 7),
     "sa_conv_implicit": ("sa_conv_implicit_smem", (_I,) * 9),
     "pool_act": ("pool_act_smem", (_I,) * 2),
     "sa_conv": ("sa_conv_smem", (_I,) * 2),

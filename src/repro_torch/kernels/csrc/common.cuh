@@ -70,12 +70,6 @@ __device__ __forceinline__ float scale_bias(float acc, const float* scale, const
 enum Kind : int { KIND_F32 = 0, KIND_I8 = 1, KIND_BF16 = 2 };
 constexpr int KIND_BYTES[] = {4, 1, 2};
 
-// v rounded to bf16 (to nearest even) and widened back: an fp32 weight
-// meeting bf16 activations, as the reference's w.astype(x.dtype) rounds it.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // One output in the kernel's output type, rounded once to nearest even.
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {

@@ -1,13 +1,11 @@
-// SA-FC on Hopper: out = act((x @ w) * scale + bias), x (b, k) fp32 or
-// bf16, w (k, n) fp32, bf16 or int8, fp32 accumulation, out fp32 or bf16.
+// SA-FC on Hopper for fp32 activations: out = act((x @ w) * scale +
+// bias), x (b, k) fp32, w (k, n) fp32, bf16 or int8, fp32 accumulation,
+// out fp32 or bf16.
 //
-// The function is the TPU kernel's, whatever the types: w is rounded to
-// x's type (an fp32 w with bf16 x to nearest even; int8 and bf16 weights
-// are exact), both are widened to fp32 and every product is summed in
-// fp32 (a product of two bf16 values is exact in fp32); the epilogue runs
-// in fp32 and the result is rounded once to the output type.  The
-// activation and output types are template parameters beside the weight
-// type, so the fp32 instantiations are the code they were before bf16.
+// The function is the TPU kernel's: int8 and bf16 weights are widened to
+// fp32 exactly and every product is summed in fp32; the epilogue runs in
+// fp32 and the result is rounded once to the output type.  bf16
+// activations run the tensor-core kernel (sa_fc_tc.cu).
 //
 // Replaces: src/repro/kernels/sa_fc.py::sa_fc_matmul (Pallas body
 // _sa_fc_kernel), the batch-amortized weight stream of the paper's SA-FC
@@ -53,10 +51,6 @@
 //    16-byte weight load RT x 4.  x is staged row-major with rows padded to
 //    BK + 4 floats: a warp's x loads hit distinct bank quads or broadcast,
 //    its weight loads are contiguous.  Rows of a thread are RG apart.
-//    bf16 x crosses memory and is staged in 2 bytes (rows padded to BK + 8
-//    elements, 80 bytes, so 16-byte copies land aligned) and is widened
-//    where the k-lane loop reads it: 4 k of a row in one 8-byte load, so
-//    the loop, its order and its FMAs are those of fp32 x.
 //  * b > 64 runs a grid dimension of 64-row tiles: weights are streamed
 //    once per tile, and each tile sums in the same order.
 //  * Ragged b, k and n are masked by zero-filled copies and by the stores.
@@ -73,15 +67,11 @@ constexpr int KL = 4;                // k-lanes per output
 constexpr int KG = 8;                // consecutive k of a lane in a chunk
 constexpr int BK = KL * KG;          // k per chunk (32)
 constexpr int XST = BK + 4;          // padded x row in shared memory (floats)
-constexpr int XST_BF16 = BK + 8;     // the same for bf16 x (elements, 80 bytes)
 
-template <typename XT>
-constexpr int x_stride() { return sizeof(XT) == 4 ? XST : XST_BF16; }
-
-// The tile of each instantiation (weight type, activation type, row tile).
+// The tile of each instantiation (weight type, row tile).
 // kernels/sa_fc.py::_COLS holds the same column widths (the launch refuses
 // a mismatch).
-template <typename WT, typename XT, int RB>
+template <typename WT, int RB>
 struct Cfg {
   static constexpr int RT = RB < 8 ? RB : 8;               // rows per thread
   static constexpr int RG = RB / RT;                       // row groups
@@ -90,8 +80,7 @@ struct Cfg {
   static constexpr int THREADS = KL * RG * CG;
   static constexpr int MIN_BLOCKS = 65536 / (THREADS * 128);  // <= 128 registers
   static constexpr int STAGES = RB <= 8 ? 6 : 4;
-  static constexpr int XS = x_stride<XT>();                // staged x row (elements)
-  static constexpr int X_BYTES = RB * XS * static_cast<int>(sizeof(XT));
+  static constexpr int X_BYTES = RB * XST * 4;
   static constexpr int STAGE_BYTES = X_BYTES + BK * BN * static_cast<int>(sizeof(WT));
   // the ring, the lanes' sums, the running total
   static constexpr int SMEM = STAGES * STAGE_BYTES + (KL + 1) * RB * BN * 4;
@@ -110,16 +99,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   v[0] = __uint_as_float(q.x << 16); v[1] = __uint_as_float(q.x & 0xffff0000u);
   v[2] = __uint_as_float(q.y << 16); v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
-// Four consecutive staged x values of one row, widened to fp32.
-__device__ __forceinline__ float4 load_x4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
-                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
 }
 
 // A tile of R rows x ROW_BYTES bytes of a row-major matrix (rows of
@@ -157,16 +136,16 @@ __device__ __forceinline__ void copy_tile(unsigned char* dst, int dst_stride, co
 // grid (column tiles, row tiles, S if split else 1).  part: (S, b, n)
 // fp32 partials (split only); arrivals: one int per (row tile, column
 // tile), 0 on entry and left 0.  wvec / xvec: bytes per copy of a w / x
-// row piece (16, 8 or 4; 0: element loads).
-template <typename WT, typename XT, typename OT, int RB>
-__global__ void __launch_bounds__(Cfg<WT, XT, RB>::THREADS, Cfg<WT, XT, RB>::MIN_BLOCKS)
-sa_fc_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+// row piece (16, 8 or 4; 0: element loads of w).
+template <typename WT, typename OT, int RB>
+__global__ void __launch_bounds__(Cfg<WT, RB>::THREADS, Cfg<WT, RB>::MIN_BLOCKS)
+sa_fc_kernel(const float* __restrict__ x, const WT* __restrict__ w,
              const float* __restrict__ scale, const float* __restrict__ bias,
              OT* __restrict__ out, float* __restrict__ part, int* __restrict__ arrivals,
              int b, int k, int n, int seg_chunks, int nseg, int split, int wvec, int xvec,
              int act) {
-  using C = Cfg<WT, XT, RB>;
-  constexpr int XS = C::XS, XROW = BK * static_cast<int>(sizeof(XT));
+  using C = Cfg<WT, RB>;
+  constexpr int XROW = BK * 4;
   constexpr int RT = C::RT, RG = C::RG, CG = C::CG, BN = C::BN;
   constexpr int THREADS = C::THREADS, STAGES = C::STAGES, TILE = RB * BN, E = TILE / THREADS;
   static_assert(E * THREADS == TILE, "whole outputs per thread in the final sum");
@@ -196,25 +175,15 @@ sa_fc_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
     unsigned char* xs = smem + slot * C::STAGE_BYTES;
     unsigned char* ws = xs + C::X_BYTES;
     const int k0 = j * BK;
-    const XT* xt = x + static_cast<size_t>(r0) * k + k0;
+    const float* xt = x + static_cast<size_t>(r0) * k + k0;
     const WT* wt = w + static_cast<size_t>(k0) * n + col0;
-    constexpr int XP = XS * static_cast<int>(sizeof(XT));   // staged row pitch (bytes)
+    constexpr int XP = XST * 4;                            // staged row pitch (bytes)
     if (xvec == 16)
       copy_tile<16, RB, XROW, THREADS>(xs, XP, xt, k, b - r0, k - k0, x, t);
     else if (xvec == 8)
       copy_tile<8, RB, XROW, THREADS>(xs, XP, xt, k, b - r0, k - k0, x, t);
-    else if constexpr (sizeof(XT) == 4)
+    else
       copy_tile<4, RB, XROW, THREADS>(xs, XP, xt, k, b - r0, k - k0, x, t);
-    else if (xvec == 4)
-      copy_tile<4, RB, XROW, THREADS>(xs, XP, xt, k, b - r0, k - k0, x, t);
-    else {                           // bf16 rows of an odd length or base
-      XT* xd = reinterpret_cast<XT*>(xs);
-      for (int e = t; e < RB * BK; e += THREADS) {
-        const int row = e / BK, kk = e % BK;
-        xd[row * XS + kk] = (r0 + row < b && k0 + kk < k)
-                                ? xt[static_cast<size_t>(row) * k + kk] : XT{};
-      }
-    }
     if (wvec == 16)
       copy_tile<16, BK, ROW_BYTES, THREADS>(ws, ROW_BYTES, wt, n, k - k0, n - col0, w, t);
     else if (wvec == 8)
@@ -280,23 +249,17 @@ sa_fc_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
     cp_async_commit();
 
     const unsigned char* base = smem + (i % STAGES) * C::STAGE_BYTES;
-    const XT* xs = reinterpret_cast<const XT*>(base);
+    const float* xs = reinterpret_cast<const float*>(base);
     const WT* ws = reinterpret_cast<const WT*>(base + C::X_BYTES);
 #pragma unroll
     for (int q = 0; q < KG; q += 4) {
       const int kk = l * KG + q;
       float wv[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        load4(ws + (kk + j) * BN + 4 * c, wv[j]);
-        if constexpr (sizeof(XT) == 2 && sizeof(WT) == 4) {   // w to x's type first
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) wv[j][cc] = round_bf16(wv[j][cc]);
-        }
-      }
+      for (int j = 0; j < 4; ++j) load4(ws + (kk + j) * BN + 4 * c, wv[j]);
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
-        const float4 xv = load_x4(xs + (g + RG * r) * XS + kk);
+        const float4 xv = *reinterpret_cast<const float4*>(xs + (g + RG * r) * XST + kk);
         const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -355,12 +318,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename WT, typename XT, typename OT, int RB>
+template <typename WT, typename OT, int RB>
 cudaError_t launch(const Args& a) {
-  using C = Cfg<WT, XT, RB>;
+  using C = Cfg<WT, RB>;
   if (a.bn != C::BN) return cudaErrorInvalidValue;
   constexpr int smem = C::SMEM;
-  auto kern = sa_fc_kernel<WT, XT, OT, RB>;
+  auto kern = sa_fc_kernel<WT, OT, RB>;
   // The shared-memory opt-in is a property of the device's context: set it
   // once per device (bit d of `opted`), not on every launch.
   static std::atomic<unsigned long long> opted{0};
@@ -375,34 +338,31 @@ cudaError_t launch(const Args& a) {
   }
   const dim3 grid((a.n + C::BN - 1) / C::BN, (a.b + RB - 1) / RB, a.split ? a.nseg : 1);
   kern<<<grid, C::THREADS, smem, a.stream>>>(
-      static_cast<const XT*>(a.x), static_cast<const WT*>(a.w), a.scale, a.bias,
+      static_cast<const float*>(a.x), static_cast<const WT*>(a.w), a.scale, a.bias,
       static_cast<OT*>(a.out), a.part, a.arrivals, a.b, a.k, a.n, a.seg_chunks, a.nseg, a.split,
       a.wvec, a.xvec, a.act);
   return cudaGetLastError();
 }
 
-template <typename WT, typename XT, typename OT>
+template <typename WT, typename OT>
 cudaError_t launch_rb(int rb, const Args& a) {
   switch (rb) {
-    case 1: return launch<WT, XT, OT, 1>(a);
-    case 2: return launch<WT, XT, OT, 2>(a);
-    case 4: return launch<WT, XT, OT, 4>(a);
-    case 8: return launch<WT, XT, OT, 8>(a);
-    case 16: return launch<WT, XT, OT, 16>(a);
-    case 32: return launch<WT, XT, OT, 32>(a);
-    case 64: return launch<WT, XT, OT, 64>(a);
+    case 1: return launch<WT, OT, 1>(a);
+    case 2: return launch<WT, OT, 2>(a);
+    case 4: return launch<WT, OT, 4>(a);
+    case 8: return launch<WT, OT, 8>(a);
+    case 16: return launch<WT, OT, 16>(a);
+    case 32: return launch<WT, OT, 32>(a);
+    case 64: return launch<WT, OT, 64>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The instantiations of one weight type: x and out each fp32 or bf16.
+// The instantiations of one weight type: out fp32 or bf16.
 template <typename WT>
-cudaError_t launch_types(int x_kind, int out_kind, int rb, const Args& a) {
-  using BF = __nv_bfloat16;
-  if (x_kind == KIND_F32 && out_kind == KIND_F32) return launch_rb<WT, float, float>(rb, a);
-  if (x_kind == KIND_F32 && out_kind == KIND_BF16) return launch_rb<WT, float, BF>(rb, a);
-  if (x_kind == KIND_BF16 && out_kind == KIND_F32) return launch_rb<WT, BF, float>(rb, a);
-  if (x_kind == KIND_BF16 && out_kind == KIND_BF16) return launch_rb<WT, BF, BF>(rb, a);
+cudaError_t launch_types(int out_kind, int rb, const Args& a) {
+  if (out_kind == KIND_F32) return launch_rb<WT, float>(rb, a);
+  if (out_kind == KIND_BF16) return launch_rb<WT, __nv_bfloat16>(rb, a);
   return cudaErrorInvalidValue;
 }
 
@@ -415,7 +375,8 @@ int copy_bytes(const void* p, long long row_bytes) {
 
 }  // namespace
 
-// w_kind: 0 fp32, 1 int8, 2 bf16; x_kind and out_kind: 0 fp32, 2 bf16.
+// w_kind: 0 fp32, 1 int8, 2 bf16; x_kind 0 fp32 (bf16 x runs
+// sa_fc_tc.cu); out_kind 0 fp32, 2 bf16.
 // rb / bn: the row tile (a power of two <= 64) and its column width.  seg_chunks: chunks of 32 k per segment (S
 // = ceil(ceil(k / 32) / seg_chunks) segments).  part non-null: one CTA per
 // segment, partials in part (S * b * n floats) and arrivals (one zeroed int
@@ -426,54 +387,52 @@ extern "C" int sa_fc_launch(const void* x, const void* w, int w_kind, int x_kind
                             void* arrivals, int b, int k, int n, int rb, int bn, int seg_chunks,
                             int act, void* stream) {
   if (seg_chunks < 1 || w_kind < 0 || w_kind > 2 || (part != nullptr && arrivals == nullptr) ||
-      (x_kind != KIND_F32 && x_kind != KIND_BF16))
+      x_kind != KIND_F32)
     return cudaErrorInvalidValue;
   const int split = part != nullptr;
   const int chunks = (k + BK - 1) / BK;
   const int nseg = chunks > seg_chunks ? (chunks + seg_chunks - 1) / seg_chunks : 1;
   const int wvec = copy_bytes(w, static_cast<long long>(n) * KIND_BYTES[w_kind]);
-  const int xvec = copy_bytes(x, static_cast<long long>(k) * KIND_BYTES[x_kind]);
-  if (xvec == 0 && x_kind == KIND_F32) return cudaErrorInvalidValue;
+  const int xvec = copy_bytes(x, static_cast<long long>(k) * 4);
+  if (xvec == 0) return cudaErrorInvalidValue;
   const Args a{x, w, static_cast<const float*>(scale), static_cast<const float*>(bias), out,
                static_cast<float*>(part), static_cast<int*>(arrivals), b, k, n, bn, seg_chunks,
                nseg, split, wvec, xvec, act, static_cast<cudaStream_t>(stream)};
   switch (w_kind) {
-    case 0: return launch_types<float>(x_kind, out_kind, rb, a);
-    case 1: return launch_types<int8_t>(x_kind, out_kind, rb, a);
-    case 2: return launch_types<__nv_bfloat16>(x_kind, out_kind, rb, a);
+    case 0: return launch_types<float>(out_kind, rb, a);
+    case 1: return launch_types<int8_t>(out_kind, rb, a);
+    case 2: return launch_types<__nv_bfloat16>(out_kind, rb, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 namespace {
 
-template <typename WT, typename XT>
+template <typename WT>
 int smem_rb(int rb) {
   switch (rb) {
-    case 1: return Cfg<WT, XT, 1>::SMEM;
-    case 2: return Cfg<WT, XT, 2>::SMEM;
-    case 4: return Cfg<WT, XT, 4>::SMEM;
-    case 8: return Cfg<WT, XT, 8>::SMEM;
-    case 16: return Cfg<WT, XT, 16>::SMEM;
-    case 32: return Cfg<WT, XT, 32>::SMEM;
-    case 64: return Cfg<WT, XT, 64>::SMEM;
+    case 1: return Cfg<WT, 1>::SMEM;
+    case 2: return Cfg<WT, 2>::SMEM;
+    case 4: return Cfg<WT, 4>::SMEM;
+    case 8: return Cfg<WT, 8>::SMEM;
+    case 16: return Cfg<WT, 16>::SMEM;
+    case 32: return Cfg<WT, 32>::SMEM;
+    case 64: return Cfg<WT, 64>::SMEM;
     default: return -1;
   }
 }
 
 template <typename WT>
 int smem_types(int x_kind, int rb) {
-  if (x_kind == KIND_F32) return smem_rb<WT, float>(rb);
-  if (x_kind == KIND_BF16) return smem_rb<WT, __nv_bfloat16>(rb);
-  return -1;
+  return x_kind == KIND_F32 ? smem_rb<WT>(rb) : -1;
 }
 
 }  // namespace
 
 // The dynamic shared memory sa_fc_launch passes at row tile rb for these
 // types (w_kind and x_kind as it takes them), or -1 where it has no
-// instantiation: what repro_torch/analysis/launch.py derives, asked of the
-// built kernel.
+// instantiation (bf16 x among them): what repro_torch/analysis/launch.py
+// derives, asked of the built kernel.
 extern "C" int sa_fc_smem(int w_kind, int x_kind, int rb) {
   switch (w_kind) {
     case 0: return smem_types<float>(x_kind, rb);

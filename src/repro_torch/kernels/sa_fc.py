@@ -1,27 +1,30 @@
-"""SA-FC — the batch-amortized weight stream, as a hand-written CUDA kernel
-(``csrc/sa_fc.cu``) with its plain PyTorch version.
+"""SA-FC — the batch-amortized weight stream, as hand-written CUDA kernels
+(``csrc/sa_fc.cu`` for fp32 x, ``csrc/sa_fc_tc.cu`` for bf16 x) with their
+plain PyTorch version.
 
 ``sa_fc_matmul`` computes ``act((x @ w) * w_scale + bias)`` for ``x`` (b, k)
 fp32 or bf16 and ``w`` (k, n) fp32, bf16 or int8 (int8 with a (1, n) or
 (n,) per-column ``w_scale``), written as ``out_dtype`` (fp32 or bf16, by
 default ``x``'s).  As in the TPU kernel, ``w`` is rounded to ``x``'s dtype,
 products are summed in fp32 and the epilogue runs in fp32.  For a CPU
-tensor it runs :func:`sa_fc_plain`; for a CUDA tensor it launches the
+tensor it runs :func:`sa_fc_plain`; for a CUDA tensor it launches a
 kernel on the current stream, or raises.  Ragged k, n and b are masked
 inside the kernel: no padded copies.
 
-The kernel splits k into :func:`fc_split` segments, a function of (k, n)
+Each kernel splits k into :func:`fc_split` segments, a function of (k, n)
 only, and adds every output's terms in an order fixed by that split, so a
 row's output is bitwise the same whatever batch it rides in.
-:func:`fc_launch` is the whole launch geometry, in Python so that the CPU
-tests reach it.
+:func:`fc_launch` and :func:`tc_launch` are the whole launch geometries, in
+Python so that the CPU tests reach them.
 
-Two kernels run that order.  bf16 ``x`` with bf16 ``w`` at a row tile of at
-most 8 (every LM decode step) runs the decode kernel
-(``csrc/sa_fc_decode.cu``, launch geometry :func:`decode_launch`), a weight
-stream laid out for the card's memory; everything else runs the FMA kernel
-(``csrc/sa_fc.cu``).  :func:`decode_route` is the choice, by dtype and row
-tile alone, and the two give the same bits.
+Two kernels run that order's split.  bf16 ``x`` runs the tensor-core
+kernel (``csrc/sa_fc_tc.cu``, launch geometry :func:`tc_launch`) with
+every weight type at every b: mma.sync k16 steps in increasing k within a
+segment, segments in order, so its rows too are bitwise the same at every
+b; fp32 ``x`` runs the FMA kernel (``csrc/sa_fc.cu``).  :func:`tc_route` is
+the choice, by x's dtype alone.  The two kernels sum in other orders: a
+bf16 launch lies within :func:`widened_bound` of the fp32 launch on the
+widened operands.
 """
 from __future__ import annotations
 
@@ -47,27 +50,23 @@ K_CHUNK = 32
 K_LANES = 4
 #: CTAs a launch aims for: two on each of an H100's 132 SMs
 TARGET_CTAS = 2 * 132
-#: the decode kernel (csrc/sa_fc_decode.cu, the same names there): its row
-#: tiles and the largest k and n it runs narrow; narrow: the columns of a warp's
-#: unit (a group), warps a CTA, stages of a warp's ring, where a stage's x
-#: rows start, the most partials it keeps in shared memory (what k and n up
-#: to NARROW_MAX give); wide: the columns of a
-#: team's unit (a tile), teams of K_LANES warps a CTA, CTAs an SM, stages
-#: of a warp's ring and their bytes (a lane's 8 weight rows of a tile, then
-#: 128 bytes for its 8 k of the x rows); the SMs of an H100
-DECODE_ROWS = (1, 2, 4, 8)
+#: the tensor-core kernel (csrc/sa_fc_tc.cu, the same names there): its
+#: row tiles (an n8 slice's 8 rows and up); the largest k and n it runs
+#: narrow (at row tile 8); narrow: the columns of a warp's unit (one m16
+#: tile), warps a CTA, the most partials it keeps in shared memory (what k
+#: and n up to NARROW_MAX give); wide: stages of a warp's ring (its warps
+#: a CTA: :func:`wide_warps`); a staged x row (32 k in bf16); the SMs of an
+#: H100
+TC_ROWS = (8, 16, 32, 64)
 NARROW_MAX = 4096
 GCOLS = 16
 N_WARPS = 16
-N_DEPTH = 6
-N_X_OFF = K_LANES * (8 * GCOLS * 2 + 32)
 PART_SMEM_MAX = 65536
-TILE = 128
-TEAMS = 2
-PER_SM = 2
 W_DEPTH = 4
-W_STAGE = 8 * TILE * 2 + 128
+X_ROW = K_CHUNK * 2
 SM_COUNT = 132
+#: the segments from which a launch runs row tiles of 8 (:func:`tc_rows`)
+SPLIT_ROWS = 8
 
 
 def sa_fc_plain(x: torch.Tensor, w: torch.Tensor,
@@ -162,16 +161,15 @@ class FcLaunch:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
-def fc_smem_bytes(rows: int, w_bytes: int, x_bytes: int = 4) -> int:
+def fc_smem_bytes(rows: int, w_bytes: int) -> int:
     """Dynamic shared memory of a CTA at row tile ``rows`` (csrc/sa_fc.cu
-    ``Cfg::SMEM``): a ring of 6 stages (4 above 8 rows), each a chunk of x
-    (``rows`` rows of :data:`K_CHUNK`, padded by 4 fp32 or 8 bf16
-    elements) and of w (:data:`K_CHUNK` rows of the tile's columns, in
-    ``w_bytes``), then the k-lanes' sums and the running total in fp32."""
+    ``Cfg::SMEM``): a ring of 6 stages (4 above 8 rows), each a chunk of
+    fp32 x (``rows`` rows of :data:`K_CHUNK`, padded by 4 elements) and of
+    w (:data:`K_CHUNK` rows of the tile's columns, in ``w_bytes``), then
+    the k-lanes' sums and the running total in fp32."""
     cols = _COLS[rows]
     stages = 6 if rows <= 8 else 4
-    x_row = K_CHUNK + (4 if x_bytes == 4 else 8)
-    stage = rows * x_row * x_bytes + K_CHUNK * cols * w_bytes
+    stage = rows * (K_CHUNK + 4) * 4 + K_CHUNK * cols * w_bytes
     return stages * stage + (K_LANES + 1) * rows * cols * 4
 
 
@@ -191,55 +189,95 @@ def fc_launch(b: int, k: int, n: int) -> FcLaunch:
                     (col_tiles, row_tiles, segments if split else 1))
 
 
-def decode_route(b: int, x_dtype: torch.dtype, w_dtype: torch.dtype) -> bool:
-    """Whether :func:`sa_fc_matmul` runs the decode kernel for ``b`` rows:
-    bf16 ``x`` with bf16 ``w`` at a row tile of at most 8."""
-    return (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
-            and row_tile(b) in DECODE_ROWS)
+def tc_route(x_dtype: torch.dtype) -> bool:
+    """Whether :func:`sa_fc_matmul` runs the tensor-core kernel: bf16 x,
+    whatever the weights and the batch."""
+    return x_dtype == torch.bfloat16
 
 
-def narrow_smem_bytes(rows: int, segments: int, span: int) -> int:
-    """Dynamic shared memory of a narrow decode CTA (csrc/sa_fc_decode.cu
+def tc_rows(b: int, segments: int = 1) -> int:
+    """The tensor-core kernel's row tile for ``b`` rows and k split into
+    ``segments``: 8 from :data:`SPLIT_ROWS` segments on (n is then small:
+    the weights stay in L2 while ceil(b / 8) row tiles read them, and each
+    tile's tail of segment partials stays short), else the smallest of
+    :data:`TC_ROWS` that holds b, 64 above (row tiles of 64)."""
+    if segments >= SPLIT_ROWS:
+        return TC_ROWS[0]
+    return next(t for t in TC_ROWS if t >= min(b, 64))
+
+
+def tc_cols(rows: int, w_bytes: int) -> int:
+    """Columns of a wide unit (csrc/sa_fc_tc.cu ``wide::Cfg::TC``): 4 KB
+    of weights a chunk at row tiles 8 and 16 (64 columns of bf16, 32 of
+    fp32; 64 of int8), 64 columns at 32 rows and 32 at 64, so a thread
+    holds at most 64 accumulators."""
+    return (32 if w_bytes == 4 else 64) if rows <= 16 else 2048 // rows
+
+
+def wide_warps(rows: int) -> int:
+    """Warps of a wide CTA, one CTA an SM (``wide::Cfg::WARPS``): 8 at row
+    tiles 8 and 16, 4 above."""
+    return 8 if rows <= 16 else 4
+
+
+def narrow_depth(w_bytes: int) -> int:
+    """Stages of a narrow warp's ring (``narrow::Cfg::DEPTH``)."""
+    return 4 if w_bytes == 4 else 6
+
+
+def narrow_smem_bytes(w_bytes: int, segments: int, span: int) -> int:
+    """Dynamic shared memory of a narrow CTA (csrc/sa_fc_tc.cu
     ``narrow::smem_bytes``): its warps' rings, a stage a chunk of 16
-    columns (4 k-lanes' blocks of 8 rows padded by 32 bytes) then its 32 k
-    of each x row; then, where k is split, the partials of the CTA's units
-    (``span`` groups x ``segments`` x ``rows`` x :data:`GCOLS` floats)."""
-    part = span * segments * rows * GCOLS * 4 if segments > 1 else 0
-    return N_WARPS * N_DEPTH * (N_X_OFF + rows * K_CHUNK * 2) + part
+    columns of w then its 32 k of 8 x rows; then, where k is split, the
+    partials of the CTA's units (``span`` groups x ``segments`` x 8 rows x
+    :data:`GCOLS` floats)."""
+    part = span * segments * 8 * GCOLS * 4 if segments > 1 else 0
+    stage = K_CHUNK * GCOLS * w_bytes + 8 * X_ROW
+    return N_WARPS * narrow_depth(w_bytes) * stage + part
 
 
-def wide_smem_bytes(rows: int) -> int:
-    """Dynamic shared memory of a wide decode CTA (csrc/sa_fc_decode.cu
-    ``wide::smem_bytes``): 128 bytes to align, the rings of its ``TEAMS``
-    x ``K_LANES`` warps, each team's buffer of warps 1-3's lane sums
-    (``rows`` x :data:`TILE` floats each), each warp's mbarriers."""
-    warps = TEAMS * K_LANES
-    return (128 + warps * W_DEPTH * W_STAGE
-            + TEAMS * (K_LANES - 1) * rows * TILE * 4 + warps * W_DEPTH * 8)
+def wide_stage_bytes(rows: int, w_bytes: int) -> int:
+    """A wide warp's stage (``wide::Cfg::STAGE``): a chunk of its unit's
+    columns of w, then 32 k of its ``rows`` x rows, rounded up to the
+    1024-byte period of the swizzle."""
+    raw = K_CHUNK * tc_cols(rows, w_bytes) * w_bytes + rows * X_ROW
+    return -(-raw // 1024) * 1024
+
+
+def wide_smem_bytes(rows: int, w_bytes: int) -> int:
+    """Dynamic shared memory of a wide CTA (``wide::Cfg::SMEM``): 1024
+    bytes to align, the rings of its :func:`wide_warps` warps, each warp's
+    scratch of its unit's outputs (``rows`` rows of the unit's columns
+    and 4 more, in fp32), each warp's mbarriers."""
+    warps = wide_warps(rows)
+    scratch = rows * (tc_cols(rows, w_bytes) + 4) * 4
+    return (1024 + warps * W_DEPTH * wide_stage_bytes(rows, w_bytes)
+            + warps * scratch + warps * W_DEPTH * 8)
 
 
 @dataclasses.dataclass(frozen=True)
-class DecodeLaunch:
-    """How :func:`sa_fc_matmul` launches the decode kernel for one shape.
+class TcLaunch:
+    """How :func:`sa_fc_matmul` launches the tensor-core kernel for one
+    shape.
 
-    A unit is (column tile, k segment).  Narrow (k and n at most
-    :data:`NARROW_MAX`):
-    tiles of :data:`GCOLS` columns, a warp a unit; CTA ``c`` owns tiles
-    :meth:`cta_tiles` and every segment of them, its units
-    segment-major round-robin over its :data:`N_WARPS` warps, and adds
-    each output's segments in order from shared memory.  Wide: tiles of
-    :data:`TILE` columns, a team of K_LANES warps a unit; units
-    segment-major (``u = segment x tiles + tile``) round-robin over the
-    ``ctas x TEAMS`` teams; where k is split, partials through the
-    (S, b, n) workspace and one arrival counter per tile, the last team on
-    a tile adding them in segment order.  :meth:`worker_units` is either
-    assignment."""
+    A unit is (column tile, k segment, row tile), run by one warp.  Narrow
+    (b <= 8 and k and n at most :data:`NARROW_MAX`): tiles of
+    :data:`GCOLS` columns; CTA ``c`` owns tiles :meth:`cta_tiles` and every
+    segment of them, its units segment-major round-robin over its
+    :data:`N_WARPS` warps, and adds each output's segments in order from
+    shared memory.  Wide: tiles of :func:`tc_cols` columns; unit ``u =
+    (segment x tiles + tile) x row_tiles + row tile`` runs on warp ``(u //
+    ctas) % wide_warps(rows)`` of CTA ``u % ctas``; where k is split, partials
+    through the (S, b, n) workspace and one arrival counter per (row tile,
+    column tile), the last warp on a tile adding them in segment order, or,
+    :meth:`worker_units` is either assignment."""
     narrow: bool
     rows: int                   # row tile (an instantiation)
     segments: int               # fc_split's S
     seg_k: int                  # k per segment
     cols: int                   # columns of a unit
     tiles: int                  # column tiles
+    row_tiles: int              # row tiles (more than one past 64 rows)
     ctas: int                   # the grid
     span: int                   # narrow: most tiles a CTA owns
     smem: int                   # dynamic shared memory of a CTA
@@ -250,46 +288,79 @@ class DecodeLaunch:
 
     @property
     def workers(self) -> int:
-        """Workers of a CTA, each running its own units: warps (narrow) or
-        teams (wide)."""
-        return N_WARPS if self.narrow else TEAMS
+        """Warps of a CTA, each running its own units."""
+        return N_WARPS if self.narrow else wide_warps(self.rows)
 
     def cta_tiles(self, c: int) -> tuple[int, int]:
         """The tiles narrow CTA ``c`` owns (every segment of them)."""
         return c * self.tiles // self.ctas, (c + 1) * self.tiles // self.ctas
 
-    def worker_units(self, c: int, i: int) -> list[tuple[int, int]]:
-        """(tile, segment) of each unit worker ``i`` of CTA ``c`` runs, in
-        its order."""
+    def worker_units(self, c: int, i: int) -> list[tuple[int, int, int]]:
+        """(tile, segment, row tile) of each unit warp ``i`` of CTA ``c``
+        runs, in its order."""
         if self.narrow:
             t0, t1 = self.cta_tiles(c)
             gc = t1 - t0
-            return [(t0 + u % gc, u // gc)
+            return [(t0 + u % gc, u // gc, 0)
                     for u in range(i, gc * self.segments, N_WARPS)]
-        units = self.tiles * self.segments
-        return [(u % self.tiles, u // self.tiles)
-                for u in range(c * TEAMS + i, units, self.ctas * TEAMS)]
+        units = self.row_tiles * self.tiles * self.segments
+        return [((u // self.row_tiles) % self.tiles,
+                 u // self.row_tiles // self.tiles, u % self.row_tiles)
+                for u in range(i * self.ctas + c, units,
+                               self.ctas * self.workers)]
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_launch(b: int, k: int, n: int) -> DecodeLaunch:
-    """The decode kernel's launch for ``(b, k) @ (k, n)``, b <= 8: the row
-    tile follows b; the mode, the split, the tiles, the grid and every
-    worker's units follow (k, n) alone."""
-    rb = row_tile(b)
-    if rb not in DECODE_ROWS:
-        raise ValueError(f"decode_launch: b={b} is above the decode row tiles")
+def tc_launch(b: int, k: int, n: int, w_bytes: int = 2) -> TcLaunch:
+    """The tensor-core kernel's launch for ``(b, k) @ (k, n)`` with weights
+    of ``w_bytes`` (4 fp32, 2 bf16, 1 int8): the split (:func:`fc_split`)
+    and so every output's order follow (k, n) alone; the row tile follows b
+    and the split; the mode, the tiles and the grid follow b, the row tile
+    and (k, n)."""
     segments, seg_k = fc_split(k, n)
-    if k <= NARROW_MAX and n <= NARROW_MAX:
+    rows = tc_rows(b, segments)
+    if b <= 8 and k <= NARROW_MAX and n <= NARROW_MAX:
         tiles = -(-n // GCOLS)
         ctas = min(tiles, SM_COUNT)
         span = -(-tiles // ctas)
-        return DecodeLaunch(True, rb, segments, seg_k, GCOLS, tiles, ctas,
-                            span, narrow_smem_bytes(rb, segments, span))
-    tiles = -(-n // TILE)
-    ctas = min(-(-tiles * segments // TEAMS), SM_COUNT * PER_SM)
-    return DecodeLaunch(False, rb, segments, seg_k, TILE, tiles, ctas, 0,
-                        wide_smem_bytes(rb))
+        return TcLaunch(True, rows, segments, seg_k, GCOLS, tiles, 1, ctas,
+                        span, narrow_smem_bytes(w_bytes, segments, span))
+    cols = tc_cols(rows, w_bytes)
+    tiles, row_tiles = -(-n // cols), -(-b // rows)
+    ctas = min(row_tiles * tiles * segments, SM_COUNT)
+    return TcLaunch(False, rows, segments, seg_k, cols, tiles, row_tiles,
+                    ctas, 0, wide_smem_bytes(rows, w_bytes))
+
+
+def widened_bound(x: torch.Tensor, w: torch.Tensor, wide_out: torch.Tensor,
+                  *, w_scale: torch.Tensor | None = None,
+                  out_dtype=None) -> torch.Tensor:
+    """The worst-case |got - wide_out| (fp64, shaped like the output) of a
+    tensor-core launch ``got`` on bf16 ``x`` (act none, no bias) against
+    ``wide_out``, the FMA kernel's fp32 launch on the same operands widened
+    (x widened, an fp32 w rounded to bf16 and widened, an int8 w as is,
+    the same ``w_scale``).  Derived, not fitted:
+
+    Both kernels see the same exact operands, and every product of two
+    bf16 values is exact in fp32, so they differ only in their roundings.
+    With A = |x| @ |w| per output (computed here in fp64), u = 2^-24 and k
+    terms: the FMA loop's sum lies within (k - 1) u A of the exact sum; the
+    tensor-core kernel's within (k - 1) 3u A: each k16 step's sum of its
+    products, truncated as it goes, within 2u per term added, and the steps
+    added with rounding to nearest, within u per add.  The two lie within
+    4 (k - 1) u A of each other; an int8 launch then multiplies each by the
+    column's scale s, rounded once in each (2 u |s| A more).  Together at
+    most k 2^-22 |s| A (s = 1 without a scale).  A bf16 output is the fp32
+    result rounded once: one bf16 ulp of ``wide_out`` more."""
+    a = x.double().abs() @ w.double().abs()
+    if w_scale is not None:
+        a = a * w_scale.double().abs().reshape(1, -1)
+    bound = max(x.shape[1], 1) * 2.0 ** -22 * a
+    if (out_dtype or x.dtype) == torch.bfloat16:
+        ref = wide_out.double()
+        bound = bound + torch.ldexp(torch.ones_like(ref),
+                                    torch.frexp(ref)[1] - 8)
+    return bound
 
 
 #: per (device, stream): the split launches' arrival counters (all 0
@@ -326,9 +397,9 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
                  w_scale: torch.Tensor | None = None,
                  out_dtype=None) -> torch.Tensor:
     """(b, k) @ (k, n) on an SA-FC kernel, fused scale + bias + act: the
-    decode kernel where :func:`decode_route` says so, else the FMA kernel.
-    ``launches`` counts both kernels' launches, ``decode_launches`` the
-    decode kernel's."""
+    tensor-core kernel for bf16 x (:func:`tc_route`), the FMA kernel for
+    fp32 x.  ``launches`` counts both kernels' launches, ``tc_launches``
+    the tensor-core kernel's."""
     if x.device.type == "cpu":
         return sa_fc_plain(x, w, bias, act=act, w_scale=w_scale,
                            out_dtype=out_dtype)
@@ -340,23 +411,24 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if decode_route(b, x.dtype, w.dtype):
-        d = decode_launch(b, k, n)
+    scale_p = w_scale.data_ptr() if w_scale is not None else None
+    bias_p = bias.data_ptr() if bias is not None else None
+    if tc_route(x.dtype):
+        d = tc_launch(b, k, n, w.element_size())
         part = arrivals = None
         if d.split and not d.narrow:
-            arrivals, part = _scratch(x.device, stream, d.tiles,
+            arrivals, part = _scratch(x.device, stream, d.row_tiles * d.tiles,
                                       d.segments * b * n)
-        lib = _build.load("sa_fc_decode")
-        err = lib.sa_fc_decode_launch(
-            x.data_ptr(), w.data_ptr(), X_KINDS[out_dtype],
-            w_scale.data_ptr() if w_scale is not None else None,
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        lib = _build.load("sa_fc_tc")
+        err = lib.sa_fc_tc_launch(
+            x.data_ptr(), w.data_ptr(), W_KINDS[w.dtype], X_KINDS[out_dtype],
+            scale_p, bias_p, out.data_ptr(),
             part.data_ptr() if part is not None else None,
             arrivals.data_ptr() if arrivals is not None else None, b, k, n,
             d.rows, d.seg_k // K_CHUNK, d.ctas, _build.act_code(act), stream)
         _build.check(lib, err, "sa_fc_matmul")
         sa_fc_matmul.launches += 1
-        sa_fc_matmul.decode_launches += 1
+        sa_fc_matmul.tc_launches += 1
         return out
     plan = fc_launch(b, k, n)
     part = arrivals = None
@@ -367,9 +439,7 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
     lib = _build.load("sa_fc")
     err = lib.sa_fc_launch(
         x.data_ptr(), w.data_ptr(), W_KINDS[w.dtype], X_KINDS[x.dtype],
-        X_KINDS[out_dtype],
-        w_scale.data_ptr() if w_scale is not None else None,
-        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        X_KINDS[out_dtype], scale_p, bias_p, out.data_ptr(),
         part.data_ptr() if part is not None else None,
         arrivals.data_ptr() if arrivals is not None else None,
         b, k, n, plan.rows, plan.cols, plan.seg_k // K_CHUNK,
@@ -380,4 +450,4 @@ def sa_fc_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 sa_fc_matmul.launches = 0
-sa_fc_matmul.decode_launches = 0
+sa_fc_matmul.tc_launches = 0

@@ -579,14 +579,13 @@ def test_launch_pass_clean_on_every_lm_config():
                             "seamless-m4t-large-v2@fp32", "zamba2-2.7b"}
     launches = tlaunch.lm_launches(configs)
     kernels = {lau.kernel for lau in launches}
-    assert kernels == {"sa_fc", "sa_fc_decode", "sa_conv", "attention"}
-    # bf16 x and w at b <= 8 (every bf16 decode step) on the decode kernel,
-    # every other SA-FC launch on the FMA kernel
+    assert kernels == {"sa_fc", "sa_fc_tc", "sa_conv", "attention"}
+    # bf16 x (every bf16 decode step and wave) on the tensor-core kernel,
+    # every fp32 x launch on the FMA kernel
     for lau in launches:
         if lau.kernel.startswith("sa_fc"):
-            b, _, _, w_kind, x_kind = lau.shape
-            assert (lau.kernel == "sa_fc_decode") == (
-                b <= 8 and w_kind == x_kind == 2), lau.op
+            x_kind = lau.shape[4]
+            assert (lau.kernel == "sa_fc_tc") == (x_kind == 2), lau.op
     windows = {lau.shape[7] for lau in launches
                if lau.kernel == "attention"}
     assert windows == {0, 1024, 4096}          # gemma3's, gemma2's, mixtral's
@@ -981,16 +980,16 @@ def test_launch_catches_scratch_shared_across_streams(monkeypatch):
     assert "not kept per (device, stream)" in _only(lau)
 
 
-# -- the decode kernel: seeded faults -----------------------------------------
+# -- the tensor-core kernel: seeded faults -----------------------------------
 
-#: an edge launch of each decode mode, split over k: narrow (n = 1001) and
-#: wide (n = 4104)
-DECODE_EDGES = ["edge decode b=8 odd n [sa_fc_decode]",
-                "edge decode wide b=8 313 segments [sa_fc_decode]"]
+#: an edge launch of each tensor-core mode, split over k: narrow (n =
+#: 1001) and wide (n = 4104)
+DECODE_EDGES = ["edge tc b=8 odd n [sa_fc_tc]",
+                "edge tc wide b=8 313 segments [sa_fc_tc]"]
 
 
 def _decode_edge(op, units=None, **fields):
-    """The edge decode launch ``op``, its geometry's fields replaced by
+    """The edge tensor-core launch ``op``, its geometry's fields replaced by
     ``fields`` and, where ``units`` is given, its workers running
     ``units(real geometry, cta, worker)``."""
     lau = _edge(op)
@@ -1013,7 +1012,7 @@ def test_launch_catches_a_decode_geometry_that_skips_a_segment(op, fault):
     else:
         bad = _decode_edge(op, segments=_edge(op).geoms[0].segments - 1)
     msgs = _only(bad)
-    assert "sa_fc_decode coverage: units" in msgs, msgs
+    assert "sa_fc_tc coverage: units" in msgs, msgs
     assert "run by no worker — a k segment or a column tile is never " \
         "summed" in msgs
 
@@ -1031,7 +1030,7 @@ def test_launch_catches_a_decode_output_with_two_writers(op, fault):
         bad = _decode_edge(op, lambda g, c, i: g.worker_units(c, i) + (
             g.worker_units(0, 0)[:1] if (c, i) == (1, 0) else []))
     msgs = _only(bad)
-    assert "sa_fc_decode race: units" in msgs, msgs
+    assert "sa_fc_tc race: units" in msgs, msgs
     assert "run by more than one" in msgs
     if fault == "two CTAs" and "b=8 odd n" in op:
         assert "which does not own tile 0 — two CTAs write its outputs" in msgs
@@ -1043,52 +1042,53 @@ def test_launch_catches_a_decode_assignment_that_follows_the_batch(
     """A grid that changes with b would hand an output's segments to other
     workers between batched and unbatched runs."""
     lau = _decode_edge(op)
-    real = tfc.decode_launch
+    real = tfc.tc_launch
 
-    def launch(b, k, n):
-        d = real(b, k, n)
+    def launch(b, k, n, w_bytes=2):
+        d = real(b, k, n, w_bytes)
         return d if b < 4 else dataclasses.replace(d, ctas=d.ctas - 1)
-    monkeypatch.setattr(tfc, "decode_launch", launch)
+    monkeypatch.setattr(tfc, "tc_launch", launch)
     msgs = _only(lau)
-    assert "sa_fc_decode order: out: the decode units at b=4 differ" in msgs
+    assert "sa_fc_tc order: out: the units at b=4 differ" in msgs
 
 
 def test_launch_catches_an_sa_fc_launch_on_the_wrong_kernel():
-    """fp32 x on the decode kernel, bf16 x and w at b = 8 on the FMA
-    kernel, and a narrow geometry at n > 4096: routes the wrapper never
-    takes."""
+    """fp32 x on the tensor-core kernel, bf16 x on the FMA kernel, and a
+    narrow geometry at n > 4096: routes the wrapper never takes."""
     lau = _decode_edge(DECODE_EDGES[0])
     b, k, n, w_kind, _ = lau.shape
-    assert "sa_fc_decode order: out: the decode kernel runs b=8, x kind 0" \
+    assert "sa_fc_tc order: out: the tensor-core kernel runs b=8, x kind 0" \
         in _only(dataclasses.replace(lau, shape=(b, k, n, w_kind, 0)))
     fma = dataclasses.replace(lau, kernel="sa_fc",
                               geoms=(tfc.fc_launch(b, k, n),))
-    assert "sa_fc order: out: b=8 with bf16 x and w on the FMA kernel" in \
+    assert "sa_fc order: out: b=8 with bf16 x on the FMA kernel" in \
         _only(fma)
     wide = _edge(DECODE_EDGES[1])
     as_narrow = dataclasses.replace(wide, geoms=(dataclasses.replace(
         wide.geoms[0], narrow=True),))
-    assert "narrow tiles of 16 for k and n up to 4096" in _only(as_narrow)
+    assert "narrow tiles of 16 at b <= 8 for k and n up to 4096" in \
+        _only(as_narrow)
 
 
 def test_launch_catches_narrow_decode_partials_past_shared_memory():
     """The narrow kernel keeps every partial of a CTA in shared memory, at
     most 64 KiB: k and n up to 4096 never give more (the edge launch's 125
     segments of 8 rows are 64000 B), a span one larger would."""
-    lau = _edge("edge decode b=8 125 segments [sa_fc_decode]")
+    lau = _edge("edge tc b=8 125 segments [sa_fc_tc]")
     g = lau.geoms[0]
     assert g.narrow and tlaunch.check_launch(lau) == []
     bad = dataclasses.replace(lau, geoms=(dataclasses.replace(
-        g, span=2, smem=tfc.narrow_smem_bytes(g.rows, g.segments, 2)),))
+        g, span=2, smem=tfc.narrow_smem_bytes(2, g.segments, 2)),))
     msgs = _only(bad)
-    assert "sa_fc_decode residency: partials: 128000 B over the 65536 B" \
+    assert "sa_fc_tc residency: partials: 128000 B over the 65536 B" \
         in msgs, msgs
 
 
 @pytest.mark.parametrize("short", ["segment", "tile"])
 def test_launch_catches_decode_scratch_too_short(monkeypatch, short):
-    """The wide decode kernel's split launches index the FMA kernel's
-    scratch: (S, b, n) partials and one counter per 128-column tile."""
+    """The wide tensor-core kernel's split launches index the FMA kernel's
+    scratch: (S, b, n) partials and one counter per (row tile, 64-column
+    tile)."""
     lau = _edge(DECODE_EDGES[1])
     b, _, n = lau.shape[:3]
     real = tfc._scratch
@@ -1102,9 +1102,9 @@ def test_launch_catches_decode_scratch_too_short(monkeypatch, short):
     monkeypatch.setattr(tfc, "_scratch", scratch)
     msgs = _only(lau)
     if short == "tile":
-        assert "sa_fc_decode race: arrival counters: 32 < 33" in msgs, msgs
+        assert "sa_fc_tc race: arrival counters: 64 < 65" in msgs, msgs
     else:
-        assert "sa_fc_decode race: partials workspace" in msgs, msgs
+        assert "sa_fc_tc race: partials workspace" in msgs, msgs
 
 
 def _fc_launch_reading_b():

@@ -310,7 +310,7 @@ def test_remat_regathers_what_its_recompute_reruns(arch):
 
 
 def _launch_flops(lau) -> tuple[str, int]:
-    if lau.kernel == "sa_fc":
+    if lau.kernel in ("sa_fc", "sa_fc_tc"):    # either of SA-FC's kernels
         b, k, n = lau.shape[:3]
         return "sa_fc_matmul", 2 * b * k * n
     m, n, k = lau.shape[:3]

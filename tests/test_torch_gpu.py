@@ -711,6 +711,19 @@ def _bf16_operands(dev, m, k, n, wdtype):
     return x, w, scale, _t(2, (n,), dev), wide
 
 
+def _fc_within_widened_bound(x, w, scale, wide, out_dtype):
+    """SA-FC with bf16 x on the tensor cores (act none, no bias) against the
+    FMA kernel's fp32 launch on the widened operands, per output, within
+    ``kernels/sa_fc.py::widened_bound``; returns the largest |d| / bound."""
+    got = sa_fc_matmul(x, w, w_scale=scale, out_dtype=out_dtype).double()
+    fp32 = sa_fc_matmul(x.float(), wide, w_scale=scale)
+    bound = tfc.widened_bound(x, wide, fp32, w_scale=scale,
+                              out_dtype=out_dtype)
+    d = (got - fp32.double()).abs()
+    assert (d <= bound).all(), (d - bound).max().item()
+    return (d / bound.clamp_min(1e-300)).max().item()
+
+
 @pytest.mark.parametrize("b,k,n", [(1, 130, 190), (4, 2048, 2048),
                                    (33, 512, 384), (70, 1000, 129),
                                    (4, 8192, 256)])
@@ -718,8 +731,9 @@ def _bf16_operands(dev, m, k, n, wdtype):
 @pytest.mark.parametrize("out", ["bf16", "fp32"])
 def test_sa_fc_bf16_kernel(cuda, b, k, n, wdtype, out):
     """bf16 x against the plain version within the reference's bf16
-    tolerance; bitwise the fp32 launch on the widened operands, rounded
-    once (the same sums in the same order)."""
+    tolerance; within the derived bound of the fp32 launch on the widened
+    operands (the tensor cores sum in another order); the bf16 output the
+    fp32 output rounded once."""
     out_dtype = BF16 if out == "bf16" else torch.float32
     x, w, scale, bias, wide = _bf16_operands(cuda, b, k, n, wdtype)
     got = sa_fc_matmul(x, w, bias, act="silu", w_scale=scale,
@@ -728,8 +742,10 @@ def test_sa_fc_bf16_kernel(cuda, b, k, n, wdtype, out):
     want = sa_fc_plain(x, w, bias, act="silu", w_scale=scale,
                        out_dtype=out_dtype)
     torch.testing.assert_close(got.float(), want.float(), **TOL_BF16)
-    fp32 = sa_fc_matmul(x.float(), wide, bias, act="silu", w_scale=scale)
-    assert torch.equal(got, fp32.to(out_dtype))
+    assert torch.equal(got, sa_fc_matmul(
+        x, w, bias, act="silu", w_scale=scale,
+        out_dtype=torch.float32).to(out_dtype))
+    _fc_within_widened_bound(x, w, scale, wide, out_dtype)
 
 
 @pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
@@ -766,41 +782,41 @@ def test_sa_fc_bf16_odd_widths_and_unaligned_bases(cuda, k, n, wdtype):
                                     w_scale=scale), want)
 
 
-#: the LM decode shapes of the decode kernel: OLMo-1B's q/k/v/o,
+#: the LM decode shapes of the tensor-core kernel: OLMo-1B's q/k/v/o,
 #: seamless's attention, zamba2's in_proj, llava's gate/up
 DECODE_SHAPES = [(2048, 2048), (1024, 1024), (2560, 10448), (7168, 20480)]
 
 
-def _decode_operands(dev, b, k, n):
-    x = _t(0, (b, k), dev).to(BF16)
-    w = _t(1, (k, n), dev, k ** -0.5).to(BF16)
-    return x, w, _t(2, (n,), dev)
+def _decode_operands(dev, b, k, n, wdtype="bf16"):
+    x, w, scale, bias, wide = _bf16_operands(dev, b, k, n, wdtype)
+    return x, w, scale, bias, wide
 
 
-def _on_decode_kernel(fn):
-    """``fn()`` and whether it launched the decode kernel once (and the
-    SA-FC wrapper once)."""
-    before = (sa_fc_matmul.launches, sa_fc_matmul.decode_launches)
+def _on_tc_kernel(fn):
+    """``fn()`` and whether it launched the tensor-core kernel once (and
+    the SA-FC wrapper once)."""
+    before = (sa_fc_matmul.launches, sa_fc_matmul.tc_launches)
     out = fn()
     return out, (sa_fc_matmul.launches - before[0],
-                 sa_fc_matmul.decode_launches - before[1]) == (1, 1)
+                 sa_fc_matmul.tc_launches - before[1]) == (1, 1)
 
 
 @pytest.mark.parametrize("k,n", DECODE_SHAPES)
 @pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8])
-def test_sa_fc_decode_kernel_is_the_fma_kernel_bit_for_bit(cuda, b, k, n):
-    """bf16 x and w at b <= 8 run the decode kernel: bitwise the FMA
-    kernel's fp32 launch on the widened operands (rounded once for a bf16
-    output), with bias and silu, gelu or none, bf16 or fp32 out; every row
-    bitwise its b = 1 launch."""
-    x, w, bias = _decode_operands(cuda, b, k, n)
-    for act, out in (("silu", BF16), ("gelu", torch.float32),
-                     ("none", BF16)):
-        got, on = _on_decode_kernel(lambda: sa_fc_matmul(
-            x, w, bias, act=act, out_dtype=out))
-        assert on and got.dtype == out
-        fp32 = sa_fc_matmul(x.float(), w.float(), bias, act=act)
-        assert torch.equal(got, fp32.to(out)), (act, out)
+def test_sa_fc_tc_decode_within_the_bound_of_the_fma_kernel(cuda, b, k, n):
+    """bf16 x and w at b <= 8 run the tensor-core kernel: within the
+    derived bound of the FMA kernel's fp32 launch on the widened operands;
+    with bias and silu, gelu or none, the bf16 output its fp32 output
+    rounded once; every row bitwise its b = 1 launch."""
+    x, w, _, bias, wide = _decode_operands(cuda, b, k, n)
+    for act in ("silu", "gelu", "none"):
+        got, on = _on_tc_kernel(lambda: sa_fc_matmul(
+            x, w, bias, act=act, out_dtype=BF16))
+        assert on and got.dtype == BF16
+        fp32 = sa_fc_matmul(x, w, bias, act=act, out_dtype=torch.float32)
+        assert torch.equal(got, fp32.to(BF16)), act
+    for out in (BF16, torch.float32):
+        _fc_within_widened_bound(x, w, None, wide, out)
     alone = torch.cat([sa_fc_matmul(x[i:i + 1].contiguous(), w, bias,
                                     act="none", out_dtype=BF16)
                        for i in range(b)])
@@ -812,67 +828,94 @@ def test_sa_fc_decode_kernel_is_the_fma_kernel_bit_for_bit(cuda, b, k, n):
 @pytest.mark.parametrize("k,n", [(301, 261), (300, 260), (302, 262),
                                  (296, 257), (3999, 1001), (4097, 262),
                                  (301, 4201), (3999, 5002), (2048, 8190)])
-@pytest.mark.parametrize("b", [1, 5, 8])
-def test_sa_fc_decode_odd_widths_and_unaligned_bases(cuda, b, k, n):
+@pytest.mark.parametrize("b", [1, 5, 8, 37])
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_tc_odd_widths_and_unaligned_bases(cuda, b, k, n, wdtype):
     """Rows whose bytes allow 8- or 4-byte pieces or only elements (odd k,
     odd n), from bases one element into their buffers, narrow (k and n <=
-    4096) and wide (cp.async where TMA would take the aligned launch): the
-    decode kernel, bitwise the FMA kernel on the widened operands and the
-    aligned launch."""
-    x, w, bias = _decode_operands(cuda, b, k, n)
-    want, on = _on_decode_kernel(lambda: sa_fc_matmul(x, w, bias,
-                                                      act="relu"))
+    4096, b <= 8) and wide (cp.async where TMA would take the aligned
+    launch): the tensor-core kernel, within the bound of the FMA kernel on
+    the widened operands, bitwise the aligned launch."""
+    x, w, scale, bias, wide = _decode_operands(cuda, b, k, n, wdtype)
+    want, on = _on_tc_kernel(lambda: sa_fc_matmul(x, w, bias, act="relu",
+                                                  w_scale=scale))
     assert on
-    assert torch.equal(want, sa_fc_matmul(x.float(), w.float(), bias,
-                                          act="relu").to(BF16))
+    _fc_within_widened_bound(x, w, scale, wide, BF16)
     xo = torch.empty(b * k + 1, dtype=BF16, device=cuda)[1:].view(b, k)
-    wo = torch.empty(k * n + 1, dtype=BF16, device=cuda)[1:].view(k, n)
+    wo = torch.empty(k * n + 1, dtype=w.dtype, device=cuda)[1:].view(k, n)
     xo.copy_(x)
     wo.copy_(w)
-    got, on = _on_decode_kernel(lambda: sa_fc_matmul(xo, wo, bias,
-                                                     act="relu"))
+    got, on = _on_tc_kernel(lambda: sa_fc_matmul(xo, wo, bias, act="relu",
+                                                 w_scale=scale))
     assert on and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b,k,n", [(8, 4000, 8), (1, 4000, 16),
-                                   (4, 2048, 2048), (4, 2048, 8192),
-                                   (8, 20000, 4104), (8, 20000, 40)])
-def test_sa_fc_decode_split_launches_leave_the_arrival_counters_at_zero(
-        cuda, b, k, n):
+@pytest.mark.parametrize("b,k,n,wdtype", [
+    (8, 4000, 8, "bf16"), (1, 4000, 16, "bf16"), (4, 2048, 2048, "bf16"),
+    (4, 2048, 8192, "bf16"), (8, 20000, 4104, "bf16"), (8, 20000, 40, "bf16"),
+    (64, 9216, 4096, "fp32"), (130, 4096, 1000, "int8"),
+    (65, 20000, 40, "fp32")])
+def test_sa_fc_tc_split_launches_leave_the_arrival_counters_at_zero(
+        cuda, b, k, n, wdtype):
     """k split into segments: narrow, the partials in shared memory (125
     one-chunk segments of 8 and of 1 rows; OLMo-1B's q/k/v/o); wide, the
-    partials through the workspace and the tiles' counters (OLMo-1B's
-    gate/up; 313 segments of 4104 and of 40 columns).  Two launches
-    bitwise equal, the FMA kernel's bits, every counter back at zero."""
-    d = tfc.decode_launch(b, k, n)
-    assert d.split and d.narrow == (k <= 4096 and n <= 4096)
-    x, w, bias = _decode_operands(cuda, b, k, n)
-    first, on = _on_decode_kernel(lambda: sa_fc_matmul(x, w, bias,
-                                                       act="silu"))
-    assert on and torch.equal(first, sa_fc_matmul(x, w, bias, act="silu"))
-    assert torch.equal(first, sa_fc_matmul(x.float(), w.float(), bias,
-                                           act="silu").to(BF16))
+    partials through the workspace and the (row tile, column tile)
+    counters (OLMo-1B's gate/up; 313 segments of 4104 and of 40 columns;
+    AlexNet's fc1 at b = 64, fc3 at three row tiles).  Two launches
+    bitwise equal, within the bound of the FMA kernel, every counter back
+    at zero."""
+    x, w, scale, bias, wide = _decode_operands(cuda, b, k, n, wdtype)
+    d = tfc.tc_launch(b, k, n, w.element_size())
+    assert d.split and d.narrow == (b <= 8 and k <= 4096 and n <= 4096)
+    first, on = _on_tc_kernel(lambda: sa_fc_matmul(x, w, bias, act="silu",
+                                                   w_scale=scale))
+    assert on and torch.equal(first, sa_fc_matmul(x, w, bias, act="silu",
+                                                  w_scale=scale))
+    _fc_within_widened_bound(x, w, scale, wide, torch.float32)
     torch.cuda.synchronize()
     stream = torch.cuda.current_stream(cuda).cuda_stream
     scratch = tfc._SCRATCH.get((x.device, stream))
     assert scratch is None or not scratch[0].any()
 
 
-def test_sa_fc_decode_route_is_dtype_and_row_tile(cuda):
-    """bf16 x with bf16 w at b <= 8 takes the decode kernel; b = 9, fp32 or
-    int8 weights and fp32 x take the FMA kernel."""
+@pytest.mark.parametrize("wdtype", ["fp32", "int8", "bf16"])
+def test_sa_fc_tc_row_tiles_of_8_rows_equal_b1(cuda, wdtype):
+    """k = 1024 at n = 1000 is split into 32 one-chunk segments: narrow at
+    b <= 8 (partials in shared memory), wide above in row tiles of 8 (the
+    partials of each through the workspace).  Every row of every b is
+    bitwise its b = 1 launch, within the bound of the FMA kernel."""
+    k, n = 1024, 1000
+    d = tfc.tc_launch(64, k, n, {"fp32": 4, "int8": 1, "bf16": 2}[wdtype])
+    assert not d.narrow and (d.rows, d.row_tiles, d.segments) == (8, 8, 32)
+    x, w, scale, bias, wide = _bf16_operands(cuda, 130, k, n, wdtype)
+    alone = torch.cat([sa_fc_matmul(x[i:i + 1].contiguous(), w, bias,
+                                    act="relu", w_scale=scale)
+                       for i in range(130)])
+    for b in (1, 8, 9, 16, 17, 33, 64, 65, 130):
+        got = sa_fc_matmul(x[:b].contiguous(), w, bias, act="relu",
+                           w_scale=scale)
+        assert torch.equal(got, alone[:b]), b
+    _fc_within_widened_bound(x[:64].contiguous(), w, scale, wide,
+                             torch.float32)
+
+
+def test_sa_fc_tc_route_is_x_dtype(cuda):
+    """bf16 x takes the tensor-core kernel at every b with every weight
+    type; fp32 x the FMA kernel."""
     k, n = 512, 384
-    x, w, bias = _decode_operands(cuda, 9, k, n)
+    x, w, _, bias, _ = _decode_operands(cuda, 130, k, n)
     q = quantize(w.float())
-    for xs, ws, scale, decode in ((x[:8], w, None, True),
-                                  (x[:1], w, None, True),
-                                  (x, w, None, False),
-                                  (x[:4], w.float(), None, False),
-                                  (x[:4], q.q, q.scale, False),
-                                  (x[:4].float(), w, None, False)):
-        before = sa_fc_matmul.decode_launches
+    for xs, ws, scale, tc in ((x[:8], w, None, True),
+                              (x[:1], w, None, True),
+                              (x, w, None, True),
+                              (x[:9], w, None, True),
+                              (x[:4], w.float(), None, True),
+                              (x[:64], q.q, q.scale, True),
+                              (x[:4].float(), w, None, False),
+                              (x.float(), q.q, q.scale, False)):
+        before = sa_fc_matmul.tc_launches
         sa_fc_matmul(xs.contiguous(), ws, bias, w_scale=scale)
-        assert (sa_fc_matmul.decode_launches - before == 1) == decode
+        assert (sa_fc_matmul.tc_launches - before == 1) == tc
 
 
 @pytest.mark.parametrize("m,k,n", [(2048, 2048, 2048), (512, 2048, 8192),
@@ -1607,7 +1650,8 @@ def test_smem_queries_equal_the_launch_pass(cuda):
     assert asked >= len(launches)
     # a tile or type with no instantiation answers -1
     assert _build.smem_query("sa_fc", 0, 0, 3) == -1
-    assert _build.smem_query("sa_fc_decode", 2048, 2048, 16, 1, 1) == -1
+    assert _build.smem_query("sa_fc", 0, 2, 8) == -1         # bf16 x
+    assert _build.smem_query("sa_fc_tc", 2, 4, 2048, 2048, 12, 1, 1) == -1
     assert _build.smem_query("attention", 40, 64, 0) == -1
 
 

@@ -43,9 +43,9 @@ from repro_torch.kernels.sa_conv_implicit import (MAX_ROWS, MAX_SEGMENTS,
                                                   sa_conv_implicit,
                                                   sa_conv_plain)
 from repro_torch.kernels import sa_fc as tfc
-from repro_torch.kernels.sa_fc import (K_CHUNK, TARGET_CTAS, decode_launch,
-                                       decode_route, fc_launch, fc_split,
-                                       row_tile, sa_fc_matmul)
+from repro_torch.kernels.sa_fc import (K_CHUNK, TARGET_CTAS, fc_launch,
+                                       fc_split, row_tile, sa_fc_matmul,
+                                       tc_launch, tc_route, tc_rows)
 
 RTOL_FC = dict(rtol=3e-4, atol=3e-4)
 RTOL_CONV = dict(rtol=2e-3, atol=2e-3)
@@ -188,23 +188,26 @@ def test_sa_fc_rows_do_not_depend_on_the_batch():
 
 
 # ---------------------------------------------------------------------------
-# SA-FC's decode kernel (bf16 x and w at row tiles up to 8)
+# SA-FC's tensor-core kernel (bf16 x, every weight type, every b)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 9, 13, 64, 130])
 def test_sa_fc_decode_route_follows_dtype_and_row_tile(b):
-    """bf16 x with bf16 w at a row tile of at most 8 (b <= 8) runs the
-    decode kernel; any other dtype, or more rows, the FMA kernel.  On the
-    CPU the wrapper runs its plain version and launches neither."""
+    """bf16 x runs the tensor-core kernel whatever the weights and the
+    batch, at the row tile :func:`tc_rows` gives; fp32 x the FMA kernel.
+    On the CPU the wrapper runs its plain version and launches neither."""
     for xd in (torch.float32, torch.bfloat16):
         for wd in (torch.float32, torch.bfloat16, torch.int8):
-            want = xd == wd == torch.bfloat16 and row_tile(b) <= 8
-            assert decode_route(b, xd, wd) == want == (b <= 8 and xd == wd
-                                                       == torch.bfloat16)
-    before = (sa_fc_matmul.launches, sa_fc_matmul.decode_launches)
+            assert tc_route(xd) == (xd == torch.bfloat16)
+            if tc_route(xd):
+                d = tc_launch(b, 40, 24, torch.tensor([], dtype=wd)
+                              .element_size())
+                assert d.rows == tc_rows(b) == max(8, row_tile(b))
+                assert d.row_tiles == -(-b // d.rows)
+    before = (sa_fc_matmul.launches, sa_fc_matmul.tc_launches)
     x = torch.from_numpy(_np(0, (b, 40))).to(torch.bfloat16)
     w = torch.from_numpy(_np(1, (40, 24))).to(torch.bfloat16)
     sa_fc_matmul(x, w)
-    assert (sa_fc_matmul.launches, sa_fc_matmul.decode_launches) == before
+    assert (sa_fc_matmul.launches, sa_fc_matmul.tc_launches) == before
 
 
 #: the bf16 decode shapes (b, k, n) of the served LM paths: OLMo-1B (b = 4
@@ -222,100 +225,106 @@ LM_DECODE_SHAPES = [
 
 @pytest.mark.parametrize("b,k,n", LM_DECODE_SHAPES)
 def test_decode_units_cover_every_tile_and_segment_once(b, k, n):
-    """Every (column tile, k segment) unit runs on one worker: narrow (k
-    and n <= 4096), a warp of the CTA that owns the tile's segments, CTAs owning
-    contiguous runs of 16-column tiles whose counts differ by at most one,
-    one CTA an SM; wide, a team, the grid two CTAs an SM at most and no
-    team without a unit.  The split is the FMA kernel's; the CTAs fit an
-    SM's shared memory."""
-    d = decode_launch(b, k, n)
+    """Every (column tile, k segment, row tile) unit runs on one warp:
+    narrow (k and n <= 4096), a warp of the CTA that owns the tile's
+    segments, CTAs owning contiguous runs of 16-column tiles whose counts
+    differ by at most one, one CTA an SM; wide, the grid one CTA an SM
+    and no CTA without a unit.  The split is :func:`fc_split`'s; the CTAs
+    fit an SM's shared memory."""
+    d = tc_launch(b, k, n)
     assert (d.segments, d.seg_k) == fc_split(k, n) == (
         fc_launch(b, k, n).segments, fc_launch(b, k, n).seg_k)
-    assert d.narrow == (k <= 4096 and n <= 4096)
+    assert d.narrow == (k <= 4096 and n <= 4096) and d.rows == 8
     assert d.split == (d.segments > 1)
-    assert d.tiles == -(-n // d.cols) and d.cols == (16 if d.narrow else 128)
+    assert d.tiles == -(-n // d.cols) and d.cols == (16 if d.narrow else 64)
     runs = {}
     for c in range(d.ctas):
         if d.narrow:
             t0, t1 = d.cta_tiles(c)
             assert t1 - t0 in (d.span, d.span - 1) and t1 - t0 >= 1
         for i in range(d.workers):
-            for t, sg in d.worker_units(c, i):
+            for t, sg, rt in d.worker_units(c, i):
                 assert not d.narrow or t0 <= t < t1
-                runs[t, sg] = runs.get((t, sg), 0) + 1
-    assert sorted(runs) == [(t, sg) for t in range(d.tiles)
+                runs[t, sg, rt] = runs.get((t, sg, rt), 0) + 1
+    assert sorted(runs) == [(t, sg, 0) for t in range(d.tiles)
                             for sg in range(d.segments)]
     assert set(runs.values()) == {1}
     if d.narrow:
         assert d.ctas == min(d.tiles, 132)
-        assert d.smem == tfc.narrow_smem_bytes(d.rows, d.segments, d.span)
-        assert d.smem - tfc.narrow_smem_bytes(d.rows, 1, 1) <= 65536
-        assert d.smem + 1024 <= 233472
+        assert d.smem == tfc.narrow_smem_bytes(2, d.segments, d.span)
+        assert d.smem - tfc.narrow_smem_bytes(2, 1, 1) <= 65536
     else:
-        assert d.ctas == min(-(-d.tiles * d.segments // 2), 264)
-        assert d.smem == tfc.wide_smem_bytes(d.rows)
-        assert tfc.PER_SM * (d.smem + 1024) <= 233472
+        assert d.ctas == min(d.tiles * d.segments, 132)
+        assert d.smem == tfc.wide_smem_bytes(d.rows, 2)
+    assert d.smem + 1024 <= 233472
 
 
 @settings(max_examples=60, deadline=None)
 @given(k=st.integers(0, 30000), n=st.integers(1, 60000))
 def test_decode_assignment_does_not_depend_on_the_batch(k, n):
-    """The mode, the grid and the units of each worker are the same at
-    every b the decode kernel takes; only the row tile (and so the
-    stages' x rows, the partials' and the lane sums' bytes) follows b."""
-    one = decode_launch(1, k, n)
+    """The mode, the grid and the units of each warp are the same at every
+    b of a row tile; the split over k at every b; from b = 9 wide, at row
+    tiles of 8 where k is split into 8 or more segments, else of 16 and
+    up."""
+    one = tc_launch(1, k, n)
     sample = [(c, i) for c in sorted({0, one.ctas // 2, one.ctas - 1})
               for i in range(one.workers)]
     for b in range(2, 9):
-        d = decode_launch(b, k, n)
-        assert d.rows == row_tile(b)
+        d = tc_launch(b, k, n)
+        assert d.rows == 8
         assert (d.narrow, d.segments, d.seg_k, d.tiles, d.ctas, d.span) == (
             one.narrow, one.segments, one.seg_k, one.tiles, one.ctas,
             one.span)
         assert all(d.worker_units(c, i) == one.worker_units(c, i)
                    for c, i in sample)
-    with pytest.raises(ValueError):
-        decode_launch(9, k, n)
+    for b in (9, 33, 64, 65, 512):
+        d = tc_launch(b, k, n)
+        assert not d.narrow and d.rows == tc_rows(b, d.segments)
+        assert d.rows == (8 if d.segments >= 8 else tc_rows(b))
+        assert (d.segments, d.seg_k) == (one.segments, one.seg_k)
 
 
 def test_decode_constants_match_the_cuda_source():
-    """kernels/sa_fc.py mirrors csrc/sa_fc_decode.cu's two modes: the
-    narrow units, warps, rings and partials; the wide tiles, teams, rings
-    and stage layout; the mode boundary; and the ctypes signatures have
-    the launch's 16 arguments and the query's 5."""
-    src = (_build.CSRC / "sa_fc_decode.cu").read_text()
+    """kernels/sa_fc.py mirrors csrc/sa_fc_tc.cu's two modes: the narrow
+    units, warps and partials; the wide warps and rings; the chunk, the x
+    row and the mode boundary; and the ctypes signatures have the launch's
+    17 arguments and the query's 7."""
+    src = (_build.CSRC / "sa_fc_tc.cu").read_text()
     narrow = src[src.index("namespace narrow {"):
                  src.index("}  // namespace narrow")]
     wide = src[src.index("namespace wide {"):src.index("}  // namespace wide")]
     for part, name, value in (
-            (src, "KL", tfc.K_LANES), (src, "KG", 8),
-            (src, "SM_COUNT", tfc.SM_COUNT),
-            (src, "NARROW_MAX", tfc.NARROW_MAX),
+            (src, "BK", tfc.K_CHUNK), (src, "SM_COUNT", tfc.SM_COUNT),
+            (src, "NARROW_MAX", tfc.NARROW_MAX), (src, "ROWS", 8),
             (narrow, "WARPS", tfc.N_WARPS), (narrow, "GCOLS", tfc.GCOLS),
-            (narrow, "DEPTH", tfc.N_DEPTH),
             (narrow, "PART_SMEM_MAX", tfc.PART_SMEM_MAX),
-            (wide, "TILE", tfc.TILE), (wide, "TEAMS", tfc.TEAMS),
-            (wide, "PER_SM", tfc.PER_SM), (wide, "DEPTH", tfc.W_DEPTH),
-            (wide, "X_BYTES", 128)):
+            (wide, "DEPTH", tfc.W_DEPTH)):
         assert f"constexpr int {name} = {value};" in part, name
     for part, line in (
-            (src, "constexpr int BK = KL * KG;"),
-            (narrow, "constexpr int LANE_BLOCK = KG * ROW_BYTES + 32;"),
-            (narrow, "constexpr int X_OFF = KL * LANE_BLOCK;"),
-            (narrow, "__host__ __device__ constexpr int stage_bytes(int rb) "
-                     "{ return X_OFF + rb * BK * 2; }"),
-            (wide, "constexpr int W_BYTES = KG * TILE * 2;"),
-            (wide, "constexpr int STAGE = W_BYTES + X_BYTES;"),
-            (wide, "return 128 + WARPS * DEPTH * STAGE + TEAMS * (KL - 1) * "
-                   "rb * TILE * 4 + WARPS * DEPTH * 8;")):
+            (src, "constexpr int X_ROW = BK * 2;"),
+            (narrow, "static constexpr int DEPTH = sizeof(WT) == 4 ? 4 : 6;"),
+            (narrow, "static constexpr int STAGE = W_BYTES + ROWS * X_ROW;"),
+            (wide, "static constexpr int TC = RB <= 16 ? (WB == 4 ? 32 : "
+                   "64) : 2048 / RB;"),
+            (wide, "static constexpr int WARPS = RB <= 16 ? 8 : 4;"),
+            (wide, "static constexpr int STAGE = (W_BYTES + X_BYTES + 1023) "
+                   "/ 1024 * 1024;"),
+            (wide, "static constexpr int SP = TC + 4;"),
+            (wide, "1024 + WARPS * DEPTH * STAGE + WARPS * RB * SP * 4 + "
+                   "WARPS * DEPTH * 8;")):
         assert line in part, line
-    assert K_CHUNK == 32 and tfc.N_X_OFF == 4 * (8 * 16 * 2 + 32) == 1152
-    assert tfc.W_STAGE == 8 * 128 * 2 + 128
-    name, args = _build.SIGNATURES["sa_fc_decode"]
-    assert name == "sa_fc_decode_launch" and len(args) == 16
-    assert _build.SMEM_SIGNATURES["sa_fc_decode"] == ("sa_fc_decode_smem",
-                                                      (ctypes.c_int,) * 5)
-    assert "sa_fc_decode" in _build.SOURCES
+    assert tfc.TC_ROWS == (8, 16, 32, 64) and tfc.X_ROW == 64
+    assert "case 8: return launch_kernel<WT, 8>(a);" in src
+    assert "case 64: return launch_kernel<WT, 64>(a);" in src
+    assert [tfc.tc_cols(r, wb) for r in tfc.TC_ROWS for wb in (4, 2, 1)] == [
+        32, 64, 64, 32, 64, 64, 64, 64, 64, 32, 32, 32]
+    assert [tfc.wide_warps(r) for r in tfc.TC_ROWS] == [8, 8, 4, 4]
+    name, args = _build.SIGNATURES["sa_fc_tc"]
+    assert name == "sa_fc_tc_launch" and len(args) == 17
+    assert _build.SMEM_SIGNATURES["sa_fc_tc"] == ("sa_fc_tc_smem",
+                                                  (ctypes.c_int,) * 7)
+    assert "sa_fc_tc" in _build.SOURCES and "sa_fc_decode" not in \
+        _build.SOURCES
 
 
 # ---------------------------------------------------------------------------
